@@ -9,8 +9,13 @@ Phases, each printed as one JSON line on standard output:
    (every csrc/*.cu is compiled by its own nvcc, all at once).
 2. kernel_check: on a 128x128 terrain with 64 lanes, the pass kernel against
    its plain PyTorch version (one forced down pass, one up pass; fields
-   within atol + rtol*|d|, flags equal) and the class-pred kernel against its
-   plain version on the same fields (int8 tables and flags identical).
+   within atol + rtol*|d|, flags equal), the class-pred kernel against its
+   plain version on the same fields (int8 tables and flags identical), the
+   check kernel against its plain version on a converged field and on it with
+   one element lowered and one raised (flags equal), and the pass kernel in
+   its warm modes (dirty table + warm cut) against its plain version from a
+   converged field with a raised patch (fields within atol + rtol*|d|, dirty
+   tables and flags equal).
 3. main_path: the headline pipeline at full width — 1024x1024 terrain
    (V = 1,048,576), 1024 lanes, f32, atol 1e-4 / rtol 2e-3: steepness costs
    -> slot weights -> banded plan -> DijkstraPlanner.plan_batch_banded ->
@@ -21,7 +26,25 @@ Phases, each printed as one JSON line on standard output:
    below 1%.
 5. kernels at the main path's shapes: each kernel against its plain version
    on the main path's own field, with its time, the plain version's time and
-   the bound; then the `{"kernels": [...]}` line.
+   the bound.
+6. replan: the live-replan cascade at full width (bench.py:367-445) on the
+   same mesh — layers steepness + obstacle + inflation + max combination,
+   128 lanes, one cold base solve, a warm-up step, then the jump / drift /
+   clear pattern of 512-point clouds, timed ITERS times: ms and Hz per update,
+   rounds per pattern, per-stage device times, launches per step, one traced
+   step for the idle share. Gates: every step's warm field against a cold
+   solve on that step's planes (same finite set, max relative difference
+   below 1%), `converged` after every step, two lanes of the last field
+   against the native heap Dijkstra on its costs (below 1%), and the check
+   and warm-mode pass kernels launched.
+7. kernels at the replan shapes: the warm resolve of the last update pass by
+   pass (warm pass ms per launch against its bound, the share of rows each
+   pass leaves unchanged), the check kernel against its plain version with its
+   time and bound; then the `{"kernels": [...]}` line.
+
+Kernel launches are counted per path: the counts are set to 0 just before
+the main path and again before the replan path, and read just after each;
+launches made to hold a kernel against its plain version are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`; the last is
@@ -49,6 +72,11 @@ SEED = 0
 # operations per field element, counted from the kernels' sources
 PASS_OPS = 14   # 3 add + 3 min (cross), 1 min, flag mul+add+cmp, 2 x (add+min) scans
 PRED_OPS = 26   # 8 x (add+cmp+select), has: mul+add+3 cmp, flag: mul+add+cmp
+CHECK_OPS = 19  # 8 add + 7 min (best), flag: mul+add+cmp, or
+REPLAN_BATCH = 128          # lanes per update (bench.py:395)
+# the kernels each path runs; each must launch at least once on its path
+MAIN_PATH_KERNELS = ("banded_pass", "class_pred")
+REPLAN_KERNELS = ("banded_pass", "banded_pass_dirty", "check")
 
 
 def emit(obj) -> None:
@@ -129,20 +157,23 @@ def device_busy(fn, device) -> dict:
 
 
 def steepness_setup(mesh_n: int, device, cost_limit: float = 2.0):
-    """Terrain -> mesh -> steepness costs -> slot weights -> banded plan."""
-    import torch
+    """Terrain -> mesh -> steepness costs (the steepness layer) -> slot
+    weights for the banded plan."""
+    from mesh_navigation_torch.config import LayerConfig
+    from mesh_navigation_torch.layers.local import make_steepness
     from mesh_navigation_torch.mesh import synthetic
-    from mesh_navigation_torch.mesh.arrays import build_mesh, host_array
+    from mesh_navigation_torch.mesh.arrays import build_mesh
     from mesh_navigation_torch.ops import sweeps
 
     v, f = synthetic.terrain_mesh(
         mesh_n, mesh_n, spacing=0.5, hills=2.0, roughness=0.01, seed=0
     )
     mesh = build_mesh(v, f, device=device)
-    nz = np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0)
-    costs_np = np.arccos(nz).astype(np.float32)
+    steep = make_steepness(LayerConfig(name="steep", kind="steepness", params=(("threshold", 2.0),)))
+    costs = steep(mesh, {}, {}).costs
+    costs_np = costs.cpu().numpy()
     W = sweeps.slot_weights_np(mesh, costs_np, cost_limit=cost_limit, edge_cost_factor=1.0)
-    return v, f, mesh, costs_np, torch.from_numpy(costs_np).to(device), W
+    return v, f, mesh, costs_np, costs, W
 
 
 def sample_scenarios(rng, mesh_n: int, batch: int):
@@ -218,12 +249,110 @@ def check_pred_pair(plan, d_pad, atol, rtol) -> dict:
     return res
 
 
-def kernel_check(device, mesh_n: int = 128, batch: int = 64) -> dict:
-    """Phase 2: both kernels against their plain versions at a small size."""
+class uncounted:
+    """Launches inside this block (kernel-vs-plain comparisons, gates) leave
+    the path's launch counts as they were."""
+
+    def __enter__(self):
+        from mesh_navigation_torch.ops import kernels
+
+        self.saved = dict(kernels.LAUNCHES)
+
+    def __exit__(self, *exc):
+        from mesh_navigation_torch.ops import kernels
+
+        kernels.LAUNCHES.update(self.saved)
+        return False
+
+
+def check_flag_pair(d, w8, atol, rtol) -> dict:
+    """Check kernel vs plain on one field: the violation flags must agree
+    (abs_err, the difference of the two flags as 0/1, must be 0)."""
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    k = int(bg.check(d, w8, atol=atol, rtol=rtol).item() != 0)
+    p = int(bool(bg.check_plain(d, w8, atol=atol, rtol=rtol)))
+    if k != p:
+        raise AssertionError(f"check kernel disagrees with its plain version: {k} vs {p}")
+    return {"violation": bool(p), "abs_err": abs(k - p)}
+
+
+def check_cases(d, plan, atol, rtol) -> dict:
+    """The check kernel on a converged field, and on it with one element
+    lowered and one raised: the flag must flip to a violation."""
     import torch
     from mesh_navigation_torch.ops import banded_gpu as bg
 
-    _, _, mesh, _, _, W = steepness_setup(mesh_n, device)
+    w8 = bg._w8_planes(plan, d.shape[0])
+    out = {"converged": check_flag_pair(d, w8, atol, rtol)}
+    fin = torch.nonzero(torch.isfinite(d[: plan.n_rows, : plan.n_cols, :1]))
+    r, c, b = fin[len(fin) // 2].tolist()
+    for name, new in (("lowered", torch.clamp(d[r, c, b] - 1.0, min=0.0) * 0.5),
+                      ("raised", d[r, c, b] * 1.5 + 1.0)):
+        old = d[r, c, b].clone()
+        d[r, c, b] = new
+        out[name] = check_flag_pair(d, w8, atol, rtol)
+        d[r, c, b] = old
+    if out["converged"]["violation"] or not (out["lowered"]["violation"]
+                                             and out["raised"]["violation"]):
+        raise AssertionError(f"check flags do not flip as they should: {out}")
+    return out
+
+
+def warm_inputs(plan, mesh, costs, seeds, raise_rows, raise_cols, atol, rtol):
+    """A converged field on `costs`, then new costs with a raised patch:
+    the warm resolve's first-pass inputs (pallas_banded.py:1686-1789)."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    C = plan.n_cols
+    new = costs.clone()
+    for r in raise_rows:
+        new[r * C + raise_cols] = torch.inf
+    kw = dict(edge_cost_factor=1.0, cost_limit=2.0)
+    plan0 = bg.refresh_banded_planes_from_costs(plan, costs, **kw)
+    plan1 = bg.refresh_banded_planes_from_costs(plan, new, **kw)
+    d_prev = bg.banded_solve_padded(plan0, seeds, atol=atol, rtol=rtol).d_pad
+    changed = bg.changed_plane_from_costs(plan, costs, new)
+    raised = bg.raised_plane_from_costs(plan, costs, new)
+    return plan1, d_prev, changed, raised, bg.position_planes(plan, mesh)
+
+
+def check_warm_pass_pair(plan1, seeds, d_prev, changed, raised, pos, atol, rtol) -> dict:
+    """The pass kernel in its warm modes against its plain version: the cut
+    + dirty down pass, then the dirty up pass, from the same inputs."""
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    Rp = d_prev.shape[0]
+    d_k, dirty_k, cut = bg._warm_start(plan1, seeds, d_prev, changed, raised, pos,
+                                       Rp=Rp, bb=bg.PASS_LANES, atol=atol, rtol=rtol)
+    d_p, dirty_p = d_k.clone(), dirty_k.clone()
+    prob = bg.prepare_padded(plan1, seeds, seeded=False)
+    out = {}
+    for name, reverse, cross, wc in (("down_cut", False, prob.down, cut),
+                                     ("up", True, prob.up, None)):
+        ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, reverse=reverse,
+                                 atol=atol, rtol=rtol, dirty=dirty_k, warm_cut=wc)
+        cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, reverse=reverse,
+                                       bb=prob.bb, atol=atol, rtol=rtol, dirty=dirty_p,
+                                       warm_cut=wc)
+        cmp = compare_fields(d_k, d_p, atol, rtol)
+        cmp["flags_equal"] = bool(ck.item()) == bool(cp.item())
+        cmp["dirty_equal"] = bool((dirty_k == dirty_p).all())
+        cmp["dirty_rows"] = int(dirty_p.sum())
+        out[name] = cmp
+        if not (cmp["within_tol"] and cmp["flags_equal"] and cmp["dirty_equal"]):
+            raise AssertionError(f"warm pass kernel disagrees with its plain version: {name} {cmp}")
+        d_k.copy_(d_p)
+    return out
+
+
+def kernel_check(device, mesh_n: int = 128, batch: int = 64) -> dict:
+    """Phase 2: every kernel against its plain version at a small size."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    _, _, mesh, _, costs, W = steepness_setup(mesh_n, device)
     plan = bg.build_banded_kernel_plan(mesh, W)
     rng = np.random.default_rng(SEED + 1)
     seeds = torch.from_numpy(rng.integers(0, mesh.num_vertices, batch)).to(device)
@@ -235,9 +364,15 @@ def kernel_check(device, mesh_n: int = 128, batch: int = 64) -> dict:
     pred_conv = check_pred_pair(plan, full.d_pad, ATOL, RTOL)
     if not full.converged or pred_conv["violation"]:
         raise AssertionError("small solve did not converge")
+    checks = check_cases(full.d_pad, plan, ATOL, RTOL)
+    mid = mesh_n // 2
+    plan1, *inputs = warm_inputs(plan, mesh, costs, seeds, range(mid - 2, mid + 3),
+                                 torch.arange(mid - 2, mid + 3, device=device), ATOL, RTOL)
+    warm = check_warm_pass_pair(plan1, seeds, *inputs, ATOL, RTOL)
     return {"phase": "kernel_check", "mesh": f"{mesh_n}x{mesh_n}", "lanes": batch,
             "pass": passes, "pred_after_one_round": pred_partial,
-            "pred_converged": pred_conv, "rounds": full.rounds}
+            "pred_converged": pred_conv, "rounds": full.rounds, "check": checks,
+            "warm_pass": warm}
 
 
 def main_path(device, mesh_n: int, batch: int, iters: int) -> dict:
@@ -294,7 +429,7 @@ def main_path(device, mesh_n: int, batch: int, iters: int) -> dict:
         rounds.append(res.rounds)
     sync(device)
     dt = time.perf_counter() - t1
-    launches = dict(kernels.LAUNCHES)
+    launches = {name: kernels.LAUNCHES[name] for name in MAIN_PATH_KERNELS}
     for name, n in launches.items():
         if n <= 0 and torch.device(device).type == "cuda":
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -329,12 +464,35 @@ def main_path(device, mesh_n: int, batch: int, iters: int) -> dict:
                      warm=warm, warm_res=warm_res, res=res, rounds=rounds)
 
 
+def native_distances(v, f, costs_np, sources, cost_limit: float = 2.0) -> list:
+    """The native heap Dijkstra's distance field from each source vertex,
+    over edge weights dist * (1 + (c1 + c2) / 2) (edge_cost_factor 1.0)."""
+    from mesh_navigation_torch.native import NativeMesh
+
+    nm = NativeMesh(v, f)
+    try:
+        edges = nm.tables()["edges"]
+        dist = np.linalg.norm(v[edges[:, 1]] - v[edges[:, 0]], axis=1).astype(np.float32)
+        c1, c2 = costs_np[edges[:, 0]], costs_np[edges[:, 1]]
+        ew = np.where(np.isfinite(c1) & np.isfinite(c2),
+                      dist + dist * (c1 + c2) * 0.5, np.inf).astype(np.float32)
+        return [nm.dijkstra(ew, costs_np, int(s), cost_limit)[0] for s in sources]
+    finally:
+        nm.close()
+
+
+def percentile_rel_err(got, ref) -> float:
+    """99.9th percentile of |got - ref| / max(ref, 1e-3) where ref is finite
+    (bench.py:169-204)."""
+    fin = np.isfinite(ref)
+    return float(np.percentile(np.abs(got[fin] - ref[fin]) / np.maximum(ref[fin], 1e-3), 99.9))
+
+
 def oracle_gate(ctx, n_lanes: int = 2) -> dict:
     """Phase 4: path-cost parity against the native heap Dijkstra
     (bench.py:169-204), gated at 1%."""
     import torch
     from mesh_navigation_torch.mesh import query
-    from mesh_navigation_torch.native import NativeMesh
     from mesh_navigation_torch.planners.dijkstra import potential_lanes
 
     planner, kplan, mesh = ctx["planner"], ctx["kplan"], ctx["mesh"]
@@ -344,26 +502,12 @@ def oracle_gate(ctx, n_lanes: int = 2) -> dict:
     gv = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(g[:n_lanes]).to(dev))[0].cpu().numpy()
     res = ctx["warm_res"]
     pot = potential_lanes(kplan, res.d_pad, res.lane_map, list(range(n_lanes)))
-    costs_np = ctx["costs_np"]
-    nm = NativeMesh(ctx["v"], ctx["f"])
-    try:
-        edges = nm.tables()["edges"]
-        v = ctx["v"]
-        dist = np.linalg.norm(v[edges[:, 1]] - v[edges[:, 0]], axis=1).astype(np.float32)
-        c1, c2 = costs_np[edges[:, 0]], costs_np[edges[:, 1]]
-        ew = np.where(np.isfinite(c1) & np.isfinite(c2),
-                      dist + dist * (c1 + c2) * 0.5, np.inf).astype(np.float32)
-        errs = []
-        for b in range(n_lanes):
-            od, _ = nm.dijkstra(ew, costs_np, int(gv[b]), 2.0)
-            ref, got = od[sv[b]], pot[b, sv[b]]
-            if np.isfinite(ref) and ref > 0:
-                errs.append(abs(got - ref) / ref)
-            fin = np.isfinite(od)
-            rel = np.abs(pot[b][fin] - od[fin]) / np.maximum(od[fin], 1e-3)
-            errs.append(float(np.percentile(rel, 99.9)))
-    finally:
-        nm.close()
+    errs = []
+    for b, od in enumerate(native_distances(ctx["v"], ctx["f"], ctx["costs_np"], gv[:n_lanes])):
+        ref, got = od[sv[b]], pot[b, sv[b]]
+        if np.isfinite(ref) and ref > 0:
+            errs.append(abs(got - ref) / ref)
+        errs.append(percentile_rel_err(pot[b], od))
     err = float(np.max(errs))
     if not err < 0.01:
         raise AssertionError(f"oracle parity {err:.3e} exceeds the 1% budget")
@@ -453,8 +597,248 @@ def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
     return detail, line
 
 
+def replan_config():
+    """The replan configuration of bench.py:367-380."""
+    from mesh_navigation_torch.config import LayerConfig, MeshMapConfig, NavConfig, PlannerConfig
+
+    return NavConfig(
+        mesh_map=MeshMapConfig(default_layer="combine", edge_cost_factor=1.0),
+        planner=PlannerConfig(cost_limit=2.0),
+        layers=(
+            LayerConfig(name="steep", kind="steepness", params=(("threshold", 2.0),)),
+            LayerConfig(name="obst", kind="obstacle"),
+            LayerConfig(name="infl", kind="inflation", inputs=("obst",),
+                        params=(("repulsive_field", 0.0),)),
+            LayerConfig(name="combine", kind="max_combination",
+                        inputs=("steep", "obst", "infl")),
+        ),
+    )
+
+
+def update_clouds(rng, v, mesh_n: int, n_pts: int = 512):
+    """bench.py:401-422: points hovering 0.3 above a +-2-row/col patch of
+    vertices, in the pattern jump (a random centre) / drift (+3 rows, +3
+    cols) / clear (z_off 1e4: every ray misses)."""
+    V = len(v)
+
+    def cloud(center, z_off=0.3):
+        ids = np.clip(center + rng.integers(-2, 3, n_pts) * mesh_n
+                      + rng.integers(-2, 3, n_pts), 0, V - 1)
+        return (v[ids] + np.asarray([0, 0, z_off], np.float32)).astype(np.float32)
+
+    c0 = int(rng.integers(0, V))
+    drift = int(np.clip(c0 + 3 * mesh_n + 3, 0, V - 1))
+    return [("jump", cloud(c0)), ("drift", cloud(drift)), ("clear", cloud(c0, z_off=1e4))]
+
+
+def warm_vs_cold(step, seeds, d_warm) -> dict:
+    """Gate 1: the warm field against a cold converge="round" solve on the
+    step's own planes: the same finite set, max relative difference < 1%.
+    Also reads (no gate) the largest difference in units of the stopping
+    tolerance atol + rtol*|cold|, the measure the CPU tests hold at 2."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    cold = bg.banded_solve_padded(step.last["plan"], seeds, atol=ATOL, rtol=RTOL,
+                                  converge="round").d_pad
+    fin = torch.isfinite(cold)
+    same = bool(torch.equal(fin, torch.isfinite(d_warm)))
+    diff = (d_warm[fin] - cold[fin]).abs()
+    rel = float((diff / cold[fin].abs().clamp(min=1e-3)).max())
+    tol_ratio = float((diff / (ATOL + RTOL * cold[fin].abs())).max())
+    nan = bool(torch.isnan(d_warm).any())
+    if not (same and rel < 0.01 and not nan):
+        raise AssertionError(f"warm field vs cold solve: same finite set {same}, "
+                             f"max rel {rel:.3e}, nan {nan}")
+    return {"same_finite_set": same, "max_rel_err": rel, "tol_ratio": tol_ratio}
+
+
+def replan(device, ctx, iters: int) -> tuple[dict, dict]:
+    """Phase 6: the live-replan cascade at full width through
+    MeshNavServer.make_replan_step."""
+    import torch
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.ops import banded_gpu as bg
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    mesh, v = ctx["mesh"], ctx["v"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = MeshNavServer(mesh, replan_config(), grid=ctx["planner"].grid, device=device)
+    step = srv.make_replan_step("obst")
+    sync(device)
+    t_setup = time.perf_counter() - t0
+    log(f"# replan server + step built in {t_setup:.1f} s")
+    rng = np.random.default_rng(SEED + 2)
+    seeds = torch.from_numpy(np.sort(rng.integers(0, mesh.num_vertices, REPLAN_BATCH))).to(device)
+
+    kernels.reset_launches()
+    tb = time.perf_counter()
+    base = bg.banded_solve_padded(srv.banded_plan, seeds, atol=ATOL, rtol=RTOL)
+    sync(device)
+    base_ms = (time.perf_counter() - tb) * 1e3
+    base_launches = {name: kernels.LAUNCHES[name] for name in REPLAN_KERNELS}
+    costs, d = srv.vertex_costs, base.d_pad
+    gates = {"warm_vs_cold": [], "converged": []}
+    log_steps = []
+    inputs = {}   # the newest update of each pattern: its inputs and planes
+
+    def one(name, pts, timer=None):
+        nonlocal costs, d
+        d_in, costs_in = d, costs
+        sync(device)
+        t = time.perf_counter()
+        costs, d, rounds = step(torch.from_numpy(pts).to(device), costs, d, seeds, timer=timer)
+        sync(device)
+        ms = (time.perf_counter() - t) * 1e3
+        gates["converged"].append(bool(step.last["converged"]))
+        if not step.last["converged"]:
+            raise AssertionError(f"replan step {name} did not converge in {rounds} rounds")
+        with uncounted():
+            gates["warm_vs_cold"].append(warm_vs_cold(step, seeds, d))
+        log_steps.append({"pattern": name, "ms": ms, "rounds": rounds,
+                          "lethal": int(torch.isinf(costs).sum())})
+        inputs[name] = dict(d_prev=d_in, costs_prev=costs_in, costs=costs,
+                            plan=step.last["plan"])
+
+    tw = time.perf_counter()
+    one("warmup", update_clouds(rng, v, mesh_n)[0][1])
+    warmup_s = time.perf_counter() - tw
+    timers = {name: StageTimer(device) for name in ("jump", "drift", "clear")}
+    n_steps = 0
+    for _ in range(iters):
+        for name, pts in update_clouds(rng, v, mesh_n):
+            one(name, pts, timer=timers[name])
+            n_steps += 1
+    launches = {name: kernels.LAUNCHES[name] for name in REPLAN_KERNELS}
+    for name, n in launches.items():
+        if n <= 0 and torch.device(device).type == "cuda":
+            raise AssertionError(f"kernel {name} was not launched on the replan path")
+    timed = log_steps[1:]
+    per_pattern = {}
+    for name in ("jump", "drift", "clear"):
+        ms = [x["ms"] for x in timed if x["pattern"] == name]
+        per_pattern[name] = {"ms": ms, "rounds": [x["rounds"] for x in timed if x["pattern"] == name],
+                             "lethal_vertices": [x["lethal"] for x in timed if x["pattern"] == name],
+                             "mean_ms": float(np.mean(ms)),
+                             "stage_ms": {k: val / len(ms) for k, val in timers[name].totals().items()}}
+    ms_per_update = float(np.mean([x["ms"] for x in timed]))
+    stages = {}
+    for t in timers.values():
+        for k, val in t.totals().items():
+            stages[k] = stages.get(k, 0.0) + val / n_steps
+
+    # gate 2: two lanes of the last field against the native heap Dijkstra
+    with uncounted():
+        costs_np = costs.cpu().numpy()
+        R, C, V = srv.banded_plan.n_rows, srv.banded_plan.n_cols, mesh.num_vertices
+        errs, same_sets = [], []
+        src = seeds[:2].cpu().numpy()
+        for b, od in enumerate(native_distances(v, ctx["f"], costs_np, src)):
+            pot = d[:R, :C, b].reshape(-1)[:V].cpu().numpy()
+            same_sets.append(bool(np.array_equal(np.isfinite(pot), np.isfinite(od))))
+            errs.append(percentile_rel_err(pot, od))
+        oracle = {"lanes": 2, "max_rel_err": float(np.max(errs)), "same_finite_set": same_sets,
+                  "budget": 0.01}
+        if not (oracle["max_rel_err"] < 0.01 and all(same_sets)):
+            raise AssertionError(f"replan oracle parity failed: {oracle}")
+    # one more jump update under the profiler: the step alone, no gate
+    traced_pts = torch.from_numpy(update_clouds(rng, v, mesh_n)[0][1]).to(device)
+    trace = device_busy(lambda: step(traced_pts, costs, d, seeds), device)
+    out = {
+        "phase": "replan", "mesh": f"{mesh_n}x{mesh_n}", "V": mesh.num_vertices,
+        "lanes": REPLAN_BATCH, "atol": ATOL, "rtol": RTOL, "setup_s": t_setup,
+        "base_solve_ms": base_ms, "base_rounds": base.rounds, "warmup_s": warmup_s,
+        "iters": iters, "updates": n_steps, "ms_per_update": ms_per_update,
+        "updates_per_s": 1e3 / ms_per_update, "per_pattern": per_pattern,
+        "stage_ms_per_update": stages, "launches": launches,
+        "launches_per_update": {k: (n - base_launches[k]) / (n_steps + 1)
+                                for k, n in launches.items()},
+        "gates": {"converged_every_step": all(gates["converged"]),
+                  "warm_vs_cold_max_rel": max(g["max_rel_err"] for g in gates["warm_vs_cold"]),
+                  "warm_vs_cold_tol_ratio": [g["tol_ratio"] for g in gates["warm_vs_cold"]],
+                  "warm_vs_cold_same_finite_set": all(g["same_finite_set"]
+                                                      for g in gates["warm_vs_cold"]),
+                  "oracle": oracle},
+        "trace": trace,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+        if torch.device(device).type == "cuda" else None,
+    }
+    return out, dict(srv=srv, seeds=seeds, launches=launches, **inputs["jump"])
+
+
+def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
+    """Phase 7: the warm resolve of the last timed jump update again, pass
+    by pass, each launch timed by its own event pair; the check kernel
+    against its plain version on the converged field. Not counted for the
+    path."""
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    srv, seeds, plan = rctx["srv"], rctx["seeds"], rctx["plan"]
+    costs_prev, d_prev, costs = rctx["costs_prev"], rctx["d_prev"], rctx["costs"]
+    plan0 = srv.banded_plan
+    changed = bg.changed_plane_from_costs(plan0, costs_prev, costs)
+    raised = bg.raised_plane_from_costs(plan0, costs_prev, costs)
+    pos = bg.position_planes(plan0, srv.mesh)
+    Rp = d_prev.shape[0]
+    warm_cmp = check_warm_pass_pair(plan, seeds, d_prev, changed, raised, pos, ATOL, RTOL)
+    d, dirty, cut = bg._warm_start(plan, seeds, d_prev, changed, raised, pos,
+                                   Rp=Rp, bb=bg.PASS_LANES, atol=ATOL, rtol=RTOL)
+    prob = bg.prepare_padded(plan, seeds, seeded=False)
+    w8 = bg._w8_planes(plan, Rp)
+    _, Cp, Bp = d.shape
+    N = Rp * Cp * Bp
+    nb = Bp // bg.PASS_LANES
+    times, bounds, unchanged = [], [], []
+    ok, rounds = False, 0
+    while not ok and rounds < 64:
+        for reverse, cross in ((False, prob.down), (True, prob.up)):
+            wc = cut if (rounds == 0 and not reverse) else None
+            before = d.clone()
+            times.append(time_ms(lambda: bg.directional_pass(
+                d, cross, prob.a_fwd, prob.a_bwd, reverse=reverse, atol=ATOL, rtol=RTOL,
+                dirty=dirty, warm_cut=wc), device))
+            diff = d != before
+            del before
+            n_written = int(diff.sum())
+            rows_changed = diff.view(Rp, Cp, nb, bg.PASS_LANES).any(dim=3).any(dim=1)
+            unchanged.append(1.0 - float(rows_changed.float().mean()))
+            # one read of the field, the planes it reads (cross, level 0 of
+            # a_fwd / a_bwd, and cutlb on the cut pass), the dirty table read
+            # and written, one write of each element the pass changed
+            plane_elems = 5 * Rp * Cp + (Rp * Cp if wc is not None else 0)
+            bounds.append((N + plane_elems + 2 * nb * Rp + n_written) * 4 / HBM_BYTES_PER_S)
+        rounds += 1
+        ok = not bool(bg.check(d, w8, atol=ATOL, rtol=RTOL).item())
+    warm_ms = float(np.mean(times))
+    warm_bound = max(float(np.mean(bounds)), PASS_OPS * N / F32_OPS_PER_S) * 1e3
+
+    checks = check_cases(d, plan, ATOL, RTOL)
+    time_ms(lambda: bg.check(d, w8, atol=ATOL, rtol=RTOL), device)          # warm
+    check_ms = time_ms(lambda: bg.check(d, w8, atol=ATOL, rtol=RTOL), device, reps=5)
+    plain_check_ms = time_ms(lambda: bg.check_plain(d, w8, atol=ATOL, rtol=RTOL), device)
+    check_bytes_s = (N + 8 * Rp * Cp) * 4 / HBM_BYTES_PER_S
+    check_ops_s = CHECK_OPS * N / F32_OPS_PER_S
+    detail = {"phase": "kernels_at_replan_shapes", "field": [Rp, Cp, Bp], "warm_pass": warm_cmp,
+              "warm_rounds": rounds, "warm_pass_launch_ms": times,
+              "warm_pass_bound_ms": [b * 1e3 for b in bounds],
+              "warm_pass_unchanged_row_share": unchanged, "check": checks,
+              "check_ms": check_ms, "check_plain_ms": plain_check_ms}
+    return detail, {
+        "warm_ms": warm_ms, "warm_bound_ms": warm_bound,
+        "warm_max_abs_err": max(c["max_abs_err"] for c in warm_cmp.values()),
+        "check": {"ms": check_ms, "plain_ms": plain_check_ms,
+                  "bound_ms": max(check_bytes_s, check_ops_s) * 1e3,
+                  "bound_by": "bytes" if check_bytes_s >= check_ops_s else "operations",
+                  "max_abs_err": float(max(c["abs_err"] for c in checks.values()))},
+    }
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64)) -> list:
-    """Phases 2-5 on `device`; returns the kernels line."""
+    """Phases 2-7 on `device`; returns the kernels line."""
     emit(kernel_check(device, *small))
     mp, ctx = main_path(device, mesh_n, batch, iters)
     emit(mp)
@@ -462,6 +846,20 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64)) -> lis
     emit(oracle_gate(ctx))
     detail, line = kernels_at_main_shapes(ctx, device)
     emit(detail)
+    for key in ("res", "warm_res", "kplan"):
+        ctx.pop(key)
+    rp, rctx = replan(device, ctx, iters)
+    emit(rp)
+    rdetail, rk = kernels_at_replan_shapes(rctx, device)
+    emit(rdetail)
+    line[0].update(warm_ms=rk["warm_ms"], warm_bound_ms=rk["warm_bound_ms"],
+                   warm_launches=rctx["launches"]["banded_pass_dirty"])
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"], rk["warm_max_abs_err"])
+    line.append({"name": "check", "route": "cuda",
+                 "source": "mesh_navigation_torch/csrc/check.cu",
+                 "replaces": "mesh_navigation_tpu/ops/pallas_banded.py:2310",
+                 "launches": rctx["launches"]["check"], **rk["check"],
+                 "library_ms": None})
     return line
 
 

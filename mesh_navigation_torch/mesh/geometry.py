@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 EPS_BARY = 0.01  # in/out tolerance — reference util.cpp:345 (EPSILON = 0.01)
+EPS_RAY = 1e-8   # parallel-ray epsilon — reference mesh_map.cpp:1192 (kEpsilon)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,6 +55,27 @@ def bary_interpolate(values: torch.Tensor, bary: torch.Tensor) -> torch.Tensor:
     if values.ndim == bary.ndim:
         return torch.sum(values * bary, dim=-1)
     return torch.sum(values * bary[..., None], dim=-2)
+
+
+def ray_triangle_intersect(orig: torch.Tensor, direction: torch.Tensor, tri: torch.Tensor):
+    """Batched ray/triangle intersection, geometric method with
+    inside-outside tests (MeshMap::rayTriangleIntersect,
+    mesh_map.cpp:1247-1305): one-sided (front faces w.r.t. the CCW normal),
+    hits with t < 0 rejected. Returns (t [...], hit [...])."""
+    v0, v1, v2 = tri[..., 0, :], tri[..., 1, :], tri[..., 2, :]
+    n = cross(v1 - v0, v2 - v0)
+    denom = dot(n, n)
+    nd = dot(n, direction)
+    parallel = torch.abs(nd) < EPS_RAY
+    t = dot(n, v0 - orig) / torch.where(parallel, 1.0, nd)
+    p = orig + direction * t[..., None]
+
+    def edge_ok(e0, e1):
+        return dot(n, cross(e1 - e0, p - e0)) >= 0.0
+
+    inside = edge_ok(v0, v1) & edge_ok(v1, v2) & edge_ok(v2, v0)
+    hit = inside & ~parallel & (denom > 1e-24) & (t >= 0.0)
+    return t, hit
 
 
 def pose_from_direction(position, direction, normal) -> torch.Tensor:

@@ -3,15 +3,19 @@
 Counterpart of mesh_navigation_tpu/ops/pallas_banded.py: the host plan
 builder (BandedKernelPlan / build_banded_kernel_plan, :56-511), the padded
 problem (prepare_padded, :1332), the solve loop (banded_solve_padded,
-:1413, converge="pred" and "round"), lane grouping (:2041), the int8 class
-predecessor table (:2531), the class-decoding path walk (:2644) and the
-on-the-fly predecessor lookup (:2834).
+:1413, converge="pred", "round" and "check", and the warm incremental
+resolve), lane grouping (:2041), the int8 class predecessor table (:2531),
+the class-decoding path walk (:2644), the on-the-fly predecessor lookup
+(:2834), and the live-replan plane refresh and changed-region planes
+(:580-807, :2069-2143).
 
-Two kernels carry the solve; each has a plain PyTorch version beside it with
-the same pass semantics (row order, carry, gated writes, class order):
+Three kernels carry the solve; each has a plain PyTorch version beside it
+with the same semantics (row order, carry, gated writes, class order):
 
-- `directional_pass` — csrc/banded_pass.cu, replacing `_pass_kernel`;
-- `class_pred` — csrc/class_pred.cu, replacing `_pred_kernel`.
+- `directional_pass` — csrc/banded_pass.cu, replacing `_pass_kernel`, with
+  its dirty-table and warm-cut modes;
+- `class_pred` — csrc/class_pred.cu, replacing `_pred_kernel`;
+- `check` — csrc/check.cu, replacing `_check_kernel`.
 
 A wrapper runs the plain version only for a tensor on the CPU. On a CUDA
 tensor it launches the kernel or raises; there is no fallback.
@@ -115,10 +119,16 @@ def _class_offsets(n: int) -> list[int]:
     return [-1, +1, -(n + 1), -n, -(n - 1), n - 1, n, n + 1]
 
 
-def _shift2(x: np.ndarray, dr: int, dc: int) -> np.ndarray:
-    """result[r, c] = x[r+dr, c+dc] over [R, Cp], +inf outside."""
+def _xp(x):
+    """numpy or torch, whichever `x` belongs to: the host plan builder runs
+    these helpers on numpy arrays, the plane refresh on device tensors."""
+    return torch if isinstance(x, torch.Tensor) else np
+
+
+def _shift2(x, dr: int, dc: int, fill=INF):
+    """result[r, c] = x[r+dr, c+dc] over [R, Cp], `fill` outside."""
     R, C = x.shape
-    out = np.full_like(x, np.inf)
+    out = _xp(x).full_like(x, fill)
     rs = slice(max(dr, 0), R + min(dr, 0))
     rd = slice(max(-dr, 0), R + min(-dr, 0))
     cs = slice(max(dc, 0), C + min(dc, 0))
@@ -130,6 +140,7 @@ def _shift2(x: np.ndarray, dr: int, dc: int) -> np.ndarray:
 def _effective_laterals(lat_fwd, lat_bwd, down, up):
     """min(direct, 2-hop detours through rows r-1 / r+1) for the +-1 lateral
     chain links — exact path costs, so the scan chains stay valid."""
+    xp = _xp(lat_fwd)
     dn = [down[:, i, :] for i in range(3)]
     u = [up[:, i, :] for i in range(3)]
     S = _shift2
@@ -140,7 +151,7 @@ def _effective_laterals(lat_fwd, lat_bwd, down, up):
         S(dn[1], 1, -1) + u[0],
         S(dn[0], 1, 0) + u[1],
     ):
-        lat_f = np.minimum(lat_f, cand)
+        lat_f = xp.minimum(lat_f, cand)
     lat_b = lat_bwd
     for cand in (
         S(u[1], -1, 1) + dn[2],
@@ -148,20 +159,20 @@ def _effective_laterals(lat_fwd, lat_bwd, down, up):
         S(dn[1], 1, 1) + u[2],
         S(dn[2], 1, 0) + u[1],
     ):
-        lat_b = np.minimum(lat_b, cand)
+        lat_b = xp.minimum(lat_b, cand)
     return lat_f, lat_b
 
 
 def _chain_weights(lat_fwd, lat_bwd, n_scan):
     """A_f[s][c] = cost of the lateral chain (c - 2^s) -> c, +inf where the
     chain leaves the row. Returns two [R, S, Cp] stacks."""
+    xp = _xp(lat_fwd)
+
     def shift_d(x, k):
-        fill = np.full(x.shape[:-1] + (k,), np.inf, x.dtype)
-        return np.concatenate([fill, x[..., :-k]], axis=-1)
+        return xp.concatenate([xp.full_like(x[..., :k], INF), x[..., :-k]], axis=-1)
 
     def shift_u(x, k):
-        fill = np.full(x.shape[:-1] + (k,), np.inf, x.dtype)
-        return np.concatenate([x[..., k:], fill], axis=-1)
+        return xp.concatenate([x[..., k:], xp.full_like(x[..., :k], INF)], axis=-1)
 
     a_fwd = [lat_fwd]
     a_bwd = [lat_bwd]
@@ -169,7 +180,7 @@ def _chain_weights(lat_fwd, lat_bwd, n_scan):
         k = 1 << (s - 1)
         a_fwd.append(shift_d(a_fwd[-1], k) + a_fwd[-1])
         a_bwd.append(shift_u(a_bwd[-1], k) + a_bwd[-1])
-    return np.stack(a_fwd, axis=1), np.stack(a_bwd, axis=1)
+    return xp.stack(a_fwd, axis=1), xp.stack(a_bwd, axis=1)
 
 
 def _two_level_tables(a_fwd, a_bwd, n_scan: int, Cp: int):
@@ -183,8 +194,13 @@ def _two_level_tables(a_fwd, a_bwd, n_scan: int, Cp: int):
     l2f = a_fwd[:, 3:, 7::8]
     l2b = a_bwd[:, 3:, 0::8]
     R = a_fwd.shape[0]
-    wf = np.cumsum(a_fwd[:, 0, :].reshape(R, NB, 8), axis=-1).reshape(R, Cp)
+    af0 = a_fwd[:, 0, :].reshape(R, NB, 8)
     ab0 = a_bwd[:, 0, :].reshape(R, NB, 8)
+    if isinstance(a_fwd, torch.Tensor):
+        wf = torch.cumsum(af0, dim=-1).reshape(R, Cp)
+        wb = torch.flip(torch.cumsum(torch.flip(ab0, [-1]), dim=-1), [-1]).reshape(R, Cp)
+        return S2, l2f.contiguous(), l2b.contiguous(), wf, wb
+    wf = np.cumsum(af0, axis=-1).reshape(R, Cp)
     wb = np.flip(np.cumsum(np.flip(ab0, axis=-1), axis=-1), axis=-1).reshape(R, Cp)
     return S2, l2f, l2b, wf, wb
 
@@ -381,7 +397,7 @@ def build_banded_kernel_plan(
 class PaddedProblem:
     """Seeded [Rp, Cp, Bp] field + row-padded planes for the directional
     pass (padding rows and lanes stay all +inf)."""
-    d0: torch.Tensor      # [Rp, Cp, Bp] f32
+    d0: torch.Tensor | None   # [Rp, Cp, Bp] f32
     down: torch.Tensor    # [Rp, 3, Cp]
     up: torch.Tensor      # [Rp, 3, Cp]
     a_fwd: torch.Tensor   # [Rp, S, Cp]
@@ -390,30 +406,35 @@ class PaddedProblem:
     bb: int
 
 
-def _pad_rows(p: torch.Tensor, Rp: int) -> torch.Tensor:
+def _pad_rows(p: torch.Tensor, Rp: int, fill=INF) -> torch.Tensor:
     if p.shape[0] == Rp:
         return p
-    fill = torch.full((Rp - p.shape[0],) + tuple(p.shape[1:]), INF,
-                      dtype=p.dtype, device=p.device)
-    return torch.cat([p, fill], dim=0)
+    pad = torch.full((Rp - p.shape[0],) + tuple(p.shape[1:]), fill,
+                     dtype=p.dtype, device=p.device)
+    return torch.cat([p, pad], dim=0)
 
 
 def prepare_padded(
-    plan: BandedKernelPlan, seeds: torch.Tensor, *, rb: int = 1, bb: int = PASS_LANES
+    plan: BandedKernelPlan, seeds: torch.Tensor, *, rb: int = 1, bb: int = PASS_LANES,
+    seeded: bool = True,
 ) -> PaddedProblem:
     """Pad the planes to a multiple of `rb` rows and seed the padded field
     (lanes padded to a multiple of `bb`). The CUDA pass has no row blocks
-    (rb=1) and runs 8-lane blocks; the reference's interpreter runs rb=2."""
+    (rb=1) and runs 8-lane blocks; the reference's interpreter runs rb=2.
+    seeded=False leaves d0 None (a warm resolve starts from its own field)."""
     B = seeds.shape[0]
     R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
     Rp = _round_up(R, rb)
     Bp = _round_up(B, bb)
-    seeds = seeds.long()
-    flat_pad = (seeds // C) * Cp + seeds % C
-    d0 = torch.full((Rp * Cp, Bp), INF, dtype=torch.float32, device=plan.device)
-    d0[flat_pad, torch.arange(B, device=plan.device)] = 0.0
+    d0 = None
+    if seeded:
+        seeds = seeds.long()
+        flat_pad = (seeds // C) * Cp + seeds % C
+        d0 = torch.full((Rp * Cp, Bp), INF, dtype=torch.float32, device=plan.device)
+        d0[flat_pad, torch.arange(B, device=plan.device)] = 0.0
+        d0 = d0.view(Rp, Cp, Bp)
     return PaddedProblem(
-        d0=d0.view(Rp, Cp, Bp),
+        d0=d0,
         down=_pad_rows(plan.down, Rp),
         up=_pad_rows(plan.up, Rp),
         a_fwd=_pad_rows(plan.a_fwd, Rp),
@@ -437,36 +458,113 @@ def _shift_cols(x: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+_WARP = 32
+
+
+def _warp_pair_scan(a: torch.Tensor, b: torch.Tensor, fwd: bool):
+    """Kogge-Stone scan of (a, b) pairs within each 32-column warp, one
+    shuffle step at a time as block_scan in csrc/banded_pass.cu: a [W, 32],
+    b [W, 32, B]. Combining an earlier pair (ao, bo) into (a, b) gives
+    (ao + a, min(b, bo + a))."""
+    lane = torch.arange(_WARP, device=a.device)
+    for off in (1, 2, 4, 8, 16):
+        ok = lane >= off if fwd else lane + off < _WARP
+        sh = off if fwd else -off
+        ao, bo = torch.roll(a, sh, dims=1), torch.roll(b, sh, dims=1)
+        b = torch.where(ok[None, :, None], torch.minimum(b, bo + a[:, :, None]), b)
+        a = torch.where(ok[None, :], ao + a, a)
+    return a, b
+
+
+def _block_scan(b: torch.Tensor, a: torch.Tensor, fwd: bool) -> torch.Tensor:
+    """Min-plus closure of one row, b [W*32, B] with level-0 chain weights
+    a [W*32], in the association of the kernel's block_scan: a scan within
+    each warp, a scan of the warp totals, and the fold of the previous
+    warps' prefix into each column."""
+    n = b.shape[0] // _WARP
+    a, b = _warp_pair_scan(a.view(n, _WARP), b.view(n, _WARP, -1), fwd)
+    tail = _WARP - 1 if fwd else 0
+    ta = torch.zeros(_WARP, dtype=a.dtype, device=a.device)
+    tb = torch.full((_WARP, b.shape[2]), INF, dtype=b.dtype, device=b.device)
+    ta[:n], tb[:n] = a[:, tail], b[:, tail]
+    _, tb = _warp_pair_scan(ta[None], tb[None], fwd)
+    tb = tb[0, :n]
+    if n > 1:
+        if fwd:
+            b[1:] = torch.minimum(b[1:], tb[:-1, None, :] + a[1:, :, None])
+        else:
+            b[:-1] = torch.minimum(b[:-1], tb[1:, None, :] + a[:-1, :, None])
+    return b.reshape(n * _WARP, -1)
+
+
 def _scan_row(row: torch.Tensor, af: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
-    """Flat Hillis-Steele min-plus scans over the chain-weight stacks
-    (af/ab [S, Cp]): forward then backward (pallas_banded.py:958-966)."""
-    for s in range(af.shape[0]):
-        row = torch.minimum(row, _shift_cols(row, 1 << s) + af[s][:, None])
-    for s in range(ab.shape[0]):
-        row = torch.minimum(row, _shift_cols(row, -(1 << s)) + ab[s][:, None])
-    return row
+    """Lateral min-plus closure of row [Cp, B], forward then backward, from
+    level 0 of the chain-weight stacks (af/ab [S, Cp]), summed in the same
+    order as the kernel's block scan, so the two agree bit for bit. Within
+    one warp (Cp <= 32) this is the reference's flat Hillis-Steele scan over
+    the chain tables (pallas_banded.py:958-966) exactly; wider rows associate
+    the sums differently from it. Columns past Cp hold the scan identity."""
+    Cp, B = row.shape
+    pad = -Cp % _WARP
+    b = torch.cat([row, row.new_full((pad, B), INF)])
+    a_f = torch.cat([af[0], af.new_zeros(pad)])
+    a_b = torch.cat([ab[0], ab.new_zeros(pad)])
+    b = _block_scan(b, a_f, True)
+    b = _block_scan(b, a_b, False)
+    return b[:Cp]
+
+
+def _require_dirty_for_cut(dirty, warm_cut) -> None:
+    """The warm cut is the first pass of a warm resolve, which always keeps
+    the dirty table (pallas_banded.py:1545-1547)."""
+    if warm_cut is not None and dirty is None:
+        raise ValueError("directional_pass: warm_cut needs the dirty table")
 
 
 def directional_pass_plain(
     d: torch.Tensor, cross: torch.Tensor, a_fwd: torch.Tensor, a_bwd: torch.Tensor,
     *, reverse: bool, bb: int, atol: float, rtol: float, force: bool = False,
+    dirty: torch.Tensor | None = None, warm_cut: tuple | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the pass, in place on d [Rp, Cp, Bp]: the
-    main-path configuration of _pass_kernel (skip=True, use_dirty=False,
-    full depth). Rows run in order, the carried row is the row as written,
-    `imp` is an any over each block of `bb` lanes and writes gate on
-    need = imp | (force & any finite). Returns the changed flag, int32 [1]."""
+    full-depth, residual-free configurations of _pass_kernel (skip=True).
+    Rows run in order, the carried row is the row as written, `imp` is an
+    any over each block of `bb` lanes and writes gate on
+    need = imp | (force & any finite).
+    With `dirty` ([Bp // bb, Rp] int32, updated in place; use_dirty,
+    pallas_banded.py:1003-1036) need |= dirty[j, row], a needed row scans
+    base = row0 and keeps the scan only where it still improved by more than
+    the tolerance (simp), and dirty[j, row] = need & simp. The reference
+    scans base = imp ? row0 : cur, dropping the sub-tolerance cross-row gains
+    of rows needed only because they are dirty; they can compound along
+    re-solved chains (ROADMAP queue C), so the port keeps them.
+    With `warm_cut` = (cutlb [Rp, Cp], cutth [Bp], seedrc [2, Bp] int32)
+    (:864-878), which needs `dirty`, each row is cut at load: labels >=
+    cutlb[row, c] + cutth[lane] become +inf and each lane's seed (row, col)
+    becomes 0.
+    Returns the changed flag (any imp, and with `dirty` any simp), int32 [1]."""
+    _require_dirty_for_cut(dirty, warm_cut)
     Rp, Cp, Bp = d.shape
     nb = Bp // bb
     k = 1.0 + rtol
     prev = torch.full((Cp, Bp), INF, dtype=d.dtype, device=d.device)
     changed = torch.zeros((), dtype=torch.bool, device=d.device)
 
-    def block_any(x):
-        return x.view(Cp, nb, bb).any(dim=2).any(dim=0).repeat_interleave(bb)
+    def block_any(x):      # [Cp, Bp] -> [nb]
+        return x.view(Cp, nb, bb).any(dim=2).any(dim=0)
 
+    def lanes(blk):        # [nb] -> [1, Bp]
+        return blk.repeat_interleave(bb)[None, :]
+
+    if warm_cut is not None:
+        cutlb, cutth, seedrc = warm_cut
+        cols = torch.arange(Cp, device=d.device)[:, None]
     for r in (range(Rp - 1, -1, -1) if reverse else range(Rp)):
-        cur = d[r]
+        cur = orig = d[r]
+        if warm_cut is not None:
+            cur = torch.where(cur >= cutlb[r][:, None] + cutth[None, :], INF, cur)
+            hit = (seedrc[0][None, :] == r) & (seedrc[1][None, :] == cols)
+            cur = torch.where(hit, 0.0, cur)
         x = cross[r]
         cand = torch.minimum(
             torch.minimum(
@@ -476,57 +574,85 @@ def directional_pass_plain(
         )
         row0 = torch.minimum(cur, cand)
         imp = block_any(cand * k + atol < cur)
-        need = imp | block_any(row0 < INF) if force else imp
+        need = imp
+        if dirty is not None:
+            need = need | (dirty[:, r] > 0)
+        if force:
+            need = need | block_any(row0 < INF)
         changed |= imp.any()
-        if bool(need.any()):
-            new = torch.where(need[None, :], _scan_row(row0, a_fwd[r], a_bwd[r]), cur)
+        new = cur
+        if dirty is not None:
+            simp = torch.zeros_like(need)
+            if bool(need.any()):
+                scanned = _scan_row(row0, a_fwd[r], a_bwd[r])
+                simp = block_any(scanned * k + atol < row0) & need
+                new = torch.where(lanes(need), torch.where(lanes(simp), scanned, row0), cur)
+            dirty[:, r] = simp.to(torch.int32)
+            changed |= simp.any()
+        elif bool(need.any()):
+            new = torch.where(lanes(need), _scan_row(row0, a_fwd[r], a_bwd[r]), cur)
+        if new is not orig:
             d[r] = new
-            prev = new
-        else:
-            prev = cur
+        prev = new
     return changed.to(torch.int32).reshape(1)
 
 
 def directional_pass(
     d: torch.Tensor, cross: torch.Tensor, a_fwd: torch.Tensor, a_bwd: torch.Tensor,
     *, reverse: bool, bb: int = PASS_LANES, atol: float, rtol: float,
-    force: bool = False,
+    force: bool = False, dirty: torch.Tensor | None = None,
+    warm_cut: tuple | None = None,
 ) -> torch.Tensor:
-    """One directional Gauss-Seidel pass over every row of d, in place.
+    """One directional Gauss-Seidel pass over every row of d, in place, with
+    the optional dirty table and warm cut of directional_pass_plain.
     CPU tensors run directional_pass_plain; CUDA tensors launch the
     csrc/banded_pass.cu kernel (8-lane blocks) or raise. Returns the changed
     flag as an int32 [1] tensor on d's device."""
     if d.device.type == "cpu":
         return directional_pass_plain(
             d, cross, a_fwd, a_bwd, reverse=reverse, bb=bb, atol=atol,
-            rtol=rtol, force=force,
+            rtol=rtol, force=force, dirty=dirty, warm_cut=warm_cut,
         )
     if d.device.type != "cuda":
         raise ValueError(f"directional_pass: unsupported device {d.device}")
+    _require_dirty_for_cut(dirty, warm_cut)
     Rp, Cp, Bp = d.shape
     if bb != PASS_LANES or Bp % PASS_LANES:
         raise ValueError(f"the CUDA pass runs {PASS_LANES}-lane blocks (bb={bb}, Bp={Bp})")
     if Cp > 1024:
         raise ValueError(f"the CUDA pass takes at most 1024 columns, got {Cp}")
-    for name, t, shape in (
-        ("d", d, (Rp, Cp, Bp)), ("cross", cross, (Rp, 3, Cp)),
-        ("a_fwd", a_fwd, (Rp, a_fwd.shape[1], Cp)),
-        ("a_bwd", a_bwd, (Rp, a_bwd.shape[1], Cp)),
-    ):
-        if t.device != d.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+    checks = [
+        ("d", d, (Rp, Cp, Bp), torch.float32), ("cross", cross, (Rp, 3, Cp), torch.float32),
+        ("a_fwd", a_fwd, (Rp, a_fwd.shape[1], Cp), torch.float32),
+        ("a_bwd", a_bwd, (Rp, a_bwd.shape[1], Cp), torch.float32),
+    ]
+    if dirty is not None:
+        checks.append(("dirty", dirty, (Bp // PASS_LANES, Rp), torch.int32))
+    if warm_cut is not None:
+        cutlb, cutth, seedrc = warm_cut
+        checks += [("cutlb", cutlb, (Rp, Cp), torch.float32),
+                   ("cutth", cutth, (Bp,), torch.float32),
+                   ("seedrc", seedrc, (2, Bp), torch.int32)]
+    for name, t, shape, dtype in checks:
+        if t.device != d.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"directional_pass: bad {name} {tuple(t.shape)} {t.dtype} {t.device}")
-    if not (d.is_contiguous() and cross.is_contiguous()
+    if not (all(t.is_contiguous() for name, t, _, _ in checks if name not in ("a_fwd", "a_bwd"))
             and a_fwd.stride(2) == 1 and a_bwd.stride(2) == 1):
-        raise ValueError("directional_pass: d and cross must be contiguous")
+        raise ValueError("directional_pass: d, cross and the mode tables must be contiguous")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    cutlb, cutth, seedrc = warm_cut if warm_cut is not None else (None, None, None)
     chg = torch.zeros(1, dtype=torch.int32, device=d.device)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = kernels.launcher("banded_pass")(
         d.data_ptr(), cross.data_ptr(), a_fwd.data_ptr(), a_fwd.stride(0),
-        a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), Rp, Cp, Bp,
+        a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(dirty),
+        ptr(cutlb), ptr(cutth), ptr(seedrc), Rp, Cp, Bp,
         int(reverse), int(force), 1.0 + rtol, atol, stream,
     )
     kernels.check("banded_pass", err)
     kernels.LAUNCHES["banded_pass"] += 1
+    if dirty is not None:
+        kernels.LAUNCHES["banded_pass_dirty"] += 1
     return chg
 
 
@@ -540,6 +666,19 @@ def _w8_planes(plan: BandedKernelPlan, Rp: int) -> torch.Tensor:
         plan.up[:, i] for i in range(3)
     ]
     return torch.stack([_pad_rows(p, Rp) for p in planes], dim=1).contiguous()
+
+
+def _class_sources(d: torch.Tensor, r0: int, r1: int):
+    """Rows r0..r1-1 of d [Rp, Cp, Bp] and their 8 in-edge sources in class
+    order (row above / below clamped at the field's edges, +inf columns
+    outside the row): (cur [n, Cp, Bp], (src_0, ..., src_7))."""
+    Rp = d.shape[0]
+    idx = torch.arange(r0 - 1, r1 + 1, device=d.device).clamp(0, Rp - 1)
+    blk = d[idx]                                       # [n+2, Cp, Bp]
+    cur, upr, dnr = blk[1:-1], blk[:-2], blk[2:]
+    sh = lambda x, k: _shift_cols(x.transpose(0, 1), k).transpose(0, 1)
+    return cur, (sh(cur, 1), sh(cur, -1), sh(upr, 1), upr, sh(upr, -1),
+                 sh(dnr, 1), dnr, sh(dnr, -1))
 
 
 def class_pred_plain(
@@ -557,12 +696,7 @@ def class_pred_plain(
     kt, kr = 1.0 + tol, 1.0 + rtol
     for r0 in range(0, Rp, row_chunk):
         r1 = min(r0 + row_chunk, Rp)
-        idx = torch.arange(r0 - 1, r1 + 1, device=dev).clamp(0, Rp - 1)
-        blk = d[idx]                                   # [n+2, Cp, Bp]
-        cur, upr, dnr = blk[1:-1], blk[:-2], blk[2:]
-        sh = lambda x, k: _shift_cols(x.transpose(0, 1), k).transpose(0, 1)
-        srcs = (sh(cur, 1), sh(cur, -1), sh(upr, 1), upr, sh(upr, -1),
-                sh(dnr, 1), dnr, sh(dnr, -1))
+        cur, srcs = _class_sources(d, r0, r1)
         w = w8[r0:r1]                                  # [n, 8, Cp]
         best = torch.full_like(cur, INF)
         rel = torch.zeros(cur.shape, dtype=torch.int8, device=dev)
@@ -637,6 +771,71 @@ def predecessors_banded_classes(
 
 
 # --------------------------------------------------------------------------
+# kernel 3: the read-only fixed-point certificate
+# --------------------------------------------------------------------------
+
+def check_plain(
+    d: torch.Tensor, w8: torch.Tensor, *, atol: float, rtol: float, row_chunk: int = 64,
+) -> torch.Tensor:
+    """Plain PyTorch version of the certificate over d [Rp, Cp, Bp]: True
+    (bool []) when some element has best*(1+rtol)+atol < cur, best the min
+    over the 8 class in-edges (halo rows clamped, as in class_pred_plain).
+    Rows go in chunks so the temporaries stay small."""
+    Rp = d.shape[0]
+    viol = torch.zeros((), dtype=torch.bool, device=d.device)
+    kr = 1.0 + rtol
+    for r0 in range(0, Rp, row_chunk):
+        r1 = min(r0 + row_chunk, Rp)
+        cur, srcs = _class_sources(d, r0, r1)
+        w = w8[r0:r1]
+        best = torch.full_like(cur, INF)
+        for k in range(8):
+            best = torch.minimum(best, srcs[k] + w[:, k, :, None])
+        viol |= (best * kr + atol < cur).any()
+    return viol
+
+
+def check(d: torch.Tensor, w8: torch.Tensor, *, atol: float, rtol: float) -> torch.Tensor:
+    """Fixed-point violation flag of a padded field: CPU tensors run
+    check_plain; CUDA tensors launch csrc/check.cu or raise. The flag is a
+    [1] int32 (CUDA) or [] bool (CPU) tensor; test it with bool()."""
+    if d.device.type == "cpu":
+        return check_plain(d, w8, atol=atol, rtol=rtol)
+    if d.device.type != "cuda":
+        raise ValueError(f"check: unsupported device {d.device}")
+    Rp, Cp, Bp = d.shape
+    if Bp % 4:
+        raise ValueError(f"check: lanes must be a multiple of 4, got {Bp}")
+    if not (d.is_contiguous() and d.dtype == torch.float32):
+        raise ValueError("check: d must be contiguous f32")
+    if (tuple(w8.shape) != (Rp, 8, Cp) or w8.dtype != torch.float32
+            or not w8.is_contiguous() or w8.device != d.device):
+        raise ValueError(f"check: bad w8 {tuple(w8.shape)}")
+    viol = torch.zeros(1, dtype=torch.int32, device=d.device)
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    err = kernels.launcher("check")(
+        d.data_ptr(), w8.data_ptr(), viol.data_ptr(), Rp, Cp, Bp, 1.0 + rtol, atol, stream,
+    )
+    kernels.check("check", err)
+    kernels.LAUNCHES["check"] += 1
+    return viol
+
+
+def check_converged_banded(
+    plan: BandedKernelPlan, d_pad: torch.Tensor, *, atol: float = 1e-5,
+    rtol: float = 1e-5, w8: torch.Tensor | None = None,
+) -> bool:
+    """READ-ONLY fixed-point certificate (pallas_banded.py:2429): True iff
+    every banded in-edge relaxation is satisfied within tolerance. One host
+    read of the flag. `w8` may pass the plan's [Rp, 8, Cp] planes in."""
+    if plan.n_residual:
+        raise NotImplementedError("the residual-edge certificate (irregular plans)")
+    if w8 is None:
+        w8 = _w8_planes(plan, d_pad.shape[0])
+    return not bool(check(d_pad, w8, atol=atol, rtol=rtol).any())
+
+
+# --------------------------------------------------------------------------
 # solve loop
 # --------------------------------------------------------------------------
 
@@ -659,34 +858,63 @@ def banded_solve_padded(
     rtol: float = 1e-5,
     converge: str = "round",
     timer=None,
+    warm_d: torch.Tensor | None = None,
+    warm_changed: torch.Tensor | None = None,
+    warm_raised: torch.Tensor | None = None,
+    warm_pos: torch.Tensor | None = None,
+    warm_window: int | None = None,
 ) -> BandedPaddedResult:
     """Banded GS rounds (one pass down, the first forced, one pass up) to
     convergence on the padded field. converge="pred": after every round the
     class-pred pass runs and its violation flag ends the loop, so the last
-    certificate's table comes out of the solve. converge="round": the loop
-    ends on a round with no supra-tolerance improvement. One host read of a
-    flag per round. Only full-depth, residual-free plans (the main path);
-    other configurations of the reference raise NotImplementedError."""
-    if converge not in ("pred", "round"):
+    certificate's table comes out of the solve. converge="check": the
+    read-only certificate (check kernel) ends the loop. converge="round":
+    the loop ends on a round with no supra-tolerance improvement. One host
+    read of a flag per round.
+
+    `warm_d` ([Rp, Cp, Bp], the previous solve's field for the same seeds)
+    with `warm_changed` / `warm_raised` ([R, Cp] bool planes of changed /
+    raised costs) and `warm_pos` (position_planes) is the incremental warm
+    resolve (pallas_banded.py:1686-1789, :1946-1949): the passes keep a dirty
+    table, and the first down pass cuts every label that may have routed
+    through a raised edge and re-inserts the seeds (see _warm_start). It
+    needs converge="check". The solve works on a copy: warm_d is unchanged.
+
+    Only full-depth, residual-free plans (the main path and the replan
+    step); the windowed warm resolve (`warm_window`) and other
+    configurations of the reference raise NotImplementedError."""
+    if converge not in ("pred", "round", "check"):
         raise NotImplementedError(f"converge={converge!r}")
     if plan.n_residual:
         raise NotImplementedError("residual (irregular) plans")
     full = max(1, int(math.ceil(math.log2(max(plan.n_cols, 2)))))
     if plan.n_scan < full:
         raise NotImplementedError("partial scan depth")
-    prob = prepare_padded(plan, seeds)
-    d = prob.d0
-    Rp = d.shape[0]
+    if warm_window is not None:
+        raise NotImplementedError("the windowed warm resolve (warm_window)")
+    warm = warm_d is not None
+    prob = prepare_padded(plan, seeds, seeded=not warm)
+    Rp = prob.down.shape[0]
+    dirty = cut = None
+    if warm:
+        assert converge == "check", "warm resolve requires converge='check'"
+        with _stage(timer, "warm_setup"):
+            d, dirty, cut = _warm_start(
+                plan, seeds, warm_d, warm_changed, warm_raised, warm_pos,
+                Rp=Rp, bb=prob.bb, atol=atol, rtol=rtol,
+            )
+    else:
+        d = prob.d0
 
-    def one_round(force: bool) -> torch.Tensor:
+    def one_round(force: bool = False, cut=None) -> torch.Tensor:
         with _stage(timer, "solve"):
             c_dn = directional_pass(
                 d, prob.down, prob.a_fwd, prob.a_bwd, reverse=False,
-                atol=atol, rtol=rtol, force=force,
+                atol=atol, rtol=rtol, force=force, dirty=dirty, warm_cut=cut,
             )
             c_up = directional_pass(
                 d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True,
-                atol=atol, rtol=rtol,
+                atol=atol, rtol=rtol, dirty=dirty,
             )
         return c_dn | c_up
 
@@ -717,12 +945,82 @@ def banded_solve_padded(
             rounds += 1
         return BandedPaddedResult(d_pad=d, rounds=rounds, converged=not violated, cls=cls)
 
+    if converge == "check":
+        # same positive-tolerance requirement as "pred" (pallas_banded.py:
+        # 2000-2006): the certificate is ulp-strict
+        assert atol > 0 or rtol > 0, "converge='check' needs tolerance > 0"
+        w8 = _w8_planes(plan, Rp)
+
+        def certified() -> bool:
+            with _stage(timer, "check"):
+                return check_converged_banded(plan, d, atol=atol, rtol=rtol, w8=w8)
+
+        one_round(force=not warm, cut=cut)
+        ok = certified()
+        rounds = 1
+        while not ok and rounds < max_rounds:
+            one_round()
+            ok = certified()
+            rounds += 1
+        return BandedPaddedResult(d_pad=d, rounds=rounds, converged=ok)
+
     changed = bool(one_round(True).any())
     rounds = 1
     while changed and rounds < max_rounds:
         changed = bool(one_round(False).any())
         rounds += 1
     return BandedPaddedResult(d_pad=d, rounds=rounds, converged=not changed)
+
+
+def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
+                Rp: int, bb: int, atol: float, rtol: float):
+    """Start of the incremental warm resolve (pallas_banded.py:1686-1789):
+    (field copy, dirty table [Bp // bb, Rp] int32, warm cut args).
+
+    A label that may have routed through a raised edge is >= the per-lane
+    min of warm_d over the dilated raised set (the threshold, shaved by the
+    tolerance envelope) plus the geodesic-shadow bound of its distance to
+    that set (lb_plane, from the set's bounding sphere in warm_pos); the
+    first down pass cuts such labels to +inf at load and re-inserts the
+    seeds at 0. Rows of the dilated changed set and the seed rows start
+    dirty in every block. The threshold's min is taken over the rows that
+    hold the raised set only (the same value as the reference's full or
+    32-row windowed min); finding them is one host read. An empty raised
+    set (a pure clear) gives a +inf threshold, which cuts nothing."""
+    if tuple(warm_d.shape[:2]) != (Rp, plan.n_cols_pad):
+        raise ValueError(f"warm_d {tuple(warm_d.shape)} is not this plan's padded field")
+    Bp = warm_d.shape[2]
+    dev = warm_d.device
+    C = plan.n_cols
+    mask_p = _pad_rows(_dilate_changed(plan, warm_changed), Rp, False)
+    raise_p = (mask_p if warm_raised is None
+               else _pad_rows(_dilate_changed(plan, warm_raised), Rp, False))
+    d = warm_d.to(torch.float32, copy=True)
+    rows = torch.nonzero(raise_p.any(dim=1)).flatten().tolist()
+    if rows:
+        a, b = rows[0], rows[-1] + 1
+        thresh = torch.where(raise_p[a:b, :, None], d[a:b], INF).amin(dim=(0, 1))
+    else:
+        thresh = torch.full((Bp,), INF, dtype=torch.float32, device=dev)
+    thresh = thresh * (1.0 - 2.0 * rtol) - 2.0 * atol
+    lb = torch.zeros((Rp, plan.n_cols_pad), dtype=torch.float32, device=dev)
+    if warm_pos is not None:
+        chm = raise_p
+        pos = _pad_rows(warm_pos.transpose(0, 1), Rp).transpose(0, 1)   # [3, Rp, Cp]
+        n_ch = torch.clamp(chm.sum(), min=1)
+        ctr = torch.where(chm[None], pos, 0.0).sum(dim=(1, 2)) / n_ch
+        dc = torch.sqrt(((pos - ctr[:, None, None]) ** 2).sum(dim=0))
+        r_enc = torch.where(chm, dc, 0.0).max()
+        lb = torch.clamp(dc - r_enc, min=0.0).contiguous()
+    seeds = seeds.long()
+    B = seeds.shape[0]
+    seedrc = torch.full((2, Bp), -1, dtype=torch.int32, device=dev)
+    seedrc[0, :B] = (seeds // C).to(torch.int32)
+    seedrc[1, :B] = (seeds % C).to(torch.int32)
+    row_dirty = mask_p.any(dim=1)
+    row_dirty[seeds // C] = True
+    dirty = row_dirty[None, :].expand(Bp // bb, Rp).to(torch.int32).contiguous()
+    return d, dirty, (lb, thresh.contiguous(), seedrc)
 
 
 # --------------------------------------------------------------------------
@@ -825,3 +1123,194 @@ def pred_at_vertices(
     u_best = torch.gather(u_cl, 0, arg[None])[0]
     has = (best <= dv * (1.0 + tol) + tol) & (dv > 0) & torch.isfinite(dv)
     return torch.where(has, u_best, vids)
+
+
+# --------------------------------------------------------------------------
+# live-replan plane refresh and the changed-region planes
+# --------------------------------------------------------------------------
+
+_REFRESH_HALO = 3   # costs reach plane rows via the effective laterals
+                    # (+-1 row) and extended lanes (|dr| <= 2)
+_PLANE_KEYS = (
+    "down", "up", "a_fwd", "a_bwd", "xdown", "xup", "lat_fwd", "lat_bwd",
+    "l2_fwd", "l2_bwd", "wback_fwd", "wback_bwd",
+)
+
+
+def _grid_plane(plan: BandedKernelPlan, values: torch.Tensor, fill) -> torch.Tensor:
+    """[V] per-vertex values -> [R, Cp] plane, `fill` in padding."""
+    R, C, Cp, V = plan.n_rows, plan.n_cols, plan.n_cols_pad, plan.num_vertices
+    p = torch.full((R * C,), fill, dtype=values.dtype, device=values.device)
+    p[:V] = values
+    p = p.view(R, C)
+    if Cp > C:
+        p = torch.cat([p, torch.full((R, Cp - C), fill, dtype=p.dtype, device=p.device)], dim=1)
+    return p
+
+
+def _planes_from_cost_plane(
+    plan: BandedKernelPlan, cost_pad: torch.Tensor,
+    dist_lat_fwd, dist_lat_bwd, dist_down, dist_up, xdist_down, xdist_up,
+    f: float, cost_limit: float,
+) -> dict:
+    """Every dense weight plane from a cost plane [Rs, Cp] (the full plane
+    or a row slab; pallas_banded.py:623-683). w(u -> v) = dist * (1 + f *
+    (c_u + c_v) / 2), +inf when either cost is inf, when the source cost
+    exceeds cost_limit, or where the edge is absent (baked into the static
+    distance planes). Local to +-2 rows, so a slab with 3 halo rows
+    reproduces the full result on its interior."""
+    S, Cp = plan.n_scan, plan.n_cols_pad
+
+    def weigh(dist_p, dr, dc):
+        cu = _shift2(cost_pad, dr, dc)                # source cost
+        w = dist_p * (1.0 + f * 0.5 * (cost_pad + cu))
+        ok = (torch.isfinite(dist_p) & torch.isfinite(cost_pad)
+              & torch.isfinite(cu) & (cu <= cost_limit))
+        return torch.where(ok, w, INF).to(torch.float32)
+
+    lat_fwd = weigh(dist_lat_fwd, 0, -1)
+    lat_bwd = weigh(dist_lat_bwd, 0, 1)
+    down = torch.stack([weigh(dist_down[:, i], -1, i - 1) for i in range(3)], dim=1)
+    up = torch.stack([weigh(dist_up[:, i], 1, i - 1) for i in range(3)], dim=1)
+    lf_eff, lb_eff = _effective_laterals(lat_fwd, lat_bwd, down, up)
+    a_fwd, a_bwd = _chain_weights(lf_eff, lb_eff, S)
+    _, l2f, l2b, wbf, wbb = (_two_level_tables(a_fwd, a_bwd, S, Cp) if plan.n_scan2
+                             else (0, None, None, None, None))
+    xdown, xup = plan.xdown, plan.xup
+    if plan.xlanes_down:
+        xdown = torch.stack([weigh(xdist_down[:, i], -sel, dc)
+                             for i, (sel, dc) in enumerate(plan.xlanes_down)], dim=1)
+    if plan.xlanes_up:
+        xup = torch.stack([weigh(xdist_up[:, i], sel, dc)
+                           for i, (sel, dc) in enumerate(plan.xlanes_up)], dim=1)
+    return dict(down=down, up=up, a_fwd=a_fwd, a_bwd=a_bwd, xdown=xdown, xup=xup,
+                lat_fwd=lat_fwd, lat_bwd=lat_bwd, l2_fwd=l2f, l2_bwd=l2b,
+                wback_fwd=wbf, wback_bwd=wbb)
+
+
+def refresh_banded_planes_from_costs(
+    plan: BandedKernelPlan, vertex_costs: torch.Tensor, *,
+    edge_cost_factor: float = 0.0, cost_limit: float = 1.0,
+) -> BandedKernelPlan:
+    """Gather-free live-replan refresh (pallas_banded.py:580-620): every
+    weight plane straight from the [V] cost field and the plan's static
+    distance planes. Residual edge weights are not ported yet: plans with
+    residual edges raise NotImplementedError."""
+    if plan.n_residual:
+        raise NotImplementedError("residual edge weights (irregular plans)")
+    cost_pad = _grid_plane(plan, vertex_costs.to(torch.float32), INF)
+    planes = _planes_from_cost_plane(
+        plan, cost_pad, plan.dist_lat_fwd, plan.dist_lat_bwd, plan.dist_down,
+        plan.dist_up, plan.xdist_down, plan.xdist_up, edge_cost_factor, cost_limit,
+    )
+    return dataclasses.replace(plan, **planes)
+
+
+def _row_slab(x: torch.Tensor, start: int, size: int, fill=INF) -> torch.Tensor:
+    """Rows [start, start + size) of x, `fill` rows outside [0, R)."""
+    R = x.shape[0]
+    lo, hi = max(start, 0), min(start + size, R)
+    parts = [x[lo:hi]]
+    if lo > start:
+        parts.insert(0, torch.full((lo - start,) + tuple(x.shape[1:]), fill,
+                                   dtype=x.dtype, device=x.device))
+    if start + size > hi:
+        parts.append(torch.full((start + size - hi,) + tuple(x.shape[1:]), fill,
+                                dtype=x.dtype, device=x.device))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def refresh_banded_planes_rows(
+    base_plan: BandedKernelPlan, base_costs: torch.Tensor, vertex_costs: torch.Tensor,
+    *, edge_cost_factor: float = 0.0, cost_limit: float = 1.0, row_window: int = 64,
+) -> BandedKernelPlan:
+    """Incremental plane refresh (pallas_banded.py:704-807): rewrite only the
+    plane rows whose costs changed against `base_costs`, the costs
+    `base_plan`'s planes were refreshed at. The changed rows plus a 3-row
+    halo are recomputed on a `row_window`-row slab and written over copies
+    of the base planes; when they do not fit the slab, all planes are
+    recomputed. Exact either way. The branch is chosen by one host read."""
+    R = base_plan.n_rows
+    PR, H = row_window, _REFRESH_HALO
+    if R < PR + 2 * H:
+        return refresh_banded_planes_from_costs(
+            base_plan, vertex_costs, edge_cost_factor=edge_cost_factor, cost_limit=cost_limit,
+        )
+    if base_plan.n_residual:
+        raise NotImplementedError("residual edge weights (irregular plans)")
+    cost_pad = _grid_plane(base_plan, vertex_costs.to(torch.float32), INF)
+    base_pad = _grid_plane(base_plan, base_costs.to(torch.float32), INF)
+    row_changed = torch.any(cost_pad != base_pad, dim=1)
+    idx = torch.arange(R, device=cost_pad.device)
+    a = torch.where(row_changed, idx, R).min()
+    b = torch.where(row_changed, idx, -1).max()
+    fits = (b - a + 1 + 2 * H <= PR - 2).to(torch.int64)
+    p0 = torch.clamp(a - H - 1, 0, R - PR)
+    fits, p0 = torch.stack([fits, p0]).tolist()
+    bp = base_plan
+    if not fits:
+        planes = _planes_from_cost_plane(
+            bp, cost_pad, bp.dist_lat_fwd, bp.dist_lat_bwd, bp.dist_down, bp.dist_up,
+            bp.xdist_down, bp.xdist_up, edge_cost_factor, cost_limit,
+        )
+        return dataclasses.replace(bp, **planes)
+
+    def slab(x):
+        return _row_slab(x, p0 - H, PR + 2 * H)
+
+    planes = _planes_from_cost_plane(
+        bp, slab(cost_pad), slab(bp.dist_lat_fwd), slab(bp.dist_lat_bwd),
+        slab(bp.dist_down), slab(bp.dist_up),
+        slab(bp.xdist_down) if bp.xlanes_down else bp.xdist_down,
+        slab(bp.xdist_up) if bp.xlanes_up else bp.xdist_up,
+        edge_cost_factor, cost_limit,
+    )
+
+    def write(base, part):
+        if part is None or base is None or part is base:
+            return base
+        out = base.clone()
+        out[p0:p0 + PR] = part[H:H + PR]
+        return out
+
+    return dataclasses.replace(
+        bp, **{k: write(getattr(bp, k), planes[k]) for k in _PLANE_KEYS}
+    )
+
+
+def position_planes(plan: BandedKernelPlan, mesh: MeshArrays) -> torch.Tensor:
+    """[3, R, Cp] vertex-position planes (+inf padding), the static geometry
+    of the warm resolve's shadow bound (pallas_banded.py:2069)."""
+    return torch.stack([_grid_plane(plan, mesh.vertices[:, k].to(plan.device), INF)
+                        for k in range(3)])
+
+
+def changed_plane_from_costs(plan: BandedKernelPlan, old_costs, new_costs) -> torch.Tensor:
+    """[R, Cp] bool plane of vertices whose cost changed (pallas_banded.py:2082)."""
+    ch = ~((old_costs == new_costs) | (torch.isnan(old_costs) & torch.isnan(new_costs)))
+    return _grid_plane(plan, ch, False)
+
+
+def raised_plane_from_costs(plan: BandedKernelPlan, old_costs, new_costs) -> torch.Tensor:
+    """[R, Cp] bool plane of vertices whose cost increased
+    (pallas_banded.py:2097): only raises can strand stale-low labels, so the
+    warm resolve's invalidation keys on this set."""
+    up = (new_costs > old_costs) | (torch.isnan(new_costs) & ~torch.isnan(old_costs))
+    return _grid_plane(plan, up, False)
+
+
+def _dilate_changed(plan: BandedKernelPlan, changed_rc: torch.Tensor) -> torch.Tensor:
+    """Dilate the changed-vertex plane to every endpoint of every weight-
+    changed edge: dense classes and extended lanes reach |dr| <= 2,
+    |dc| <= 4 (pallas_banded.py:2116). Residual endpoints wait for the
+    irregular slice."""
+    if plan.n_residual:
+        raise NotImplementedError("residual edge endpoints (irregular plans)")
+    m = changed_rc
+    acc = m
+    for dr in (-2, -1, 1, 2):
+        acc = acc | _shift2(m, dr, 0, False)
+    m = acc
+    for dc in (-4, -3, -2, -1, 1, 2, 3, 4):
+        acc = acc | _shift2(m, 0, dc, False)
+    return acc

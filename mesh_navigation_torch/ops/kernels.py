@@ -6,7 +6,9 @@ All sources are compiled in parallel, one `nvcc` per source, on first use.
 Nothing is built while a module is imported.
 
 `LAUNCHES` counts the launches of each kernel; the wrappers in
-ops/banded_gpu.py add one where they launch and nowhere else.
+ops/banded_gpu.py add one where they launch and nowhere else. The pass
+kernel's launches in its dirty-table mode (the warm resolve) are also
+counted apart, under "banded_pass_dirty".
 """
 
 from __future__ import annotations
@@ -22,12 +24,13 @@ from mesh_navigation_torch.device import nvcc_path
 SOURCES = {
     "banded_pass": "banded_pass.cu",
     "class_pred": "class_pred.cu",
+    "check": "check.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, "banded_pass_dirty")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -38,9 +41,11 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "banded_pass": ("banded_pass_launch",
-                    [_P, _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
+                    [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _F, _F, _P]),
     "class_pred": ("class_pred_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
+    "check": ("check_launch", [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
 }
 
 

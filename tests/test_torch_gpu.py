@@ -76,3 +76,102 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         bg.directional_pass(prob.d0, prob.down, prob.a_fwd, prob.a_bwd, reverse=False,
                             bb=4, atol=ATOL, rtol=RTOL)
+    prob = bg.prepare_padded(plan, torch.zeros(8, dtype=torch.int64, device=cuda))
+    Rp, Cp, Bp = prob.d0.shape
+    cut = (torch.zeros(Rp, Cp, device=cuda), torch.full((Bp,), torch.inf, device=cuda),
+           torch.full((2, Bp), -1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="dirty"):   # a cut needs the dirty table
+        bg.directional_pass(prob.d0, prob.down, prob.a_fwd, prob.a_bwd, reverse=False,
+                            atol=ATOL, rtol=RTOL, warm_cut=cut)
+
+
+def _fields(plan, seeds):
+    """A converged field and the same field after one round."""
+    conv = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL).d_pad
+    one = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL, max_rounds=1).d_pad
+    return conv, one
+
+
+@pytest.mark.parametrize("nx,ny,B", [(20, 40, 16), (33, 96, 24), (64, 64, 8)])
+def test_check_kernel_matches_plain(cuda, nx, ny, B):
+    _, plan = _plan(nx, ny, cuda)
+    rng = np.random.default_rng(nx + 1)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, B)).to(cuda)
+    conv, one = _fields(plan, seeds)
+    w8 = bg._w8_planes(plan, conv.shape[0])
+    fin = torch.nonzero(torch.isfinite(conv[:plan.n_rows, :plan.n_cols]))
+    r, c, b = fin[len(fin) // 2].tolist()
+    lowered, raised, inf_lane = conv.clone(), conv.clone(), conv.clone()
+    lowered[r, c, b] = torch.clamp(lowered[r, c, b] - 1.0, min=0.0) * 0.5
+    raised[r, c, b] = raised[r, c, b] * 1.5 + 1.0
+    inf_lane[:, :, 1] = torch.inf
+    before = kernels.LAUNCHES["check"]
+    for name, d, want in (("converged", conv, False), ("one_round", one, None),
+                          ("lowered", lowered, True), ("raised", raised, True),
+                          ("inf_lane", inf_lane, False)):
+        got = bool(bg.check(d, w8, atol=ATOL, rtol=RTOL).item())
+        plain = bool(bg.check_plain(d, w8, atol=ATOL, rtol=RTOL))
+        assert got == plain, name
+        if want is not None:
+            assert got == want, name
+    assert kernels.LAUNCHES["check"] == before + 5
+
+
+@pytest.mark.parametrize("nx,ny,B,clear", [(24, 40, 16, False), (48, 96, 24, False),
+                                           (24, 40, 16, True)])
+def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
+    mesh, plan = _plan(nx, ny, cuda)
+    rng = np.random.default_rng(ny)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, B)).to(cuda)
+    # new costs: a raised patch in the middle rows (none for a clear update)
+    costs = np.arccos(np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0))
+    costs = costs.astype(np.float32)
+    new = costs.copy()
+    if not clear:
+        for r in range(nx // 2 - 1, nx // 2 + 2):
+            new[r * ny + np.arange(ny // 3, ny // 3 + 5)] = np.inf
+    new[2 * ny + np.arange(3, 7)] = 0.0
+    old_t, new_t = torch.from_numpy(costs).to(cuda), torch.from_numpy(new).to(cuda)
+    kw = dict(edge_cost_factor=1.0, cost_limit=2.0)
+    plan0 = bg.refresh_banded_planes_from_costs(plan, old_t, **kw)
+    plan1 = bg.refresh_banded_planes_from_costs(plan, new_t, **kw)
+    d_prev = bg.banded_solve_padded(plan0, seeds, atol=ATOL, rtol=RTOL).d_pad
+    changed = bg.changed_plane_from_costs(plan, old_t, new_t)
+    raised = bg.raised_plane_from_costs(plan, old_t, new_t)
+    Rp = d_prev.shape[0]
+    d_k, dirty_k, cut = bg._warm_start(plan1, seeds, d_prev, changed, raised,
+                                       bg.position_planes(plan, mesh), Rp=Rp, bb=8,
+                                       atol=ATOL, rtol=RTOL)
+    assert bool(torch.isinf(cut[1]).all()) == clear
+    d_p, dirty_p = d_k.clone(), dirty_k.clone()
+    prob = bg.prepare_padded(plan1, seeds, seeded=False)
+    before = kernels.LAUNCHES["banded_pass_dirty"]
+    for rnd in range(2):
+        for reverse, cross in ((False, prob.down), (True, prob.up)):
+            wc = cut if (rnd == 0 and not reverse) else None
+            ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, reverse=reverse,
+                                     atol=ATOL, rtol=RTOL, dirty=dirty_k, warm_cut=wc)
+            cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, reverse=reverse,
+                                           bb=8, atol=ATOL, rtol=RTOL, dirty=dirty_p, warm_cut=wc)
+            torch.cuda.synchronize()
+            assert bool(ck.item()) == bool(cp.item())
+            assert torch.equal(dirty_k, dirty_p)
+            fin = torch.isfinite(d_p)
+            assert torch.equal(fin, torch.isfinite(d_k))
+            assert not bool(torch.isnan(d_k).any())
+            err = (d_k[fin] - d_p[fin]).abs()
+            assert bool((err <= ATOL + RTOL * d_p[fin].abs()).all()), float(err.max())
+            d_k.copy_(d_p)
+    assert kernels.LAUNCHES["banded_pass_dirty"] == before + 4
+    # and the warm solve through the kernels converges to the cold field, at
+    # twice the tolerance as in tests/test_torch_replan.py: the warm field is
+    # certified only edge by edge
+    res = bg.banded_solve_padded(plan1, seeds, atol=ATOL, rtol=RTOL, converge="check",
+                                 warm_d=d_prev, warm_changed=changed, warm_raised=raised,
+                                 warm_pos=bg.position_planes(plan, mesh))
+    cold = bg.banded_solve_padded(plan1, seeds, atol=ATOL, rtol=RTOL).d_pad
+    assert res.converged
+    fin = torch.isfinite(cold)
+    assert torch.equal(fin, torch.isfinite(res.d_pad))
+    err = (res.d_pad[fin] - cold[fin]).abs()
+    assert bool((err <= 2 * (ATOL + RTOL * cold[fin].abs())).all()), float(err.max())
