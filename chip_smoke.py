@@ -16,6 +16,11 @@ Phases, each printed as one JSON line on standard output:
    its warm modes (dirty table + warm cut) against its plain version from a
    converged field with a raised patch (fields within atol + rtol*|d|, dirty
    tables and flags equal).
+   eik_kernel_check: on a 40x36 terrain with 16 lanes, the eikonal pass
+   kernel against its plain version, each of the four orderings forced and
+   then driven by the forced pass's dirty table (fields bit for bit where
+   reached, else within atol + rtol*|d|; dirty tables and flags equal), and
+   the plain version's time at this shape.
 3. main_path: the headline pipeline at full width — 1024x1024 terrain
    (V = 1,048,576), 1024 lanes, f32, atol 1e-4 / rtol 2e-3: steepness costs
    -> slot weights -> banded plan -> DijkstraPlanner.plan_batch_banded ->
@@ -40,10 +45,28 @@ Phases, each printed as one JSON line on standard output:
 7. kernels at the replan shapes: the warm resolve of the last update pass by
    pass (warm pass ms per launch against its bound, the share of rows each
    pass leaves unchanged), the check kernel against its plain version with its
-   time and bound; then the `{"kernels": [...]}` line.
+   time and bound.
+8. cvp: the CVP planner at full width (bench.py:451-554) on the same mesh
+   and costs — side lengths = edge weights, the eikonal plan with its
+   Dijkstra warm plan, 128 lanes with starts and goals on vertices, one
+   warm-up, then ITERS timed CVPPlanner.plan_batch_banded calls, each
+   followed by one MeshController.compute_velocity_cvp cycle: solves/s,
+   rounds and `converged` per solve (gated), per-stage device times,
+   launches per solve, peak memory, one traced iteration for the idle share.
+9. cvp_oracle: two lanes of the warm-up solve against the native CVP fast
+   marching, the 99.9th-percentile relative error below 1%, and each
+   lane's walked cost within 1% + 1e-2 of the same descent walked on the
+   oracle's field (the vertex descent walks along edges, so the oracle's
+   distance itself is no bound on it; the ratio is printed).
+10. kernels at the CVP shapes: each eikonal pass of one more solve timed by
+   its own event pair against its bound, and its first forced pass and
+   first dirty-driven pass held against the plain version on a 4-row slab
+   of their own input at the full width, lanes and classes (fields bit for
+   bit, dirty tables and flags equal); then the `{"kernels": [...]}` line
+   with all four kernels.
 
 Kernel launches are counted per path: the counts are set to 0 just before
-the main path and again before the replan path, and read just after each;
+the main path, the replan path and the CVP path, and read just after each;
 launches made to hold a kernel against its plain version are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
@@ -77,6 +100,15 @@ REPLAN_BATCH = 128          # lanes per update (bench.py:395)
 # the kernels each path runs; each must launch at least once on its path
 MAIN_PATH_KERNELS = ("banded_pass", "class_pred")
 REPLAN_KERNELS = ("banded_pass", "banded_pass_dirty", "check")
+CVP_KERNELS = ("banded_pass", "eik_pass")
+CVP_BATCH = 128             # lanes per solve (bench.py:457-460)
+CVP_ATOL, CVP_RTOL = 1e-4, 1e-3   # the CVP solve's stopping tolerance (planners/cvp.py)
+# operations of one unfold() in csrc/eik_pass.cu as written (compares,
+# selects, clamps, 5 divisions, 3 square roots) and its min into the best
+# value, per class and element; then per element the imp and lt flags
+EIK_UNFOLD_OPS = 81
+EIK_ELEM_OPS = 6
+EIK_SLAB_ROWS = 4   # rows of a CVP-path pass's own input held against the plain pass
 
 
 def emit(obj) -> None:
@@ -837,9 +869,352 @@ def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
     }
 
 
-def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64)) -> list:
-    """Phases 2-7 on `device`; returns the kernels line."""
+def eik_orderings_check(plan, d, atol, rtol) -> dict:
+    """The eikonal pass kernel against its plain version on the same inputs:
+    each of the four orderings forced, then driven by the forced pass's
+    dirty table; the next ordering starts from the plain output. Fields bit
+    for bit where reached, else within atol + rtol*|d|; dirty tables and
+    changed flags equal."""
+    import torch
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+
+    cls = eg.class_sources(plan)
+    dirty = torch.zeros((d.shape[2] // eg.EIK_LANES, d.shape[0]), dtype=torch.int32,
+                        device=d.device)
+    out = {}
+    for rev, cdir in (*eg._PAIR_A, *eg._PAIR_B):
+        for force in (True, False):
+            kw = dict(reverse=rev, chunk_dir=cdir, atol=atol, rtol=rtol, force=force)
+            d_k, chg_k, dirty_k = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
+            d_p, chg_p, dirty_p = eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw)
+            cmp = compare_fields(d_k, d_p, atol, rtol)
+            cmp.update(bitwise=bool(torch.equal(d_k, d_p)),
+                       flags_equal=int(chg_k.item()) == int(chg_p.item()),
+                       dirty_equal=bool(torch.equal(dirty_k, dirty_p)),
+                       dirty_rows=int(dirty_p.sum()))
+            name = f"{'up' if rev else 'down'}{'+' if cdir > 0 else '-'}{'_forced' if force else '_dirty'}"
+            out[name] = cmp
+            if not (cmp["within_tol"] and cmp["flags_equal"] and cmp["dirty_equal"]):
+                raise AssertionError(f"eik_pass kernel disagrees with its plain version: {name} {cmp}")
+            d, dirty = d_p, dirty_p
+    return out
+
+
+def eik_kernel_check(device, nx: int = 40, ny: int = 36, batch: int = 16) -> tuple[dict, dict]:
+    """Phase 2, eik_kernel_check: the eikonal pass kernel against its plain version on a small
+    terrain whose row width is not a multiple of 32, with `batch` goal-face
+    lanes and a loose upper bound in 30% of the unseeded elements (so that a
+    forced pass has work in every row). Also the plain version's time and
+    the kernel's at this shape."""
+    import torch
+    from mesh_navigation_torch.mesh import synthetic
+    from mesh_navigation_torch.mesh.arrays import build_mesh, host_array
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+    from mesh_navigation_torch.ops import sweeps
+
+    v, f = synthetic.terrain_mesh(nx, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+    mesh = build_mesh(v, f, device=device)
+    nz = torch.clamp(mesh.vertex_normals[:, 2], -1.0, 1.0)
+    ew = sweeps.compute_edge_weights(mesh, torch.arccos(nz), 1.0)
+    plan = eg.build_eikonal_kernel_plan(mesh, ew.cpu().numpy())
+    rng = np.random.default_rng(SEED + 4)
+    seed_v = host_array(mesh, "faces")[rng.integers(0, mesh.num_faces, batch)]
+    seed_d = rng.uniform(0.05, 0.4, seed_v.shape).astype(np.float32)
+    d = eg.seeded_field(plan, torch.from_numpy(seed_v), torch.from_numpy(seed_d))
+    far = torch.from_numpy(rng.uniform(100.0, 150.0, tuple(d.shape)).astype(np.float32)).to(device)
+    some = torch.from_numpy(rng.uniform(size=tuple(d.shape)) < 0.3).to(device)
+    d = torch.where(torch.isinf(d) & some, far, d)
+    with uncounted():
+        cases = eik_orderings_check(plan, d, CVP_ATOL, CVP_RTOL)
+        cls = eg.class_sources(plan)
+        dirty = torch.zeros((d.shape[2] // eg.EIK_LANES, d.shape[0]), dtype=torch.int32,
+                            device=device)
+        kw = dict(reverse=False, chunk_dir=1, atol=CVP_ATOL, rtol=CVP_RTOL, force=True)
+        time_ms(lambda: eg.eik_pass(d, plan.abc, cls, dirty, **kw), device)       # warm
+        kernel_ms = time_ms(lambda: eg.eik_pass(d, plan.abc, cls, dirty, **kw), device, reps=5)
+        plain_ms = time_ms(lambda: eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw), device)
+    detail = {"phase": "eik_kernel_check", "mesh": f"{nx}x{ny}", "field": list(d.shape),
+              "lanes": batch, "classes": len(plan.classes), "cases": cases,
+              "bitwise_all": all(c["bitwise"] for c in cases.values()),
+              "forced_pass_kernel_ms": kernel_ms, "forced_pass_plain_ms": plain_ms}
+    return detail, {"plain_ms": plain_ms, "check_shape": list(d.shape),
+                    "check_shape_ms": kernel_ms,
+                    "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+
+
+def eik_slab_check(pass_fn, d, abc, cls, dirty, r0: int, kw: dict, device) -> dict:
+    """The eikonal pass kernel (`pass_fn`) against its plain version on rows
+    r0 .. r0 + EIK_SLAB_ROWS of one CVP-path launch's own input, at the
+    path's full width, lanes and classes; rows outside the slab read as
+    +inf to both. Fields bit for bit, dirty tables and changed flags equal;
+    also the plain version's time on the slab."""
+    import torch
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+
+    r1 = min(r0 + EIK_SLAB_ROWS, d.shape[0])
+    ds, abcs = d[r0:r1].contiguous(), abc[r0:r1].contiguous()
+    dirs = dirty[:, r0:r1].contiguous()
+    d_k, chg_k, dirty_k = pass_fn(ds, abcs, cls, dirs, **kw)
+    got = []
+    plain_ms = time_ms(lambda: got.append(eg._eik_pass_plain(ds, abcs, cls, dirs, **kw)), device)
+    d_p, chg_p, dirty_p = got[0]
+    cmp = compare_fields(d_k, d_p, kw["atol"], kw["rtol"])
+    cmp.update(rows=[r0, r1], shape=list(ds.shape), force=bool(kw.get("force")),
+               bitwise=bool(torch.equal(d_k, d_p)),
+               flags_equal=int(chg_k.item()) == int(chg_p.item()),
+               dirty_equal=bool(torch.equal(dirty_k, dirty_p)),
+               dirty_rows_in=int(dirs.sum()), dirty_rows_out=int(dirty_p.sum()),
+               elements_changed=int((d_p != ds).sum()), plain_ms=plain_ms)
+    if not (cmp["bitwise"] and cmp["flags_equal"] and cmp["dirty_equal"]):
+        raise AssertionError(f"eik_pass kernel disagrees with its plain version on the "
+                             f"CVP path's input: {cmp}")
+    return cmp
+
+
+def cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
+    """Phase 8: the CVP planner at full width (bench.py:451-554) on the main
+    path's terrain and steepness costs: side lengths = edge weights (cost
+    factor 1.0), the eikonal plan with its Dijkstra warm plan, `batch`
+    lanes with starts and goals drawn on vertices, one warm-up, then `iters`
+    timed plan_batch_banded calls, each followed by one compute_velocity_cvp
+    cycle. Gates: converged on every solve, the path's kernels launched,
+    sane outputs."""
+    import torch
+    from mesh_navigation_torch.config import ControllerConfig, PlannerConfig
+    from mesh_navigation_torch.control import MeshController
+    from mesh_navigation_torch.control.controller import initial_state
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.planners import CVPPlanner
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    mesh, v, costs_np = ctx["mesh"], ctx["v"], ctx["costs_np"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    costs = torch.from_numpy(costs_np).to(device)
+    planner = CVPPlanner(mesh, PlannerConfig(cost_limit=2.0), grid=ctx["planner"].grid,
+                         max_path_len=max(2048, 3 * mesh_n), device=device)
+    ew = planner.prepare_weights(costs, 1.0)
+    ew_np = ew.cpu().numpy()
+    kplan = planner.prepare_eikonal_plan(ew_np, costs_np)
+    if kplan is None or planner._dij_plan is None:
+        raise RuntimeError("no banded eikonal plan (or warm plan) for the terrain mesh")
+    ctrl = MeshController(mesh, ControllerConfig(), grid=planner.grid, device=device)
+    sync(device)
+    t_setup = time.perf_counter() - t0
+    log(f"# cvp set-up {t_setup:.1f} s: classes {len(kplan.classes)}, coverage "
+        f"{kplan.coverage}, residual pairs {kplan.n_residual}")
+    rng = np.random.default_rng(SEED + 3)
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0]]).expand(batch, 4)
+
+    def sample():
+        """Starts and goals on vertices (bench.py:488-495): the goal's
+        containing-face search needs poses on the surface."""
+        p = v[rng.integers(0, mesh.num_vertices, 2 * batch)].astype(np.float32)
+        return p[:batch], p[batch:]
+
+    def step(s, g, timer=None):
+        res = planner.plan_batch_banded(ew, kplan, torch.from_numpy(s), torch.from_numpy(g),
+                                        atol=CVP_ATOL, rtol=CVP_RTOL, timer=timer)
+        st = initial_state(torch.from_numpy(g).to(device), torch.tensor([1.0, 0.0, 0.0]))
+        cmds, _ = ctrl.compute_velocity_cvp(
+            kplan, ew, res.d_pad.reshape(-1, res.d_pad.shape[-1]), costs,
+            torch.from_numpy(s), q, st, tol=1e-3, timer=timer)
+        return res, cmds
+
+    kernels.reset_launches()
+    warm = sample()
+    tw = time.perf_counter()
+    warm_res, cmds = step(*warm)
+    sync(device)
+    t_warm = time.perf_counter() - tw
+    solves = [{"rounds": warm_res.rounds, "converged": bool(warm_res.converged)}]
+    timer = StageTimer(device)
+    t1 = time.perf_counter()
+    res = None
+    for _ in range(iters):
+        res = cmds = None
+        res, cmds = step(*sample(), timer=timer)
+        solves.append({"rounds": res.rounds, "converged": bool(res.converged)})
+    sync(device)
+    dt = time.perf_counter() - t1
+    launches = {name: kernels.LAUNCHES[name] for name in CVP_KERNELS}
+    for name, n in launches.items():
+        if n <= 0 and torch.device(device).type == "cuda":
+            raise AssertionError(f"kernel {name} was not launched on the CVP path")
+    if not all(x["converged"] for x in solves):
+        raise AssertionError(f"a CVP solve did not converge: {solves}")
+    ok_lanes = res.outcome == 0
+    checks = {
+        "shapes": list(res.path_positions.shape) == [batch, planner.max_path_len, 3]
+        and list(cmds.linear.shape) == [batch],
+        "reach_rate": float(ok_lanes.float().mean()),
+        "costs_finite_where_reached": bool(torch.isfinite(res.cost[ok_lanes]).all()),
+        "commands_finite": bool(torch.isfinite(cmds.linear).all()
+                                and torch.isfinite(cmds.angular).all()),
+        "control_success_rate": float((cmds.outcome == 0).float().mean()),
+    }
+    if not (checks["shapes"] and checks["costs_finite_where_reached"]
+            and checks["commands_finite"] and checks["reach_rate"] > 0.5):
+        raise AssertionError(f"CVP output check failed: {checks}")
+    stages = {k: val / iters for k, val in timer.totals().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else None
+    res = cmds = None
+    trace = device_busy(lambda: step(*sample()), device)
+    out = {
+        "phase": "cvp", "mesh": f"{mesh_n}x{mesh_n}", "V": mesh.num_vertices, "lanes": batch,
+        "atol": CVP_ATOL, "rtol": CVP_RTOL, "orderings": 2,
+        "classes": len(kplan.classes), "coverage": kplan.coverage,
+        "setup_s": t_setup, "warmup_s": t_warm, "iters": iters,
+        "solves_per_s": batch * iters / dt, "ms_per_iter": dt * 1e3 / iters,
+        "solves": solves, "stage_ms_per_iter": stages, "launches": launches,
+        "launches_per_solve": {k: n / (iters + 1) for k, n in launches.items()},
+        "checks": checks, "trace": trace, "peak_mem_gb": peak,
+    }
+    return out, dict(planner=planner, kplan=kplan, ew=ew, ew_np=ew_np, warm=warm,
+                     warm_res=warm_res, launches=launches, costs=costs)
+
+
+def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2) -> dict:
+    """Phase 9: two lanes of the warm-up solve against the native CVP fast
+    marching (bench.py:520-550): the 99.9th-percentile relative error of the
+    field below 1%, and the walked cost of each lane's descent no more than
+    1% + 1e-2 above the walked cost of the same descent on the oracle's own
+    field. Also read, not gated: the walked cost over the oracle's distance
+    at the start vertex (the vertex descent walks along edges, so on an
+    exact field it already walks up to a third more than the geodesic)."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.native import NativeMesh
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+    from mesh_navigation_torch.planners.common import pose_chain
+    from mesh_navigation_torch.planners.dijkstra import potential_lanes
+
+    planner, kplan, res = cctx["planner"], cctx["kplan"], cctx["warm_res"]
+    mesh, dev = planner.mesh, planner.device
+    s, g = (x[:n_lanes] for x in cctx["warm"])
+    g_face = query.containing_face_batch(mesh, planner.grid, torch.from_numpy(g).to(dev))[0]
+    g_vids = mesh.faces[torch.clamp(g_face, min=0)].long()
+    s_v = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(s).to(dev))[0]
+    pot = potential_lanes(kplan, res.d_pad, res.lane_map, list(range(n_lanes)))
+    v = ctx["v"]
+    nm = NativeMesh(v, ctx["f"])
+    lanes = []
+    try:
+        for b in range(n_lanes):
+            gv = g_vids[b].cpu().numpy()
+            sd = np.linalg.norm(v[gv] - g[b][None], axis=1).astype(np.float32)
+            od = nm.cvp(cctx["ew_np"], ctx["costs_np"], gv, sd, 2.0)[0]
+            d_or = eg.padded_flat_from_vb(kplan, torch.from_numpy(od)[None].to(dev))
+            path, valid = eg.cvp_descend_paths(kplan, mesh, cctx["ew"], d_or, s_v[b:b + 1],
+                                               g_vids[b:b + 1], planner.max_path_len, tol=5e-3)
+            walk_or = float(pose_chain(mesh.vertices[path], valid, mesh.vertex_normals[path])[1][0])
+            walked = float(res.cost[b])
+            od_start = float(od[int(s_v[b])])
+            lanes.append({"p999_rel_err": percentile_rel_err(pot[b], od),
+                          "same_finite_set": bool(np.array_equal(np.isfinite(pot[b]),
+                                                                 np.isfinite(od))),
+                          "walked_cost": walked, "oracle_field_walked_cost": walk_or,
+                          "oracle_at_start": od_start,
+                          "walked_over_oracle_at_start": walked / od_start if od_start > 0 else None,
+                          "path_steps": int(res.path_valid[b].sum())})
+    finally:
+        nm.close()
+    out = {"phase": "cvp_oracle", "lanes": lanes, "budget": 0.01,
+           "max_rel_err": max(x["p999_rel_err"] for x in lanes)}
+    bad = [x for x in lanes
+           if not (x["p999_rel_err"] < 0.01 and x["same_finite_set"]
+                   and x["walked_cost"] <= x["oracle_field_walked_cost"] * 1.01 + 1e-2)]
+    if bad:
+        raise AssertionError(f"CVP oracle gate failed: {out}")
+    return out
+
+
+def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
+    """Phase 10: the eikonal solve of one more plan_batch_banded call on the
+    warm-up draw, pass by pass: each eik_pass launch timed by its own event
+    pair, with its bound from what that launch's data needs: the operations
+    of the rows it computes (K unfold updates per element of a computed
+    row-block) and the bytes of one read of the field and the abc planes,
+    the dirty tables, and one write of each element it changed. The first
+    forced launch and the first launch driven by a dirty table are also
+    held against the plain version on a slab of their own input
+    (eik_slab_check): the forced one in the middle rows, the dirty one
+    around the median dirty row that it improved. Not counted for the
+    path."""
+    import torch
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+
+    planner, kplan = cctx["planner"], cctx["kplan"]
+    K = len(kplan.classes)
+    times, byte_s, op_s, rows_computed = [], [], [], []
+    slabs = {}
+    orig = eg.eik_pass
+
+    def timed(d, abc, cls, dirty, **kw):
+        got = []
+        times.append(time_ms(lambda: got.append(orig(d, abc, cls, dirty, **kw)), device))
+        out = got[0]
+        new, _, dirty_out = out
+        Rp, Cp, Bp = d.shape
+        dirty_rows = dirty.any(dim=0).nonzero()[:, 0]
+        written = dirty_out.any(dim=0).nonzero()[:, 0]
+        if kw.get("force") and "forced" not in slabs:
+            r0 = max(0, Rp // 2 - EIK_SLAB_ROWS // 2)
+            slabs["forced"] = eik_slab_check(orig, d, abc, cls, dirty, r0, kw, device)
+        elif not kw.get("force") and "dirty" not in slabs and len(dirty_rows):
+            rows = written if len(written) else dirty_rows    # rows this launch improved
+            r = int(rows[len(rows) // 2])
+            r0 = max(0, min(r - 1, Rp - EIK_SLAB_ROWS))
+            slabs["dirty"] = eik_slab_check(orig, d, abc, cls, dirty, r0, kw, device)
+        din, dout = dirty.bool(), dirty_out.bool()
+        need = din.clone()
+        need[:, 1:] |= din[:, :-1]
+        need[:, :-1] |= din[:, 1:]
+        if kw["reverse"]:                  # the row before in pass order
+            need[:, :-1] |= dout[:, 1:]
+        else:
+            need[:, 1:] |= dout[:, :-1]
+        n_blocks = need.numel() if kw.get("force") else int(need.sum())
+        rows_computed.append(n_blocks / need.numel())
+        n_written = int((new != d).sum())
+        byte_s.append((d.numel() + abc.numel() + 2 * dirty.numel() + n_written) * 4
+                      / HBM_BYTES_PER_S)
+        op_s.append(n_blocks * Cp * eg.EIK_LANES * (K * EIK_UNFOLD_OPS + EIK_ELEM_OPS)
+                    / F32_OPS_PER_S)
+        return out
+
+    s, g = cctx["warm"]
+    eg.eik_pass = timed
+    try:
+        with uncounted():
+            res = planner.plan_batch_banded(cctx["ew"], kplan, torch.from_numpy(s),
+                                            torch.from_numpy(g), atol=CVP_ATOL, rtol=CVP_RTOL)
+    finally:
+        eg.eik_pass = orig
+    if set(slabs) != {"forced", "dirty"}:
+        raise AssertionError(f"the CVP solve gave no forced or no dirty-driven pass to check: "
+                             f"{sorted(slabs)}")
+    bounds = [max(x, y) * 1e3 for x, y in zip(byte_s, op_s)]
+    detail = {"phase": "kernels_at_cvp_shapes", "field": list(res.d_pad.shape), "classes": K,
+              "rounds": res.rounds, "eik_pass_launch_ms": times, "eik_pass_bound_ms": bounds,
+              "row_blocks_computed_share": rows_computed, "path_slab_checks": slabs}
+    return detail, {"ms": float(np.mean(times)), "bound_ms": float(np.mean(bounds)),
+                    "bound_by": "bytes" if np.mean(byte_s) >= np.mean(op_s) else "operations",
+                    "slab_max_abs_err": max(c["max_abs_err"] for c in slabs.values()),
+                    "slab_shape": slabs["forced"]["shape"],
+                    "slab_plain_ms": slabs["forced"]["plain_ms"]}
+
+
+def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
+        eik_small=(40, 36, 16), cvp_batch=CVP_BATCH) -> list:
+    """Phases 2-10 on `device`; returns the kernels line."""
+    import torch
+
     emit(kernel_check(device, *small))
+    eik_detail, eik_check = eik_kernel_check(device, *eik_small)
+    emit(eik_detail)
     mp, ctx = main_path(device, mesh_n, batch, iters)
     emit(mp)
     ctx["launches"] = mp["launches"]
@@ -860,6 +1235,25 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64)) -> lis
                  "replaces": "mesh_navigation_tpu/ops/pallas_banded.py:2310",
                  "launches": rctx["launches"]["check"], **rk["check"],
                  "library_ms": None})
+    del rctx
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    cp, cctx = cvp(device, ctx, iters, cvp_batch)
+    emit(cp)
+    emit(cvp_oracle_gate(ctx, cctx))
+    cdetail, ck = kernels_at_cvp_shapes(cctx, device)
+    emit(cdetail)
+    line[0]["cvp_launches"] = cctx["launches"]["banded_pass"]
+    line.append({"name": "eik_pass", "route": "cuda",
+                 "source": "mesh_navigation_torch/csrc/eik_pass.cu",
+                 "replaces": "mesh_navigation_tpu/ops/pallas_eikonal.py:278",
+                 "launches": cctx["launches"]["eik_pass"],
+                 "launches_per_solve": cctx["launches"]["eik_pass"] / (iters + 1),
+                 **ck, "max_abs_err": max(eik_check["max_abs_err"], ck["slab_max_abs_err"]),
+                 "plain_ms": eik_check["plain_ms"], "plain_shape": eik_check["check_shape"],
+                 "ms_at_plain_shape": eik_check["check_shape_ms"],
+                 "library_ms": None,
+                 "library_note": "no single PyTorch call computes the unfolding pass"})
     return line
 
 

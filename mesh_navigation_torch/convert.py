@@ -1,9 +1,10 @@
-"""Carry a mesh or a banded plan across from numpy arrays.
+"""Carry a mesh or a kernel plan across from numpy arrays.
 
 The system has no model weights; what two implementations must share to be
-compared is the mesh and the plan. Both functions take plain numpy arrays
-(for instance read off the reference package's MeshArrays and
-BandedKernelPlan), so either side can be fed the other's exact inputs.
+compared is the mesh and the plan. These functions take plain numpy arrays
+(for instance read off the reference package's MeshArrays,
+BandedKernelPlan and EikonalKernelPlan), so either side can be fed the
+other's exact inputs.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import torch
 from mesh_navigation_torch.device import resolve_device
 from mesh_navigation_torch.mesh.arrays import FIELDS, MeshArrays, from_host_tables
 from mesh_navigation_torch.ops.banded_gpu import PLAN_ARRAYS, PLAN_META, BandedKernelPlan
+from mesh_navigation_torch.ops.eikonal_gpu import (
+    EIK_PLAN_ARRAYS, EIK_PLAN_META, EikonalKernelPlan,
+)
 
 
 def mesh_from_numpy(arrays: dict, *, device=None) -> MeshArrays:
@@ -37,3 +41,17 @@ def plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> BandedKernelPla
         if k in meta:
             fields[k] = tuple(meta[k]) if k.startswith("xlanes") else meta[k]
     return BandedKernelPlan(**fields)
+
+
+def eikonal_plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> EikonalKernelPlan:
+    """EikonalKernelPlan from a dict of numpy arrays (every field of
+    EIK_PLAN_ARRAYS) and a dict of its scalar fields (EIK_PLAN_META)."""
+    dev = resolve_device(device)
+    missing = [k for k in (*EIK_PLAN_ARRAYS, *EIK_PLAN_META) if k not in arrays and k not in meta]
+    if missing:
+        raise ValueError(f"eikonal_plan_from_numpy: missing fields {missing}")
+    fields = {k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in EIK_PLAN_ARRAYS}
+    for k in EIK_PLAN_META:
+        v = meta[k]
+        fields[k] = tuple(tuple(int(x) for x in c) for c in v) if k.startswith("classes") else v
+    return EikonalKernelPlan(**fields)

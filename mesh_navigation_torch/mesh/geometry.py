@@ -28,6 +28,16 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def rotate_about_axis(vec: torch.Tensor, axis: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation of vec around the unit axis by angle theta (lvr2's
+    `Vector::rotated(normal, theta)` in the CVP vector field,
+    cvp_mesh_planner.cpp:229-234)."""
+    axis = normalize(axis)
+    c = torch.cos(theta)[..., None]
+    s = torch.sin(theta)[..., None]
+    return vec * c + cross(axis, vec) * s + axis * dot(axis, vec)[..., None] * (1.0 - c)
+
+
 def projected_barycentric_coords(p: torch.Tensor, tri: torch.Tensor):
     """Barycentric coords of p projected onto tri = [..., 3, 3] (Heidrich's
     method, util.cpp:320-347). Returns (bary [..., 3], signed_dist [...],

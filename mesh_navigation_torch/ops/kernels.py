@@ -6,7 +6,8 @@ All sources are compiled in parallel, one `nvcc` per source, on first use.
 Nothing is built while a module is imported.
 
 `LAUNCHES` counts the launches of each kernel; the wrappers in
-ops/banded_gpu.py add one where they launch and nowhere else. The pass
+ops/banded_gpu.py and ops/eikonal_gpu.py add one where they launch and
+nowhere else. The pass
 kernel's launches in its dirty-table mode (the warm resolve) are also
 counted apart, under "banded_pass_dirty".
 """
@@ -25,11 +26,15 @@ SOURCES = {
     "banded_pass": "banded_pass.cu",
     "class_pred": "class_pred.cu",
     "check": "check.cu",
+    "eik_pass": "eik_pass.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# per-source additions: the eikonal pass rounds as its plain PyTorch version
+# does only without multiply-add contraction
+EXTRA_FLAGS = {"eik_pass": ["--fmad=false"]}
 LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, "banded_pass_dirty")}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -46,6 +51,8 @@ _SIGNATURES = {
     "class_pred": ("class_pred_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
     "check": ("check_launch", [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
+    "eik_pass": ("eik_pass_launch",
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
 }
 
 
@@ -74,7 +81,9 @@ def build_all(timeout: float = 900.0) -> dict[str, str]:
             lib = _lib_path(name)
             if buildutil.is_stale(src_path, lib):
                 started[name] = buildutil.start_build(
-                    lambda out, s=src_path: [nvcc, *NVCC_FLAGS, "-o", out, s], lib
+                    lambda out, s=src_path, n=name: [
+                        nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(n, []), "-o", out, s],
+                    lib
                 )
         logs = {}
         deadline = time.monotonic() + timeout

@@ -1,3 +1,4 @@
+from mesh_navigation_torch.planners.cvp import CVPPlanner
 from mesh_navigation_torch.planners.dijkstra import DijkstraPlanner
 
-__all__ = ["DijkstraPlanner"]
+__all__ = ["CVPPlanner", "DijkstraPlanner"]

@@ -15,6 +15,7 @@ import torch
 from mesh_navigation_torch.mesh import synthetic
 from mesh_navigation_torch.mesh.arrays import build_mesh, host_array
 from mesh_navigation_torch.ops import banded_gpu as bg
+from mesh_navigation_torch.ops import eikonal_gpu as eg
 from mesh_navigation_torch.ops import kernels, sweeps
 
 pytestmark = pytest.mark.gpu
@@ -175,3 +176,98 @@ def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
     assert torch.equal(fin, torch.isfinite(res.d_pad))
     err = (res.d_pad[fin] - cold[fin]).abs()
     assert bool((err <= 2 * (ATOL + RTOL * cold[fin].abs())).all()), float(err.max())
+
+
+def _eik_field(nx, ny, B, device):
+    """An eikonal plan on a small terrain with steepness side lengths, B
+    goal-face seed triples, and their seeded field raised by a loose upper
+    bound in 30% of the unseeded elements, so that a forced pass has work in
+    every row."""
+    v, f = synthetic.terrain_mesh(nx, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=1)
+    mesh = build_mesh(v, f, device=device)
+    nz = torch.clamp(mesh.vertex_normals[:, 2], -1.0, 1.0)
+    ew = sweeps.compute_edge_weights(mesh, torch.arccos(nz), 1.0)
+    plan = eg.build_eikonal_kernel_plan(mesh, ew.cpu().numpy())
+    rng = np.random.default_rng(nx * ny)
+    seed_v = torch.from_numpy(host_array(mesh, "faces")[rng.integers(0, mesh.num_faces, B)])
+    seed_d = torch.from_numpy(rng.uniform(0.05, 0.4, tuple(seed_v.shape)).astype(np.float32))
+    d = eg.seeded_field(plan, seed_v, seed_d)
+    gen = torch.Generator().manual_seed(B)
+    far = (torch.rand(d.shape, generator=gen) * 50 + 100).to(device)
+    some = (torch.rand(d.shape, generator=gen) < 0.3).to(device)
+    return plan, seed_v, seed_d, torch.where(torch.isinf(d) & some, far, d)
+
+
+@pytest.mark.parametrize("nx,ny,B", [(40, 36, 16), (21, 52, 40)])
+def test_eik_pass_kernel_matches_plain(cuda, nx, ny, B):
+    """Each of the four orderings, forced and then driven by the forced
+    pass's dirty table, on the same inputs: fields bit for bit (the kernel
+    is built without multiply-add contraction), dirty tables and flags
+    equal. Row widths 36 and 52 are not multiples of 32."""
+    plan, _, _, d = _eik_field(nx, ny, B, cuda)
+    cls = eg.class_sources(plan)
+    dirty = torch.zeros((d.shape[2] // eg.EIK_LANES, d.shape[0]), dtype=torch.int32,
+                        device=cuda)
+    before = kernels.LAUNCHES["eik_pass"]
+    n_dirty_rows = []
+    for rev, cdir in (*eg._PAIR_A, *eg._PAIR_B):
+        for force in (True, False):
+            kw = dict(reverse=rev, chunk_dir=cdir, atol=ATOL, rtol=RTOL, force=force)
+            out_k, chg_k, dirty_k = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
+            out_p, chg_p, dirty_p = eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw)
+            torch.cuda.synchronize()
+            assert int(chg_k.item()) == int(chg_p.item()), (rev, cdir, force)
+            assert torch.equal(dirty_k, dirty_p), (rev, cdir, force)
+            fin = torch.isfinite(out_p)
+            assert torch.equal(fin, torch.isfinite(out_k))
+            assert torch.equal(out_k, out_p), float((out_k[fin] - out_p[fin]).abs().max())
+            n_dirty_rows.append(int(dirty_p.sum()))
+            d, dirty = out_p, dirty_p
+    assert kernels.LAUNCHES["eik_pass"] == before + 8
+    assert n_dirty_rows[0] > 0 and min(n_dirty_rows) < d.shape[0] * dirty.shape[0]
+
+
+def test_eik_solve_through_the_kernel_matches_the_plain_solve(cuda, monkeypatch):
+    """The whole solve on the card, once through the kernel and once with
+    the plain version in its place: the same rounds and the same field bit
+    for bit."""
+    plan, seed_v, seed_d, _ = _eik_field(24, 36, 8, cuda)
+    kw = dict(atol=1e-5, rtol=1e-5, orderings=2)
+    got = eg.eikonal_solve_padded(plan, seed_v, seed_d, **kw)
+    monkeypatch.setattr(eg, "eik_pass", eg._eik_pass_plain)
+    want = eg.eikonal_solve_padded(plan, seed_v, seed_d, **kw)
+    assert got.converged and want.converged and got.rounds == want.rounds
+    assert torch.equal(got.d_pad, want.d_pad)
+
+
+def test_eik_pass_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    plan, _, _, d = _eik_field(12, 20, 8, cuda)
+    cls = eg.class_sources(plan)
+    dirty = torch.zeros((1, d.shape[0]), dtype=torch.int32, device=cuda)
+    kw = dict(reverse=False, atol=ATOL, rtol=RTOL)
+    with pytest.raises(ValueError, match="lanes"):
+        eg.eik_pass(d[:, :, :16].contiguous(), plan.abc, cls, dirty, chunk_dir=1, **kw)
+    with pytest.raises(ValueError, match="chunk_dir"):
+        eg.eik_pass(d, plan.abc, cls, dirty, chunk_dir=2, **kw)
+    with pytest.raises(ValueError, match="dirty"):
+        eg.eik_pass(d, plan.abc, cls, dirty.to(torch.int64), chunk_dir=1, **kw)
+
+
+def test_cvp_descent_graph_matches_eager(cuda):
+    """The descent's CUDA-graph replay walks the same paths as its eager
+    steps, on a converged field through the kernel."""
+    plan, seed_v, seed_d, _ = _eik_field(24, 36, 8, cuda)
+    v, f = synthetic.terrain_mesh(24, 36, spacing=0.5, hills=2.0, roughness=0.01, seed=1)
+    mesh = build_mesh(v, f, device=cuda)
+    nz = torch.clamp(mesh.vertex_normals[:, 2], -1.0, 1.0)
+    ew = sweeps.compute_edge_weights(mesh, torch.arccos(nz), 1.0)
+    res = eg.eikonal_solve_padded(plan, seed_v, seed_d, atol=1e-5, rtol=1e-5)
+    d_flat = res.d_pad.reshape(-1, res.d_pad.shape[-1])
+    starts = torch.from_numpy(np.random.default_rng(5).integers(0, mesh.num_vertices, 8)).to(cuda)
+    kw = dict(tol=5e-3, chunk=64)
+    p_g, v_g = eg.cvp_descend_paths(plan, mesh, ew, d_flat, starts, seed_v.to(cuda), 200,
+                                    graph=True, **kw)
+    p_e, v_e = eg.cvp_descend_paths(plan, mesh, ew, d_flat, starts, seed_v.to(cuda), 200,
+                                    graph=False, **kw)
+    assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+    assert int(v_e.sum(dim=1).max()) > 32        # the replays ran

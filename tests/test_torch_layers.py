@@ -19,7 +19,7 @@ from mesh_navigation_tpu.config import LayerConfig as JLayerConfig
 from mesh_navigation_tpu.layers import LayerStack as JLayerStack
 from mesh_navigation_tpu.layers import obstacle as jobstacle
 from mesh_navigation_tpu.layers.base import LAYER_REGISTRY as J_REGISTRY
-from mesh_navigation_tpu.mesh import build_mesh as jax_build_mesh
+from test_torch_reference import reference_build_mesh as jax_build_mesh
 from mesh_navigation_tpu.mesh import synthetic
 from mesh_navigation_tpu.ops import banded_sethian as jbs
 from mesh_navigation_tpu.ops import raycast as jraycast

@@ -12,7 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
-from mesh_navigation_tpu.mesh import build_mesh as jax_build_mesh
+from test_torch_reference import reference_build_mesh as jax_build_mesh
 from mesh_navigation_tpu.mesh import query as jquery
 from mesh_navigation_tpu.mesh import synthetic
 from mesh_navigation_tpu.ops import banded as jbanded

@@ -34,7 +34,7 @@ from mesh_navigation_tpu.config import LayerConfig as JLayerConfig
 from mesh_navigation_tpu.config import MeshMapConfig as JMeshMapConfig
 from mesh_navigation_tpu.config import NavConfig as JNavConfig
 from mesh_navigation_tpu.config import PlannerConfig as JPlannerConfig
-from mesh_navigation_tpu.mesh import build_mesh as jax_build_mesh
+from test_torch_reference import reference_build_mesh as jax_build_mesh
 from mesh_navigation_tpu.mesh import synthetic
 from mesh_navigation_tpu.ops import pallas_banded as jpb
 from mesh_navigation_tpu.ops import sweeps as jsweeps

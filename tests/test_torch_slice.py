@@ -23,7 +23,7 @@ from mesh_navigation_tpu.config import ControllerConfig as JControllerConfig
 from mesh_navigation_tpu.config import PlannerConfig as JPlannerConfig
 from mesh_navigation_tpu.control import MeshController as JMeshController
 from mesh_navigation_tpu.control.controller import initial_state as j_initial_state
-from mesh_navigation_tpu.mesh import build_mesh as jax_build_mesh
+from test_torch_reference import reference_build_mesh as jax_build_mesh
 from mesh_navigation_tpu.mesh import synthetic
 from mesh_navigation_tpu.ops import sweeps as jsweeps
 from mesh_navigation_tpu.planners import DijkstraPlanner as JDijkstraPlanner
