@@ -21,6 +21,10 @@ Phases, each printed as one JSON line on standard output:
    then driven by the forced pass's dirty table (fields bit for bit where
    reached, else within atol + rtol*|d|; dirty tables and flags equal), and
    the plain version's time at this shape.
+   sweep_kernel_check: the fused sweep kernel against its plain version, bit
+   for bit, at tile 256 (n_inner 1, 2, 3; offsets of +-tile; 8, 24 and 128
+   lanes; vertex counts that are not multiples of the tile) and at the 1M
+   terrain's tile and offsets on a small matrix.
 3. main_path: the headline pipeline at full width — 1024x1024 terrain
    (V = 1,048,576), 1024 lanes, f32, atol 1e-4 / rtol 2e-3: steepness costs
    -> slot weights -> banded plan -> DijkstraPlanner.plan_batch_banded ->
@@ -62,11 +66,27 @@ Phases, each printed as one JSON line on standard output:
    its own event pair against its bound, and its first forced pass and
    first dirty-driven pass held against the plain version on a 4-row slab
    of their own input at the full width, lanes and classes (fields bit for
-   bit, dirty tables and flags equal); then the `{"kernels": [...]}` line
-   with all four kernels.
+   bit, dirty tables and flags equal).
+11. structured: the structured Dijkstra tier at full width on the same mesh
+   and costs — the host offset classification (timed; offsets, coverage,
+   the port's tile and n_inner printed), 128 lanes with starts and goals on
+   vertices, one warm-up, then ITERS timed
+   DijkstraPlanner.plan_batch_structured calls (fused offset-shift sweeps,
+   the full result with its [B, V, 3] vector map), each followed by one
+   MeshController.compute_velocity cycle: solves/s, sweeps and `converged`
+   per solve (gated), per-stage device times, fused-sweep launches per
+   solve, peak memory, one traced iteration for the idle share.
+12. structured_oracle: two lanes of the warm-up solve against the native
+   heap Dijkstra: the field's largest relative error and the path cost
+   against the native predecessor chain's, both below 1%.
+13. kernels at the structured shapes: the fused sweep on the path's own
+   field after 64 sweeps, one launch against the plain version bit for bit,
+   its time against its bound and the plain version's time; then the
+   `{"kernels": [...]}` line with all five kernels.
 
 Kernel launches are counted per path: the counts are set to 0 just before
-the main path, the replan path and the CVP path, and read just after each;
+the main path, the replan path, the CVP path and the structured path, and
+read just after each;
 launches made to hold a kernel against its plain version are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
@@ -109,6 +129,9 @@ CVP_ATOL, CVP_RTOL = 1e-4, 1e-3   # the CVP solve's stopping tolerance (planners
 EIK_UNFOLD_OPS = 81
 EIK_ELEM_OPS = 6
 EIK_SLAB_ROWS = 4   # rows of a CVP-path pass's own input held against the plain pass
+STRUCTURED_KERNELS = ("fused_sweep",)
+STRUCTURED_BATCH = 128      # lanes per structured solve
+STRUCTURED_WAVE_SWEEPS = 64  # sweeps of the path's own solve before the full-shape check
 
 
 def emit(obj) -> None:
@@ -496,8 +519,8 @@ def main_path(device, mesh_n: int, batch: int, iters: int) -> dict:
                      warm=warm, warm_res=warm_res, res=res, rounds=rounds)
 
 
-def native_distances(v, f, costs_np, sources, cost_limit: float = 2.0) -> list:
-    """The native heap Dijkstra's distance field from each source vertex,
+def native_fields(v, f, costs_np, sources, cost_limit: float = 2.0) -> list:
+    """(dist, pred) of the native heap Dijkstra from each source vertex,
     over edge weights dist * (1 + (c1 + c2) / 2) (edge_cost_factor 1.0)."""
     from mesh_navigation_torch.native import NativeMesh
 
@@ -508,7 +531,7 @@ def native_distances(v, f, costs_np, sources, cost_limit: float = 2.0) -> list:
         c1, c2 = costs_np[edges[:, 0]], costs_np[edges[:, 1]]
         ew = np.where(np.isfinite(c1) & np.isfinite(c2),
                       dist + dist * (c1 + c2) * 0.5, np.inf).astype(np.float32)
-        return [nm.dijkstra(ew, costs_np, int(s), cost_limit)[0] for s in sources]
+        return [nm.dijkstra(ew, costs_np, int(s), cost_limit) for s in sources]
     finally:
         nm.close()
 
@@ -535,7 +558,8 @@ def oracle_gate(ctx, n_lanes: int = 2) -> dict:
     res = ctx["warm_res"]
     pot = potential_lanes(kplan, res.d_pad, res.lane_map, list(range(n_lanes)))
     errs = []
-    for b, od in enumerate(native_distances(ctx["v"], ctx["f"], ctx["costs_np"], gv[:n_lanes])):
+    fields = native_fields(ctx["v"], ctx["f"], ctx["costs_np"], gv[:n_lanes])
+    for b, (od, _) in enumerate(fields):
         ref, got = od[sv[b]], pot[b, sv[b]]
         if np.isfinite(ref) and ref > 0:
             errs.append(abs(got - ref) / ref)
@@ -769,7 +793,7 @@ def replan(device, ctx, iters: int) -> tuple[dict, dict]:
         R, C, V = srv.banded_plan.n_rows, srv.banded_plan.n_cols, mesh.num_vertices
         errs, same_sets = [], []
         src = seeds[:2].cpu().numpy()
-        for b, od in enumerate(native_distances(v, ctx["f"], costs_np, src)):
+        for b, (od, _) in enumerate(native_fields(v, ctx["f"], costs_np, src)):
             pot = d[:R, :C, b].reshape(-1)[:V].cpu().numpy()
             same_sets.append(bool(np.array_equal(np.isfinite(pot), np.isfinite(od))))
             errs.append(percentile_rel_err(pot, od))
@@ -1207,14 +1231,276 @@ def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
                     "slab_plain_ms": slabs["forced"]["plain_ms"]}
 
 
+def sweep_inputs(rng, tile: int, V: int, B: int, offsets, device):
+    """A tile-padded [T + Vp + T, B] label matrix (+inf end tiles and padded
+    rows, 30% of the other elements +inf, the rest in [0, 10)) and [K, Vp]
+    planes (20% +inf, +inf on the padded rows), Vp = V rounded up to the tile."""
+    import torch
+
+    Vp = -(-V // tile) * tile
+    d = np.full((tile + Vp + tile, B), np.inf, np.float32)
+    body = rng.uniform(0, 10, (V, B)).astype(np.float32)
+    body[rng.uniform(size=body.shape) < 0.3] = np.inf
+    d[tile:tile + V] = body
+    planes = np.full((len(offsets), Vp), np.inf, np.float32)
+    planes[:, :V] = rng.uniform(0, 1, (len(offsets), V))
+    planes[:, :V][rng.uniform(size=(len(offsets), V)) < 0.2] = np.inf
+    return torch.from_numpy(d).to(device), torch.from_numpy(planes).to(device)
+
+
+def sweep_pair(d, planes, offsets, tile: int, n_inner: int) -> dict:
+    """The fused sweep kernel against its plain version on the same input:
+    bit for bit (max_abs_err over the elements both leave finite, and the
+    same finite set)."""
+    import torch
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    k = sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=n_inner)
+    p = sg._fused_sweep_plain(d, planes, offsets, tile, n_inner)
+    fin = torch.isfinite(p)
+    res = {"bitwise": bool(torch.equal(k, p)),
+           "same_finite_set": bool(torch.equal(fin, torch.isfinite(k))),
+           "max_abs_err": float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) else 0.0,
+           "changed": int((p != d).sum())}
+    if not (res["bitwise"] and res["max_abs_err"] == 0.0):
+        raise AssertionError(f"fused_sweep kernel disagrees with its plain version: {res}")
+    return res
+
+
+def sweep_kernel_check(device) -> tuple[dict, float]:
+    """Phase 2, sweep_kernel_check: the fused sweep kernel against its plain
+    version, bit for bit, at tile 256 with n_inner 1, 2 and 3, offsets of
+    +-tile, 8, 24 and 128 lanes and vertex counts that are not multiples of
+    the tile; and at the 1M terrain's offsets and tile on a small matrix."""
+    rng = np.random.default_rng(SEED + 6)
+    cases = [(256, 1000, 8, 1, (1, -1, 256, -256)),
+             (256, 1500, 24, 2, (1, -1, 40, -40, 41, -41)),
+             (256, 2300, 128, 3, (-256, 256, 3, -7, 200)),
+             (1280, 6000, 128, 2, (1, -1, 1024, -1024, 1025, -1025))]
+    out = []
+    with uncounted():
+        for tile, V, B, n_inner, offsets in cases:
+            d, planes = sweep_inputs(rng, tile, V, B, offsets, device)
+            r = sweep_pair(d, planes, offsets, tile, n_inner)
+            r.update(tile=tile, V=V, lanes=B, n_inner=n_inner, offsets=list(offsets))
+            out.append(r)
+    return ({"phase": "sweep_kernel_check", "cases": out,
+             "bitwise_all": all(c["bitwise"] for c in out)},
+            max(c["max_abs_err"] for c in out))
+
+
+def structured(device, ctx, iters: int, batch: int = STRUCTURED_BATCH) -> tuple[dict, dict]:
+    """Phase 11: the structured Dijkstra tier at full width on the main
+    path's terrain and steepness costs (cost_limit 2.0, edge_cost_factor
+    1.0): the host offset classification (timed), then one warm-up and
+    `iters` timed DijkstraPlanner.plan_batch_structured calls with `batch`
+    lanes, starts and goals on vertices drawn from the seed, each followed
+    by one MeshController.compute_velocity cycle on the result's vector map.
+    Gates: converged on every solve, the fused sweep launched, sane
+    outputs."""
+    import torch
+    from mesh_navigation_torch.config import ControllerConfig, PlannerConfig
+    from mesh_navigation_torch.control import MeshController
+    from mesh_navigation_torch.control.controller import initial_state
+    from mesh_navigation_torch.ops import kernels, sweeps
+    from mesh_navigation_torch.ops import structured as st
+    from mesh_navigation_torch.planners import DijkstraPlanner
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    mesh, v, costs_np = ctx["mesh"], ctx["v"], ctx["costs_np"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    costs = torch.from_numpy(costs_np).to(device)
+    W = sweeps.slot_weights_np(mesh, costs_np, cost_limit=2.0, edge_cost_factor=1.0)
+    planner = DijkstraPlanner(mesh, PlannerConfig(cost_limit=2.0), grid=ctx["planner"].grid,
+                              max_path_len=max(2048, 3 * mesh_n), device=device)
+    ctrl = MeshController(mesh, ControllerConfig(), grid=planner.grid, device=device)
+    tp = time.perf_counter()
+    oplan = planner.prepare_offset_plan(W)
+    sync(device)
+    plan_s = time.perf_counter() - tp
+    Wt = torch.from_numpy(W).to(device)
+    tile = st.default_tile(oplan)
+    n_inner = st.default_n_inner(oplan, tile)
+    sync(device)
+    t_setup = time.perf_counter() - t0
+    log(f"# structured set-up {t_setup:.1f} s (offset plan {plan_s:.1f} s): offsets "
+        f"{oplan.offsets}, coverage {oplan.coverage}, tile {tile}, n_inner {n_inner}")
+    rng = np.random.default_rng(SEED + 5)
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0]]).expand(batch, 4)
+
+    def sample():
+        p = v[rng.integers(0, mesh.num_vertices, 2 * batch)].astype(np.float32)
+        return p[:batch], p[batch:]
+
+    def step(s, g, timer=None):
+        res = planner.plan_batch_structured(Wt, oplan, torch.from_numpy(s), torch.from_numpy(g),
+                                            timer=timer)
+        stt = initial_state(torch.from_numpy(g).to(device), torch.tensor([1.0, 0.0, 0.0]))
+        cmds, _ = ctrl.compute_velocity(res.vector_map, costs, torch.from_numpy(s), q, stt,
+                                        timer=timer)
+        return res, cmds
+
+    kernels.reset_launches()
+    warm = sample()
+    tw = time.perf_counter()
+    warm_res, cmds = step(*warm)
+    sync(device)
+    t_warm = time.perf_counter() - tw
+    solves = [{"sweeps": warm_res.rounds, "converged": bool(warm_res.converged)}]
+    warm_small = {"potential": warm_res.potential[:2].cpu().numpy(),
+                  "pred": warm_res.pred[:2].cpu().numpy(), "cost": warm_res.cost[:2].cpu().numpy()}
+    warm_res = cmds = None
+    timer = StageTimer(device)
+    t1 = time.perf_counter()
+    res = None
+    for _ in range(iters):
+        res = cmds = None
+        res, cmds = step(*sample(), timer=timer)
+        solves.append({"sweeps": res.rounds, "converged": bool(res.converged)})
+    sync(device)
+    dt = time.perf_counter() - t1
+    launches = {name: kernels.LAUNCHES[name] for name in STRUCTURED_KERNELS}
+    for name, n in launches.items():
+        if n <= 0 and cuda:
+            raise AssertionError(f"kernel {name} was not launched on the structured path")
+    if not all(x["converged"] for x in solves):
+        raise AssertionError(f"a structured solve did not converge: {solves}")
+    ok_lanes = res.outcome == 0
+    V = mesh.num_vertices
+    checks = {
+        "shapes": list(res.path_positions.shape) == [batch, planner.max_path_len, 3]
+        and list(res.vector_map.shape) == [batch, V, 3] and list(res.pred.shape) == [batch, V]
+        and list(res.potential.shape) == [batch, V] and list(cmds.linear.shape) == [batch],
+        "reach_rate": float(ok_lanes.float().mean()),
+        "costs_finite_where_reached": bool(torch.isfinite(res.cost[ok_lanes]).all()),
+        "vector_map_finite": bool(torch.isfinite(res.vector_map).all()),
+        "commands_finite": bool(torch.isfinite(cmds.linear).all()
+                                and torch.isfinite(cmds.angular).all()),
+        "control_success_rate": float((cmds.outcome == 0).float().mean()),
+    }
+    if not (checks["shapes"] and checks["costs_finite_where_reached"]
+            and checks["vector_map_finite"] and checks["commands_finite"]
+            and checks["reach_rate"] > 0.5):
+        raise AssertionError(f"structured output check failed: {checks}")
+    stages = {k: val / iters for k, val in timer.totals().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    res = cmds = None
+    trace = device_busy(lambda: step(*sample()), device)
+    out = {
+        "phase": "structured", "mesh": f"{mesh_n}x{mesh_n}", "V": V, "lanes": batch,
+        "dtype": "float32", "offsets": list(oplan.offsets), "coverage": oplan.coverage,
+        "tile": tile, "n_inner": n_inner, "offset_plan_s": plan_s,
+        "setup_s": t_setup, "warmup_s": t_warm, "iters": iters,
+        "solves_per_s": batch * iters / dt, "ms_per_iter": dt * 1e3 / iters,
+        "solves": solves, "stage_ms_per_iter": stages, "launches": launches,
+        "launches_per_solve": {k: n / (iters + 1) for k, n in launches.items()},
+        "checks": checks, "trace": trace, "peak_mem_gb": peak,
+    }
+    return out, dict(planner=planner, oplan=oplan, Wt=Wt, tile=tile, n_inner=n_inner,
+                     warm=warm, warm_small=warm_small, launches=launches)
+
+
+def structured_oracle_gate(ctx, sctx, n_lanes: int = 2) -> dict:
+    """Phase 12: two lanes of the structured warm-up solve against the native
+    heap Dijkstra on the same costs: the field's largest relative error and
+    the walked path cost against the native predecessor chain's
+    (tests/test_baseline_parity.py:54-61), both below 1%."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+
+    planner, ws = sctx["planner"], sctx["warm_small"]
+    s, g = (x[:n_lanes] for x in sctx["warm"])
+    dev = planner.device
+    sv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(s).to(dev))[0]
+    gv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(g).to(dev))[0]
+    sv, gv = sv.cpu().numpy(), gv.cpu().numpy()
+    v = ctx["v"]
+    lanes = []
+    for b, (od, opred) in enumerate(native_fields(v, ctx["f"], ctx["costs_np"], gv)):
+        pot = ws["potential"][b]
+        fin = np.isfinite(od)
+        rel = float(np.max(np.abs(pot[fin] - od[fin]) / np.maximum(od[fin], 1e-3)))
+        chain = [int(sv[b])]
+        while chain[-1] != gv[b] and opred[chain[-1]] != chain[-1] and len(chain) < len(v):
+            chain.append(int(opred[chain[-1]]))
+        ref_cost = float(np.linalg.norm(np.diff(v[chain], axis=0), axis=1).sum())
+        got = float(ws["cost"][b])
+        lanes.append({"max_rel_err": rel,
+                      "same_finite_set": bool(np.array_equal(np.isfinite(pot), fin)),
+                      "path_cost": got, "native_chain_cost": ref_cost,
+                      "path_cost_rel_err": abs(got - ref_cost) / max(ref_cost, 1e-6),
+                      "native_chain_steps": len(chain),
+                      "pred_equal_share": float(np.mean(ws["pred"][b] == opred))})
+    out = {"phase": "structured_oracle", "lanes": lanes, "budget": 0.01,
+           "max_rel_err": max(x["max_rel_err"] for x in lanes)}
+    if not all(x["max_rel_err"] < 0.01 and x["same_finite_set"] and x["path_cost_rel_err"] < 0.01
+               for x in lanes):
+        raise AssertionError(f"structured oracle gate failed: {out}")
+    return out
+
+
+def kernels_at_structured_shapes(sctx, device) -> tuple[dict, dict]:
+    """Phase 13: the fused sweep at the structured path's shape, on the
+    path's own field after STRUCTURED_WAVE_SWEEPS sweeps of the warm-up
+    draw's solve: one launch held against the plain version bit for bit, the
+    launch's time (mean of 10 event-timed launches after one warm-up) and the
+    plain version's. The bound is one read and one write of the matrix and
+    one read of the planes, (2 (Vp + 2T) B + K Vp) * 4 bytes, against
+    n_inner * K add + min pairs per element. Not counted for the path."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.ops import structured as st
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    planner, oplan = sctx["planner"], sctx["oplan"]
+    tile, n_inner = sctx["tile"], sctx["n_inner"]
+    _, g = sctx["warm"]
+    gv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(g).to(device))[0]
+    V = planner.mesh.num_vertices
+    B = gv.shape[0]
+    K = len(oplan.offsets)
+    Vp = -(-V // tile) * tile
+    planes = torch.full((K, Vp), np.inf, dtype=torch.float32, device=device)
+    planes[:, :V] = oplan.planes
+    with uncounted():
+        d = st.seeded_padded(V, gv, tile)
+        spare = torch.empty_like(d)
+        for _ in range(STRUCTURED_WAVE_SWEEPS):
+            d, spare = sg.fused_sweep(d, planes, oplan.offsets, tile=tile, n_inner=n_inner,
+                                      out=spare), d
+        pair = sweep_pair(d, planes, oplan.offsets, tile, n_inner)
+        run = lambda: sg.fused_sweep(d, planes, oplan.offsets, tile=tile,   # noqa: E731
+                                     n_inner=n_inner, out=spare)
+        time_ms(run, device)                                                  # warm
+        ms = time_ms(run, device, reps=10)
+        plain_ms = time_ms(lambda: sg._fused_sweep_plain(d, planes, oplan.offsets, tile,
+                                                         n_inner), device)
+    bytes_s = (2 * (Vp + 2 * tile) * B + K * Vp) * 4 / HBM_BYTES_PER_S
+    ops_s = n_inner * K * 2 * Vp * B / F32_OPS_PER_S
+    detail = {"phase": "kernels_at_structured_shapes", "matrix": list(d.shape), "tile": tile,
+              "n_inner": n_inner, "offsets": list(oplan.offsets),
+              "input_after_sweeps": STRUCTURED_WAVE_SWEEPS, "pair": pair,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3}
+    return detail, {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+                    "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                    "max_abs_err": pair["max_abs_err"]}
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
-        eik_small=(40, 36, 16), cvp_batch=CVP_BATCH) -> list:
-    """Phases 2-10 on `device`; returns the kernels line."""
+        eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
+        structured_batch=STRUCTURED_BATCH) -> list:
+    """Phases 2-13 on `device`; returns the kernels line."""
     import torch
 
     emit(kernel_check(device, *small))
     eik_detail, eik_check = eik_kernel_check(device, *eik_small)
     emit(eik_detail)
+    sweep_detail, sweep_err = sweep_kernel_check(device)
+    emit(sweep_detail)
     mp, ctx = main_path(device, mesh_n, batch, iters)
     emit(mp)
     ctx["launches"] = mp["launches"]
@@ -1254,6 +1540,22 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
                  "ms_at_plain_shape": eik_check["check_shape_ms"],
                  "library_ms": None,
                  "library_note": "no single PyTorch call computes the unfolding pass"})
+    del cctx
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    sp, sctx = structured(device, ctx, iters, structured_batch)
+    emit(sp)
+    emit(structured_oracle_gate(ctx, sctx))
+    sdetail, sk = kernels_at_structured_shapes(sctx, device)
+    emit(sdetail)
+    line.append({"name": "fused_sweep", "route": "cuda",
+                 "source": "mesh_navigation_torch/csrc/fused_sweep.cu",
+                 "replaces": "mesh_navigation_tpu/ops/pallas_sweep.py:40",
+                 "launches": sctx["launches"]["fused_sweep"],
+                 "launches_per_solve": sctx["launches"]["fused_sweep"] / (iters + 1),
+                 **sk, "max_abs_err": max(sweep_err, sk["max_abs_err"]),
+                 "library_ms": None,
+                 "library_note": "no single PyTorch call computes a fused K-offset min-plus sweep"})
     return line
 
 

@@ -3,8 +3,9 @@
 A second package beside the JAX reference, mirroring its sub-layout (mesh/,
 ops/, layers/, planners/, control/, api/, native/), so each module's
 reference sits at the same relative path. Plain code is PyTorch and numpy;
-the solver's three kernels are hand-written CUDA for Hopper (csrc/). Entry
-points run on the card unless the caller passes device="cpu".
+the solvers' five kernels, one for each Pallas kernel of the reference, are
+hand-written CUDA for Hopper (csrc/). Entry points run on the card unless
+the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

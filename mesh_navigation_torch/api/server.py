@@ -1,16 +1,20 @@
-"""MeshNav navigation facade, Dijkstra kind (port of the map plumbing and the
-live-replan step of mesh_navigation_tpu/api/server.py:47-282).
+"""MeshNav navigation facade, Dijkstra kind (port of the map plumbing, the
+batch GetPath and the live-replan step of
+mesh_navigation_tpu/api/server.py:47-305).
 
-One shared map (mesh + layer DAG + combined costs + banded solver plan) with
-the Dijkstra planner and the controller beside it. What is ported:
+One shared map (mesh + layer DAG + combined costs + a solver plan: banded
+where the vertex order has band structure, else offset-classed) with the
+Dijkstra planner and the controller beside it. What is ported:
 
   update_point_cloud(layer, points)  -> obstacle sensor update, layer cascade,
-                                        plane refresh on the device
+                                        plan refresh on the device
+  get_path_batch(starts, goals)      -> PlanResult (batch GetPath)
   make_replan_step(layer)            -> step(points, prev_costs, d_prev, seeds)
                                         -> (costs, d_pad, rounds): the live-replan
                                         cascade with the warm incremental solve
 
-GetPath / ExePath / recovery and the CVP planner kind are not ported yet.
+The single-plan GetPath, ExePath, recovery and the CVP planner kind are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from mesh_navigation_torch.device import resolve_device
 from mesh_navigation_torch.mesh import query
 from mesh_navigation_torch.mesh.arrays import MeshArrays
 from mesh_navigation_torch.ops import banded_gpu as _bg
+from mesh_navigation_torch.ops import structured as _structured
 from mesh_navigation_torch.ops import sweeps
+from mesh_navigation_torch.planners.common import PlanResult
 from mesh_navigation_torch.planners.dijkstra import DijkstraPlanner
 from mesh_navigation_torch.utils.timing import stage as _stage
 
@@ -68,18 +74,23 @@ class MeshNavServer:
             self.mesh, config.controller, grid=self.grid, device=self.device
         )
         self.banded_plan: _bg.BandedKernelPlan | None = None
+        self.offset_plan: _structured.OffsetPlan | None = None
+        self.slot_weights: torch.Tensor | None = None
         self._refresh_costs()
 
     # ------------------------------------------------------------------
     # map / layer plumbing (MeshMap::readMap tail, mesh_map.cpp:434-452)
     # ------------------------------------------------------------------
     def _refresh_costs(self, *, structural: bool = True) -> None:
-        """Layer outputs -> combined costs -> banded plan. structural=True
+        """Layer outputs -> combined costs -> solver plan. structural=True
         (and whenever there is no plan yet) builds the plan on the host from
-        the slot-weight table; structural=False (the sensor hot path)
-        re-derives only the weight planes, on the device. The edge weights
-        and the layers' vector field, which only GetPath reads, are not
-        kept."""
+        the slot-weight table: the banded plan, or where the mesh has none
+        the offset plan (server.py:134-143). structural=False (the sensor hot
+        path) re-derives only the weights, on the device: the banded planes
+        straight from the costs, or the [V, D] slot weights and the offset
+        planes from them (:144-159). The slot weights are kept only for the
+        structured path, whose predecessor recovery reads them; the edge
+        weights and the layers' vector field are not kept."""
         if self.stack is not None:
             self.layer_outputs, self.vertex_costs = self.stack.compute(self.mesh, self.layer_state)
         else:
@@ -88,17 +99,32 @@ class MeshNavServer:
                                             device=self.device)
         factor = self.config.mesh_map.edge_cost_factor
         cost_limit = self.config.planner.cost_limit
-        if structural or self.banded_plan is None:
+        if structural or (self.banded_plan is None and self.offset_plan is None):
             W = sweeps.slot_weights_np(
                 self.mesh, self.vertex_costs.cpu().numpy(), cost_limit=cost_limit,
                 edge_cost_factor=factor,
             )
             self.banded_plan = self.planner.prepare_banded_plan(W)
-        else:
+            # the offset plan is the banded plan's fallback: at 1M each host
+            # classification costs seconds, so it is built only when needed
+            self.offset_plan = None
+            self.slot_weights = None
+            if self.banded_plan is None:
+                self.offset_plan = self.planner.prepare_offset_plan(W)
+                self.slot_weights = torch.from_numpy(W).to(self.device)
+        elif self.banded_plan is not None:
             # gather-free: planes straight from the cost field
             self.banded_plan = _bg.refresh_banded_planes_from_costs(
                 self.banded_plan, self.vertex_costs,
                 edge_cost_factor=factor, cost_limit=cost_limit,
+            )
+        else:
+            edge_weights = sweeps.compute_edge_weights(self.mesh, self.vertex_costs, factor)
+            self.slot_weights = sweeps.slot_weights(
+                self.mesh, edge_weights, self.vertex_costs, cost_limit
+            )
+            self.offset_plan = _structured.refresh_offset_planes(
+                self.offset_plan, self.slot_weights
             )
 
     def update_point_cloud(self, layer_name: str, points: torch.Tensor) -> None:
@@ -108,6 +134,23 @@ class MeshNavServer:
         self.layer_state[key] = points
         self._refresh_costs(structural=False)
         self.layer_state.pop(key, None)
+
+    def get_path_batch(self, starts: torch.Tensor, goals: torch.Tensor, *,
+                       timer=None) -> PlanResult:
+        """Batch GetPath (server.py:295-305): the banded light path where the
+        mesh has a banded plan (its result has no vector map, predecessor map
+        or [B, V] potential), else the structured path where the offset
+        classes cover more than half of the edges (the full result)."""
+        if self.banded_plan is not None:
+            return self.planner.plan_batch_banded(self.banded_plan, starts, goals, timer=timer)
+        if self.offset_plan is not None and self.offset_plan.coverage > 0.5:
+            return self.planner.plan_batch_structured(
+                self.slot_weights, self.offset_plan, starts, goals, timer=timer
+            )
+        raise NotImplementedError(
+            "plan_batch, the hybrid gather solve for meshes with neither a banded plan "
+            "nor offset coverage above 0.5"
+        )
 
     def make_replan_step(self, layer_name: str, *, inflation_window=(64, 128),
                          warm_window: int | None = None):

@@ -75,6 +75,18 @@ def locate_batch(
     return FaceFix(face=face, bary=bary, position=pos_out, found=found)
 
 
+def direction_at(
+    mesh: MeshArrays, vector_map: torch.Tensor, face: torch.Tensor,
+    bary: torch.Tensor,
+) -> torch.Tensor:
+    """Barycentric blend of each lane's per-vertex direction field
+    (MeshMap::directionAtPosition, mesh_map.cpp:625-650): vector_map
+    [B, V, 3], face [B], bary [B, 3] -> [B, 3]."""
+    vids = mesh.faces[torch.clamp(face, min=0)].long()            # [B, 3]
+    lanes = torch.arange(vids.shape[0], device=vids.device)[:, None]
+    return geometry.bary_interpolate(vector_map[lanes, vids], bary)
+
+
 def cost_at(
     mesh: MeshArrays, vertex_costs: torch.Tensor, face: torch.Tensor,
     bary: torch.Tensor,

@@ -3,8 +3,8 @@
 The system has no model weights; what two implementations must share to be
 compared is the mesh and the plan. These functions take plain numpy arrays
 (for instance read off the reference package's MeshArrays,
-BandedKernelPlan and EikonalKernelPlan), so either side can be fed the
-other's exact inputs.
+BandedKernelPlan, EikonalKernelPlan and OffsetPlan), so either side can be
+fed the other's exact inputs.
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ from mesh_navigation_torch.mesh.arrays import FIELDS, MeshArrays, from_host_tabl
 from mesh_navigation_torch.ops.banded_gpu import PLAN_ARRAYS, PLAN_META, BandedKernelPlan
 from mesh_navigation_torch.ops.eikonal_gpu import (
     EIK_PLAN_ARRAYS, EIK_PLAN_META, EikonalKernelPlan,
+)
+from mesh_navigation_torch.ops.structured import (
+    OFFSET_PLAN_ARRAYS, OFFSET_PLAN_META, OffsetPlan,
 )
 
 
@@ -55,3 +58,16 @@ def eikonal_plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> Eikonal
         v = meta[k]
         fields[k] = tuple(tuple(int(x) for x in c) for c in v) if k.startswith("classes") else v
     return EikonalKernelPlan(**fields)
+
+
+def offset_plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> OffsetPlan:
+    """OffsetPlan from a dict of numpy arrays (every field of
+    OFFSET_PLAN_ARRAYS) and its static `offsets` and `coverage`."""
+    dev = resolve_device(device)
+    missing = [k for k in OFFSET_PLAN_ARRAYS if k not in arrays]
+    missing += [k for k in OFFSET_PLAN_META if k not in meta]
+    if missing:
+        raise ValueError(f"offset_plan_from_numpy: missing fields {missing}")
+    fields = {k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in OFFSET_PLAN_ARRAYS}
+    return OffsetPlan(offsets=tuple(int(o) for o in meta["offsets"]),
+                      coverage=float(meta["coverage"]), **fields)

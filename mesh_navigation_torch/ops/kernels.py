@@ -6,8 +6,8 @@ All sources are compiled in parallel, one `nvcc` per source, on first use.
 Nothing is built while a module is imported.
 
 `LAUNCHES` counts the launches of each kernel; the wrappers in
-ops/banded_gpu.py and ops/eikonal_gpu.py add one where they launch and
-nowhere else. The pass
+ops/banded_gpu.py, ops/eikonal_gpu.py and ops/sweep_gpu.py add one where
+they launch and nowhere else. The pass
 kernel's launches in its dirty-table mode (the warm resolve) are also
 counted apart, under "banded_pass_dirty".
 """
@@ -27,6 +27,7 @@ SOURCES = {
     "class_pred": "class_pred.cu",
     "check": "check.cu",
     "eik_pass": "eik_pass.cu",
+    "fused_sweep": "fused_sweep.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "check": ("check_launch", [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
     "eik_pass": ("eik_pass_launch",
                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
+    "fused_sweep": ("fused_sweep_launch", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
 }
 
 

@@ -1,4 +1,7 @@
-"""Edge weights (port of mesh_navigation_tpu/ops/sweeps.py:32-100)."""
+"""Edge weights and the Dijkstra field's products (port of
+mesh_navigation_tpu/ops/sweeps.py:32-100, 165-231): the slot-weight table,
+the per-vertex direction field of a predecessor map, the predecessor walk
+and its cost."""
 
 from __future__ import annotations
 
@@ -22,6 +25,22 @@ def compute_edge_weights(
     dist = mesh.edge_dist
     w = dist + edge_cost_factor * dist * (c1 + c2) * 0.5
     return torch.where(torch.isinf(c1) | torch.isinf(c2), torch.inf, w)
+
+
+def slot_weights(
+    mesh: MeshArrays,
+    edge_weights: torch.Tensor,
+    vertex_costs: torch.Tensor,
+    cost_limit: float = 1.0,
+) -> torch.Tensor:
+    """[V, D] pull-relaxation weight table on the device (sweeps.py:49-68):
+    the edge weight of each adjacency slot, +inf for padded slots, for
+    sources whose cost exceeds `cost_limit` and for invalid endpoints."""
+    w = edge_weights[mesh.adj_edge.long()]
+    src = mesh.adj_vertex.long()
+    blocked_src = (vertex_costs[src] > cost_limit) | mesh.invalid[src]
+    usable = mesh.adj_mask & ~blocked_src & ~mesh.invalid[:, None]
+    return torch.where(usable, w, torch.inf)
 
 
 def slot_weights_np(
@@ -50,3 +69,73 @@ def slot_weights_np(
     blocked_src = (costs[adj_v] > cost_limit) | invalid[adj_v]
     usable = adj_m & ~blocked_src & ~invalid[:, None]
     return np.where(usable, w, np.inf).astype(np.float32)
+
+
+def _unit_toward(vertices: torch.Tensor, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """normalize(pos[p] - pos[v]), zero where p == v."""
+    d = vertices[p] - vertices[v]
+    n = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    unit = d / torch.clamp(n, min=1e-12)
+    return torch.where((p != v)[..., None], unit, 0.0)
+
+
+def vector_map_from_predecessors(mesh: MeshArrays, pred: torch.Tensor) -> torch.Tensor:
+    """Per-vertex unit direction toward the predecessor, [..., V, 3] for a
+    pred map [..., V] (DijkstraMeshPlanner::computeVectorMap,
+    dijkstra_mesh_planner.cpp:189-209): zero where pred[v] == v."""
+    vidx = torch.arange(mesh.num_vertices, device=pred.device)
+    return _unit_toward(mesh.vertices, pred.long(), vidx)
+
+
+def vector_rows_from_predecessors(
+    mesh: MeshArrays, pred: torch.Tensor, vids: torch.Tensor
+) -> torch.Tensor:
+    """vector_map_from_predecessors at `vids` only: pred [B, V], vids [B, K]
+    -> [B, K, 3]; the [B, V, 3] field is never built."""
+    vids = vids.long()
+    p = pred.gather(1, vids).long()
+    return _unit_toward(mesh.vertices, p, vids)
+
+
+def extract_path(
+    pred: torch.Tensor,        # [B, V] predecessor ids
+    start_v: torch.Tensor,     # [B]
+    goal_v: torch.Tensor,      # [B]
+    max_len: int,
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Follow each lane's predecessor chain from its start (sweeps.py:195-219):
+    the walk stops after v == goal or pred[v] == v. Returns (path [B, max_len]
+    i64, valid [B, max_len] bool); dead steps repeat the terminal vertex with
+    valid False. Chunks of `chunk` steps, with one host check of any(alive)
+    before each chunk."""
+    dev = start_v.device
+    B = start_v.shape[0]
+    lane = torch.arange(B, device=dev)
+    n_chunks = -(-max_len // chunk)
+    L1 = n_chunks * chunk
+    v = start_v.long().clone()
+    goal = goal_v.long()
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    path = v[None, :].repeat(L1, 1)
+    valid = torch.zeros((L1, B), dtype=torch.bool, device=dev)
+    for j in range(n_chunks):
+        if not bool(alive.any()):
+            break
+        for i in range(j * chunk, (j + 1) * chunk):
+            path[i] = v
+            valid[i] = alive
+            nxt = pred[lane, v].long()
+            alive = alive & (v != goal) & (nxt != v)
+            v = torch.where(alive, nxt, v)
+    fill = torch.where(valid, path, v[None, :])
+    return fill[:max_len].T, valid[:max_len].T
+
+
+def path_cost(vertices: torch.Tensor, path: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Sum of the Euclidean segment lengths along padded paths [..., L]
+    (sweeps.py:222-231)."""
+    pts = vertices[path.long()]
+    seg = torch.linalg.vector_norm(pts[..., 1:, :] - pts[..., :-1, :], dim=-1)
+    return torch.sum(torch.where(valid[..., 1:] & valid[..., :-1], seg, 0.0), dim=-1)

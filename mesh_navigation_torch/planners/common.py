@@ -14,17 +14,23 @@ class PlanResult:
     """A batch of planning solves — the GetPath result surface
     (mbf_mesh_core/mesh_planner.h:71-84), in robot order.
 
-    The light path keeps the field in the solver's padded, goal-grouped
-    layout: `d_pad` [Rp, Cp, Bp] and `lane_map` (solver lane of robot b).
-    A [B, V] potential is never built on it (4 GB at 1M x 1024); take the
-    lanes you need with planners.dijkstra.potential_lanes."""
+    The banded light path keeps the field in the solver's padded,
+    goal-grouped layout: `d_pad` [Rp, Cp, Bp] and `lane_map` (solver lane of
+    robot b). A [B, V] potential is never built on it (4 GB at 1M x 1024);
+    take the lanes you need with planners.dijkstra.potential_lanes. The
+    structured path gives the full result instead: `potential`, `pred` and
+    the `vector_map` the controller samples, in robot order. `rounds` counts
+    the solve's rounds (sweeps on the structured path)."""
     outcome: torch.Tensor         # [B] i32 Outcome code
     path_positions: torch.Tensor  # [B, L, 3] f32
     path_quats: torch.Tensor      # [B, L, 4] f32 (x, y, z, w)
     path_valid: torch.Tensor      # [B, L] bool
     cost: torch.Tensor            # [B] f32 summed segment lengths
-    lane_map: torch.Tensor        # [B] i64 solver lane of robot b
-    d_pad: torch.Tensor           # [Rp, Cp, Bp] f32 converged padded field
+    lane_map: torch.Tensor | None = None     # [B] i64 solver lane of robot b
+    d_pad: torch.Tensor | None = None        # [Rp, Cp, Bp] f32 converged padded field
+    potential: torch.Tensor | None = None    # [B, V] f32
+    vector_map: torch.Tensor | None = None   # [B, V, 3] f32
+    pred: torch.Tensor | None = None         # [B, V] i32
     rounds: int = 0
     converged: bool = True
 

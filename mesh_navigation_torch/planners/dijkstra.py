@@ -1,10 +1,14 @@
-"""Dijkstra-parity batched planner on the banded solve (port of the light
-path of mesh_navigation_tpu/planners/dijkstra.py:158-312).
+"""Dijkstra-parity batched planner (port of
+mesh_navigation_tpu/planners/dijkstra.py:137-156 and 158-341).
 
-Snap starts and goals to vertices, group lanes by goal, solve the batch of
-goal-seeded fields with the banded kernels (converge="pred": the last
-certificate pass emits the int8 class table), walk each lane's predecessor
-chain from its start, and build the pose chain.
+Two batch paths. The banded light path snaps starts and goals to vertices,
+groups lanes by goal, solves the goal-seeded fields with the banded kernels
+(converge="pred": the last certificate pass emits the int8 class table),
+walks each lane's predecessor chain from its start and builds the pose
+chain; it gives no potential, predecessor map or vector field. The
+structured path solves with the fused offset-shift sweeps (ops/structured.py)
+on meshes without a banded plan and gives the full result: potential,
+predecessor map and the [B, V, 3] vector field the controller samples.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from mesh_navigation_torch.device import resolve_device
 from mesh_navigation_torch.mesh import query
 from mesh_navigation_torch.mesh.arrays import MeshArrays
 from mesh_navigation_torch.ops import banded_gpu as _bg
+from mesh_navigation_torch.ops import structured as _structured
+from mesh_navigation_torch.ops import sweeps
 from mesh_navigation_torch.planners.common import PlanResult, pose_chain
 from mesh_navigation_torch.utils.timing import stage as _stage
 
@@ -64,9 +70,9 @@ class DijkstraPlanner:
         rtol: float = 1e-5,
         timer=None,
     ) -> PlanResult:
-        """Batch planning via banded GS fast sweeping, light path: no vector
-        field and no [V, B] potential; predecessors come from the solve's
-        int8 class table. `timer` (utils.timing.StageTimer) records the
+        """Batch planning via banded GS fast sweeping, light path: the result
+        has no vector map, predecessor map or [B, V] potential; predecessors
+        come from the solve's int8 class table. `timer` (utils.timing.StageTimer) records the
         snap, solve, pred, extract and pose stages."""
         plan = kernel_plan
         if plan.n_residual:
@@ -117,6 +123,70 @@ class DijkstraPlanner:
                 converged=res.converged,
             )
         return result
+
+    def prepare_offset_plan(self, weights_vd) -> _structured.OffsetPlan:
+        """Host-side offset classification for the structured solver, on
+        the planner's device. Rebuild when the mesh changes; a cost change
+        needs only structured.refresh_offset_planes."""
+        return _structured.build_offset_plan(self.mesh, weights_vd, device=self.device)
+
+    def plan_batch_structured(
+        self,
+        weights_vd: torch.Tensor,               # [V, D] slot weights
+        offset_plan: _structured.OffsetPlan,
+        starts: torch.Tensor,                   # [B, 3]
+        goals: torch.Tensor,                    # [B, 3]
+        *,
+        timer=None,
+    ) -> PlanResult:
+        """Batch planning with the fused offset-shift sweeps
+        (dijkstra.py:321-341): snap, solve the goal-seeded fields, then the
+        full result (_finish_batch). `timer` records the snap, solve,
+        solve_check, pred, vector_map, extract and pose stages."""
+        weights_vd = weights_vd.to(self.device, torch.float32)
+        starts = starts.to(self.device, torch.float32)
+        goals = goals.to(self.device, torch.float32)
+        with _stage(timer, "snap"):
+            start_v = query.nearest_vertex_batch(self.mesh, self.grid, starts)[0]
+            goal_v = query.nearest_vertex_batch(self.mesh, self.grid, goals)[0]
+        field = _structured.batched_field_structured(
+            self.mesh, weights_vd, offset_plan, goal_v,
+            block_sweeps=max(self.config.block_sweeps, 16),
+            max_sweeps=self.config.max_sweeps, timer=timer,
+        )
+        return self._finish_batch(field.dist, field.pred, start_v, goal_v,
+                                  rounds=field.sweeps, converged=field.converged, timer=timer)
+
+    def _finish_batch(self, dist, pred, start_v, goal_v, *, rounds: int, converged: bool,
+                      timer=None) -> PlanResult:
+        """The full plan result of a batch of fields (dijkstra.py:137-156):
+        vector map, predecessor walk and pose chain; outcome NO_PATH_FOUND
+        where the start is unreached."""
+        with _stage(timer, "vector_map"):
+            vector_map = sweeps.vector_map_from_predecessors(self.mesh, pred)
+        with _stage(timer, "extract"):
+            path, valid = sweeps.extract_path(pred, start_v, goal_v, self.max_path_len)
+        with _stage(timer, "pose"):
+            pn = self._pos_normals[path]
+            positions = pn[..., :3]
+            quats, cost = pose_chain(positions, valid, pn[..., 3:])
+            lanes = torch.arange(start_v.shape[0], device=self.device)
+            reached = torch.isfinite(dist[lanes, start_v.long()])
+            outcome = torch.where(
+                reached, int(Outcome.SUCCESS), int(Outcome.NO_PATH_FOUND)
+            ).to(torch.int32)
+            return PlanResult(
+                outcome=outcome,
+                path_positions=positions,
+                path_quats=quats,
+                path_valid=valid & reached[:, None],
+                cost=torch.where(reached, cost, torch.inf),
+                potential=dist,
+                vector_map=vector_map,
+                pred=pred,
+                rounds=rounds,
+                converged=converged,
+            )
 
 
 def potential_lanes(

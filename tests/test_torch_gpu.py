@@ -271,3 +271,125 @@ def test_cvp_descent_graph_matches_eager(cuda):
                                     graph=False, **kw)
     assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
     assert int(v_e.sum(dim=1).max()) > 32        # the replays ran
+
+
+def _sweep_inputs(tile, V, B, offsets, device, seed=0):
+    """A [T + Vp + T, B] matrix with +inf end tiles, 30% of its elements
+    +inf and the rest random, and [K, Vp] planes with 20% +inf entries; Vp
+    is V rounded up to the tile, the padded rows' planes +inf."""
+    from mesh_navigation_torch.ops import structured as st
+
+    rng = np.random.default_rng(seed)
+    Vp = -(-V // tile) * tile
+    d = st.seeded_padded(V, torch.from_numpy(rng.integers(0, V, B)), tile).numpy()
+    body = rng.uniform(0, 10, (V, B)).astype(np.float32)
+    body[rng.uniform(size=body.shape) < 0.3] = np.inf
+    d[tile:tile + V] = np.minimum(d[tile:tile + V], body)
+    planes = np.full((len(offsets), Vp), np.inf, np.float32)
+    planes[:, :V] = rng.uniform(0, 1, (len(offsets), V))
+    planes[:, :V][rng.uniform(size=(len(offsets), V)) < 0.2] = np.inf
+    return torch.from_numpy(d).to(device), torch.from_numpy(planes).to(device)
+
+
+@pytest.mark.parametrize("tile,V,B,n_inner,offsets", [
+    (256, 1000, 8, 1, (1, -1, 256, -256)),
+    (256, 1500, 24, 2, (1, -1, 40, -40, 41, -41)),
+    (256, 2048, 128, 3, (-256, 3, 200, -7)),
+    (1280, 5000, 128, 2, (1, -1, 1024, -1024, 1025, -1025)),
+    (512, 3000, 5, 12, (1, -512)),
+])
+def test_fused_sweep_kernel_matches_plain(cuda, tile, V, B, n_inner, offsets):
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    d, planes = _sweep_inputs(tile, V, B, offsets, cuda, seed=V + B)
+    before = kernels.LAUNCHES["fused_sweep"]
+    got = sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=n_inner)
+    want = sg._fused_sweep_plain(d, planes, offsets, tile, n_inner)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_sweep"] == before + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, d)
+    # into a given buffer, twice in a row between two buffers
+    out = torch.empty_like(d)
+    again = sg.fused_sweep(got, planes, offsets, tile=tile, n_inner=n_inner, out=out)
+    assert again is out
+    assert torch.equal(again, sg._fused_sweep_plain(want, planes, offsets, tile, n_inner))
+
+
+def _rcm_relabel(v, f):
+    """(v, f) relabelled in reverse Cuthill-McKee order: no band structure,
+    so the offset plan keeps a residual."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    e = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]).astype(np.int64)
+    g = coo_matrix((np.ones(len(e), np.int8), (e[:, 0], e[:, 1])), shape=(len(v), len(v)))
+    perm = np.asarray(reverse_cuthill_mckee((g + g.T).tocsr(), symmetric_mode=True), np.int64)
+    inv = np.empty(len(v), np.int64)
+    inv[perm] = np.arange(len(v))
+    return np.ascontiguousarray(v[perm]), inv[f].astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["terrain40x36", "rcm16"])
+def test_structured_solve_through_the_kernel_matches_the_plain_solve(cuda, monkeypatch, kind):
+    """The whole structured solve on the card, once through the kernel and
+    once with the plain sweep in its place: the same sweeps, the same field
+    and predecessors bit for bit, and the field equal to the native heap
+    Dijkstra's within rtol 1e-4. The RCM-reordered terrain has a residual,
+    so its residual scatter-min runs on the kernel's output buffer."""
+    from mesh_navigation_torch.native import NativeMesh
+    from mesh_navigation_torch.ops import structured as st
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    if kind == "rcm16":
+        v, f = _rcm_relabel(*synthetic.terrain_mesh(16, 16, spacing=0.5, hills=1.5,
+                                                    roughness=0.02, seed=5))
+    else:
+        v, f = synthetic.terrain_mesh(40, 36, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+    mesh = build_mesh(v, f, device=cuda)
+    costs = np.arccos(np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0))
+    costs = costs.astype(np.float32)
+    W = sweeps.slot_weights_np(mesh, costs, cost_limit=2.0, edge_cost_factor=1.0)
+    plan = st.build_offset_plan(mesh, W)
+    assert plan.has_residual == (kind == "rcm16")
+    seeds = torch.from_numpy(np.random.default_rng(3).integers(0, mesh.num_vertices, 24)).to(cuda)
+    Wt = torch.from_numpy(W).to(cuda)
+    before = kernels.LAUNCHES["fused_sweep"]
+    got = st.batched_field_structured(mesh, Wt, plan, seeds)
+    assert kernels.LAUNCHES["fused_sweep"] - before == got.sweeps
+    monkeypatch.setattr(sg, "fused_sweep", sg._fused_sweep_plain)
+    want = st.batched_field_structured(mesh, Wt, plan, seeds)
+    assert got.converged and want.converged and got.sweeps == want.sweeps
+    assert torch.equal(got.dist, want.dist) and torch.equal(got.pred, want.pred)
+    nm = NativeMesh(v, f)
+    try:
+        ew = sweeps.compute_edge_weights(mesh, torch.from_numpy(costs).to(cuda), 1.0).cpu().numpy()
+        nd = nm.dijkstra(ew, costs, int(seeds[0]), 2.0)[0]
+    finally:
+        nm.close()
+    fin = np.isfinite(nd)
+    np.testing.assert_allclose(got.dist[0].cpu().numpy()[fin], nd[fin], rtol=1e-4, atol=1e-6)
+
+
+def test_fused_sweep_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    offsets = (1, -1, 256, -256)
+    d, planes = _sweep_inputs(256, 512, 8, offsets, cuda)
+    with pytest.raises(ValueError, match="exceeds the tile"):
+        sg.fused_sweep(d, planes, (1, -1, 257, -256), tile=256)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        sg.fused_sweep(d, planes[:, :500].contiguous(), offsets, tile=256)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        sg.fused_sweep(d.double(), planes, offsets, tile=256)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        sg.fused_sweep(d.T.contiguous().T, planes, offsets, tile=256)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        sg.fused_sweep(d, planes.cpu(), offsets, tile=256)
+    with pytest.raises(ValueError, match="apart from the input"):
+        sg.fused_sweep(d, planes, offsets, tile=256, out=d)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sg.fused_sweep(d.to("meta"), planes.to("meta"), offsets, tile=256)
+    with pytest.raises(ValueError, match="shared memory"):
+        sg.fused_sweep(*_sweep_inputs(16384, 16384, 1, (16384, -16384), cuda),
+                       (16384, -16384), tile=16384)
