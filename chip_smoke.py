@@ -17,8 +17,9 @@ Phases, each printed as one JSON line on standard output:
    converged field with a raised patch (fields within atol + rtol*|d|, dirty
    tables and flags equal).
    eik_kernel_check: on a 40x36 terrain with 16 lanes, the eikonal pass
-   kernel against its plain version, each of the four orderings forced and
-   then driven by the forced pass's dirty table (fields bit for bit where
+   kernel against its plain version at the default strip width and at a
+   narrow one (4 columns), each of the four orderings forced and then
+   driven by the forced pass's dirty table (fields bit for bit where
    reached, else within atol + rtol*|d|; dirty tables and flags equal), and
    the plain version's time at this shape.
    sweep_kernel_check: the fused sweep kernel against its plain version, bit
@@ -63,10 +64,13 @@ Phases, each printed as one JSON line on standard output:
    oracle's field (the vertex descent walks along edges, so the oracle's
    distance itself is no bound on it; the ratio is printed).
 10. kernels at the CVP shapes: each eikonal pass of one more solve timed by
-   its own event pair against its bound, and its first forced pass and
-   first dirty-driven pass held against the plain version on a 4-row slab
-   of their own input at the full width, lanes and classes (fields bit for
-   bit, dirty tables and flags equal).
+   its own event pair against its bound (from the strip-rows it computed),
+   the launch's strip width, lane block, grid and the SMs its blocks ran
+   on; its first forced pass launched twice (bit for bit equal) and timed
+   at strip widths 4, 8 and 16; that pass and the first dirty-driven pass
+   held against the plain version on a 4-row slab of their own input at
+   the full width, lanes and classes (fields bit for bit, dirty tables and
+   flags equal).
 11. structured: the structured Dijkstra tier at full width on the same mesh
    and costs — the host offset classification (timed; offsets, coverage,
    the port's tile and n_inner printed), 128 lanes with starts and goals on
@@ -124,10 +128,15 @@ CVP_KERNELS = ("banded_pass", "eik_pass")
 CVP_BATCH = 128             # lanes per solve (bench.py:457-460)
 CVP_ATOL, CVP_RTOL = 1e-4, 1e-3   # the CVP solve's stopping tolerance (planners/cvp.py)
 # operations of one unfold() in csrc/eik_pass.cu as written (compares,
-# selects, clamps, 5 divisions, 3 square roots) and its min into the best
-# value, per class and element; then per element the imp and lt flags
-EIK_UNFOLD_OPS = 81
+# selects, clamps, 3 divisions, 2 square roots) and its min into the best
+# value, per class and element; of side_terms() (2 divisions, 1 square
+# root), per class and column of a lane block; per element the imp and lt
+# flags
+EIK_UNFOLD_OPS = 53
+EIK_SIDE_OPS = 39
 EIK_ELEM_OPS = 6
+EIK_NARROW_WIDTH = 4        # the narrow strip width held against the plain pass
+EIK_TUNE_WIDTHS = (4, 8, 16)  # strip widths timed on the CVP path's first forced pass
 EIK_SLAB_ROWS = 4   # rows of a CVP-path pass's own input held against the plain pass
 STRUCTURED_KERNELS = ("fused_sweep",)
 STRUCTURED_BATCH = 128      # lanes per structured solve
@@ -893,12 +902,12 @@ def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
     }
 
 
-def eik_orderings_check(plan, d, atol, rtol) -> dict:
-    """The eikonal pass kernel against its plain version on the same inputs:
-    each of the four orderings forced, then driven by the forced pass's
-    dirty table; the next ordering starts from the plain output. Fields bit
-    for bit where reached, else within atol + rtol*|d|; dirty tables and
-    changed flags equal."""
+def eik_orderings_check(plan, d, atol, rtol, strip_width) -> dict:
+    """The eikonal pass kernel against its plain version on the same inputs
+    at one strip width: each of the four orderings forced, then driven by
+    the forced pass's dirty table; the next ordering starts from the plain
+    output. Fields bit for bit where reached, else within atol + rtol*|d|;
+    dirty tables and changed flags equal."""
     import torch
     from mesh_navigation_torch.ops import eikonal_gpu as eg
 
@@ -908,7 +917,8 @@ def eik_orderings_check(plan, d, atol, rtol) -> dict:
     out = {}
     for rev, cdir in (*eg._PAIR_A, *eg._PAIR_B):
         for force in (True, False):
-            kw = dict(reverse=rev, chunk_dir=cdir, atol=atol, rtol=rtol, force=force)
+            kw = dict(reverse=rev, chunk_dir=cdir, atol=atol, rtol=rtol, force=force,
+                      strip_width=strip_width)
             d_k, chg_k, dirty_k = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
             d_p, chg_p, dirty_p = eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw)
             cmp = compare_fields(d_k, d_p, atol, rtol)
@@ -925,11 +935,12 @@ def eik_orderings_check(plan, d, atol, rtol) -> dict:
 
 
 def eik_kernel_check(device, nx: int = 40, ny: int = 36, batch: int = 16) -> tuple[dict, dict]:
-    """Phase 2, eik_kernel_check: the eikonal pass kernel against its plain version on a small
-    terrain whose row width is not a multiple of 32, with `batch` goal-face
-    lanes and a loose upper bound in 30% of the unseeded elements (so that a
-    forced pass has work in every row). Also the plain version's time and
-    the kernel's at this shape."""
+    """Phase 2, eik_kernel_check: the eikonal pass kernel against its plain
+    version on a small terrain whose row width is not a multiple of 32, with
+    `batch` goal-face lanes and a loose upper bound in 30% of the unseeded
+    elements (so that a forced pass has work in every row), at the default
+    strip width and at EIK_NARROW_WIDTH (many strips a row). Also the plain
+    version's time and the kernel's at this shape."""
     import torch
     from mesh_navigation_torch.mesh import synthetic
     from mesh_navigation_torch.mesh.arrays import build_mesh, host_array
@@ -949,7 +960,9 @@ def eik_kernel_check(device, nx: int = 40, ny: int = 36, batch: int = 16) -> tup
     some = torch.from_numpy(rng.uniform(size=tuple(d.shape)) < 0.3).to(device)
     d = torch.where(torch.isinf(d) & some, far, d)
     with uncounted():
-        cases = eik_orderings_check(plan, d, CVP_ATOL, CVP_RTOL)
+        widths = {"default": eg.EIK_STRIP_WIDTH, "narrow": EIK_NARROW_WIDTH}
+        cases = {f"{name}_{case}": cmp for name, w in widths.items()
+                 for case, cmp in eik_orderings_check(plan, d, CVP_ATOL, CVP_RTOL, w).items()}
         cls = eg.class_sources(plan)
         dirty = torch.zeros((d.shape[2] // eg.EIK_LANES, d.shape[0]), dtype=torch.int32,
                             device=device)
@@ -958,7 +971,8 @@ def eik_kernel_check(device, nx: int = 40, ny: int = 36, batch: int = 16) -> tup
         kernel_ms = time_ms(lambda: eg.eik_pass(d, plan.abc, cls, dirty, **kw), device, reps=5)
         plain_ms = time_ms(lambda: eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw), device)
     detail = {"phase": "eik_kernel_check", "mesh": f"{nx}x{ny}", "field": list(d.shape),
-              "lanes": batch, "classes": len(plan.classes), "cases": cases,
+              "lanes": batch, "classes": len(plan.classes), "strip_widths": widths,
+              "cases": cases,
               "bitwise_all": all(c["bitwise"] for c in cases.values()),
               "forced_pass_kernel_ms": kernel_ms, "forced_pass_plain_ms": plain_ms}
     return detail, {"plain_ms": plain_ms, "check_shape": list(d.shape),
@@ -1155,25 +1169,64 @@ def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2) -> dict:
     return out
 
 
+def eik_strip_rows_computed(d, new, dirty, kw) -> "torch.Tensor":
+    """[nj, S, Rp] bool: the strip-rows an eik_pass launch computed, from its
+    input, output and dirty table by the kernel's rule: g of a strip-row is
+    any(new < d) over its columns and lanes (a strip that improves keeps its
+    new values, one that does not keeps d), and a strip-row is computed
+    where force, a dirty row next to it, or g of strips s-1 .. s+1 of the
+    row before or of strip s-1 of its own row asks for it."""
+    import torch
+    import torch.nn.functional as F
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+
+    Rp, Cp, Bp = d.shape
+    nj, W = Bp // eg.EIK_LANES, kw["strip_width"]
+    S = -(-Cp // W)
+    lower = (new < d).view(Rp, Cp, nj, eg.EIK_LANES).any(dim=3)          # [Rp, Cp, nj]
+    if kw["chunk_dir"] < 0:
+        lower = lower.flip(1)                   # columns in pass order
+    lower = F.pad(lower.permute(2, 0, 1), (0, S * W - Cp))              # [nj, Rp, S * W]
+    g = lower.view(nj, Rp, S, W).any(dim=3).transpose(1, 2)             # [nj, S, Rp]
+    if kw.get("force"):
+        return torch.ones_like(g)
+    din = dirty.bool()
+    near = din.clone()
+    near[:, 1:] |= din[:, :-1]
+    near[:, :-1] |= din[:, 1:]
+    need = near[:, None, :].expand(nj, S, Rp).clone()
+    gs = F.pad(g, (0, 0, 1, 1))                                          # [nj, S + 2, Rp]
+    fed_rb = gs[:, :-2] | gs[:, 1:-1] | gs[:, 2:]                        # strips s-1 .. s+1
+    if kw["reverse"]:                           # the row before in pass order
+        need[:, :, :-1] |= fed_rb[:, :, 1:]
+    else:
+        need[:, :, 1:] |= fed_rb[:, :, :-1]
+    need |= gs[:, :-2]                          # strip s-1 of the same row
+    return need
+
+
 def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
     """Phase 10: the eikonal solve of one more plan_batch_banded call on the
     warm-up draw, pass by pass: each eik_pass launch timed by its own event
     pair, with its bound from what that launch's data needs: the operations
-    of the rows it computes (K unfold updates per element of a computed
-    row-block) and the bytes of one read of the field and the abc planes,
-    the dirty tables, and one write of each element it changed. The first
-    forced launch and the first launch driven by a dirty table are also
-    held against the plain version on a slab of their own input
-    (eik_slab_check): the forced one in the middle rows, the dirty one
-    around the median dirty row that it improved. Not counted for the
-    path."""
+    of the strip-rows it computes (eik_strip_rows_computed: K unfold updates
+    per element and K side-term sets per column of a computed strip-row)
+    and the bytes of one read of the field and the abc planes, the dirty
+    tables, and one write of each element it changed. The first forced
+    launch is run a second time on the same input with the SM of each block
+    recorded (the two outputs bit for bit equal: a race would show as
+    nondeterminism) and timed at the strip widths EIK_TUNE_WIDTHS; it and
+    the first launch driven by a dirty table are also held against the
+    plain version on a slab of their own input (eik_slab_check): the forced
+    one in the middle rows, the dirty one around the median dirty row that
+    it improved. Not counted for the path."""
     import torch
     from mesh_navigation_torch.ops import eikonal_gpu as eg
 
     planner, kplan = cctx["planner"], cctx["kplan"]
     K = len(kplan.classes)
-    times, byte_s, op_s, rows_computed = [], [], [], []
-    slabs = {}
+    times, byte_s, op_s, computed = [], [], [], []
+    slabs, launch = {}, {}
     orig = eg.eik_pass
 
     def timed(d, abc, cls, dirty, **kw):
@@ -1185,6 +1238,24 @@ def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
         dirty_rows = dirty.any(dim=0).nonzero()[:, 0]
         written = dirty_out.any(dim=0).nonzero()[:, 0]
         if kw.get("force") and "forced" not in slabs:
+            cuda = torch.device(device).type == "cuda"   # the CPU runs the plain pass
+            grid = eg.eik_pass_grid(Cp, Bp, K, kw["strip_width"]) if cuda else {"grid": None}
+            sm_ids = (torch.full((grid["blocks"],), -1, dtype=torch.int32, device=device)
+                      if cuda else None)
+            again = orig(d, abc, cls, dirty, sm_ids=sm_ids, **kw)
+            repeat_bitwise = all(bool(torch.equal(x, y)) for x, y in zip(out, again))
+            del again
+            if not repeat_bitwise:
+                raise AssertionError("two eik_pass launches on the CVP path's input differ")
+            by_width = {}
+            for w in EIK_TUNE_WIDTHS:
+                kw_w = {**kw, "strip_width": w}
+                run = lambda: orig(d, abc, cls, dirty, **kw_w)   # noqa: E731
+                time_ms(run, device)                                           # warm
+                by_width[w] = time_ms(run, device, reps=3)
+            launch.update(grid, strip_width=kw["strip_width"], lane_block=eg.EIK_LANES,
+                          sms_used=int(torch.unique(sm_ids).numel()) if cuda else None,
+                          repeat_bitwise=repeat_bitwise, forced_ms_by_width=by_width)
             r0 = max(0, Rp // 2 - EIK_SLAB_ROWS // 2)
             slabs["forced"] = eik_slab_check(orig, d, abc, cls, dirty, r0, kw, device)
         elif not kw.get("force") and "dirty" not in slabs and len(dirty_rows):
@@ -1192,21 +1263,16 @@ def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
             r = int(rows[len(rows) // 2])
             r0 = max(0, min(r - 1, Rp - EIK_SLAB_ROWS))
             slabs["dirty"] = eik_slab_check(orig, d, abc, cls, dirty, r0, kw, device)
-        din, dout = dirty.bool(), dirty_out.bool()
-        need = din.clone()
-        need[:, 1:] |= din[:, :-1]
-        need[:, :-1] |= din[:, 1:]
-        if kw["reverse"]:                  # the row before in pass order
-            need[:, :-1] |= dout[:, 1:]
-        else:
-            need[:, 1:] |= dout[:, :-1]
-        n_blocks = need.numel() if kw.get("force") else int(need.sum())
-        rows_computed.append(n_blocks / need.numel())
+        need = eik_strip_rows_computed(d, new, dirty, kw)
+        computed.append(float(need.float().mean()))
+        W = kw["strip_width"]
+        widths = torch.clamp(Cp - W * torch.arange(need.shape[1], device=device), max=W)
+        n_cols = int((need.sum(dim=(0, 2)) * widths).sum())    # computed columns of a lane block
         n_written = int((new != d).sum())
         byte_s.append((d.numel() + abc.numel() + 2 * dirty.numel() + n_written) * 4
                       / HBM_BYTES_PER_S)
-        op_s.append(n_blocks * Cp * eg.EIK_LANES * (K * EIK_UNFOLD_OPS + EIK_ELEM_OPS)
-                    / F32_OPS_PER_S)
+        op_s.append(n_cols * (eg.EIK_LANES * (K * EIK_UNFOLD_OPS + EIK_ELEM_OPS)
+                              + K * EIK_SIDE_OPS) / F32_OPS_PER_S)
         return out
 
     s, g = cctx["warm"]
@@ -1222,10 +1288,13 @@ def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
                              f"{sorted(slabs)}")
     bounds = [max(x, y) * 1e3 for x, y in zip(byte_s, op_s)]
     detail = {"phase": "kernels_at_cvp_shapes", "field": list(res.d_pad.shape), "classes": K,
-              "rounds": res.rounds, "eik_pass_launch_ms": times, "eik_pass_bound_ms": bounds,
-              "row_blocks_computed_share": rows_computed, "path_slab_checks": slabs}
+              "rounds": res.rounds, "launch": launch, "eik_pass_launch_ms": times,
+              "eik_pass_bound_ms": bounds, "strip_rows_computed_share": computed,
+              "path_slab_checks": slabs}
     return detail, {"ms": float(np.mean(times)), "bound_ms": float(np.mean(bounds)),
                     "bound_by": "bytes" if np.mean(byte_s) >= np.mean(op_s) else "operations",
+                    "strip_width": launch["strip_width"], "grid": launch["grid"],
+                    "sms_used": launch["sms_used"],
                     "slab_max_abs_err": max(c["max_abs_err"] for c in slabs.values()),
                     "slab_shape": slabs["forced"]["shape"],
                     "slab_plain_ms": slabs["forced"]["plain_ms"]}

@@ -10,24 +10,32 @@ direction rows read straight off the converged field (cvp_descend_paths,
 
 One kernel carries the solve: `eik_pass` — csrc/eik_pass.cu, replacing
 `_eik_pass_kernel` (:278). Its plain PyTorch version `_eik_pass_plain` has
-the same row order, in-row order, row skip, gated writes and flags, and
-agrees with it bit for bit. A wrapper runs the plain version only for a
-tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
+the same reads, gating, gated writes and flags, and agrees with it bit for
+bit. A wrapper runs the plain version only for a tensor on the CPU; on a
+CUDA tensor it launches the kernel or raises.
 
-Two choices of the port differ from the reference and leave the fixed point
-as it is:
+Three choices of the port differ from the reference. The first two leave
+the fixed point as it is; the third lets the kernel run as a skewed
+wavefront over the whole card:
 - In-row freshness. The reference runs each row in `cw`-column chunks with
   `n_inner` Jacobi repeats inside a chunk (cw = n_inner = 8 on the CVP scale
   path). The port walks a row one column at a time in the chunk direction,
   each column reading the value just written to its neighbour behind it: a
   wavefront crosses a whole row per pass in that direction. A neighbour
   ahead of it is read as the pass found it. `cw` and `n_inner` are gone.
-- Lane blocks of EIK_LANES = 32 lanes instead of 128: the row skip, `imp`
-  and the dirty table [Bp // 32, Rp] are per 32-lane block.
+- Lane blocks of EIK_LANES = 32 lanes instead of 128: `imp` and the dirty
+  table [Bp // 32, Rp] are per 32-lane block.
+- Strip-rows instead of rows as the unit of the skip and of the gated
+  write: `strip_width` columns of one row (EIK_STRIP_WIDTH by default; a
+  width of at least the row is the reference's row rule). The dirty table
+  stays per row. The unfolding update's fixed point depends on the update
+  order (ROADMAP queue C), so finer gating may settle at another one
+  within the solve's tolerances.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -44,7 +52,9 @@ from mesh_navigation_torch.utils.timing import stage as _stage
 INF = float("inf")
 _EPS = 1e-12
 EIK_LANES = 32      # batch lanes per block of the pass kernel
+EIK_STRIP_WIDTH = 8  # columns of a strip-row, the pass's unit of gating (PERF.md)
 MAX_CLASSES = 10    # the plan builder's cap on classes; the wrapper passes no more
+CUDA_COOPERATIVE_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
 # the two ordering pairs (row direction reversed?, in-row direction) of a
 # round: the fast-sweeping quadrants, two diagonal pairs (pallas_eikonal.py:633-649)
 _PAIR_A = ((False, 1), (True, -1))
@@ -276,9 +286,17 @@ def class_sources(plan: EikonalKernelPlan) -> torch.Tensor:
 # the kernel: one directional pass
 # --------------------------------------------------------------------------
 
+def _strips(Cp: int, chunk_dir: int, strip_width: int) -> list[list[int]]:
+    """The pass's strips: the columns in `chunk_dir` order, cut into runs of
+    `strip_width` (the last one shorter where Cp % strip_width != 0)."""
+    cols = list(range(Cp)) if chunk_dir > 0 else list(range(Cp - 1, -1, -1))
+    return [cols[i:i + strip_width] for i in range(0, Cp, strip_width)]
+
+
 def _eik_pass_plain(
     d: torch.Tensor, abc: torch.Tensor, cls: torch.Tensor, dirty: torch.Tensor, *,
     reverse: bool, chunk_dir: int, atol: float, rtol: float, force: bool = False,
+    strip_width: int = EIK_STRIP_WIDTH,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the pass over d [Rp, Cp, Bp] (lanes padded
     to EIK_LANES) with abc [Rp, 3K, Cp], cls [K, 2] (class_sources) and the
@@ -286,14 +304,24 @@ def _eik_pass_plain(
     left as they were. Rows run down (up when `reverse`); the row before
     is this pass's output (fresh), the row after is read from d (stale).
     Columns run one at a time in `chunk_dir`: the own-row neighbour behind
-    a column is its fresh value, the one ahead the stale one. A 32-lane
-    block computes a row when
-      need = prev_imp | dirty[j, r-1 .. r+1] | force,
-    writes it when imp = any(new * (1 + rtol) + atol < cur) and keeps cur
-    otherwise; dirty_out[j, r] = need & imp, and prev_imp = imp & any(new
-    < cur) carries to the next row. (The reference's force term also asks
-    for a finite value near the row; a row with none computes to cur
-    unchanged, so dropping that test changes nothing.)
+    a column is its fresh value, the one ahead the stale one.
+    The unit of gating is the strip-row: `strip_width` consecutive columns
+    of one row (in `chunk_dir` order, see _strips) for one 32-lane block j.
+    Strip s of row r is computed when
+      need = force | dirty[j, r-1 .. r+1] | carry,
+    carry = g of strips s-1, s, s+1 of the row before in pass order and of
+    strip s-1 of the same row, g = imp & any(new < cur) of a strip-row; it
+    writes its new values when imp = any(new * (1 + rtol) + atol < cur)
+    over the strip's columns and the block's lanes, and keeps cur
+    otherwise, so the strip after reads the kept value behind it.
+    dirty_out[j, r] is the OR of imp over the row's strips, `changed` the
+    OR over all. With strip_width >= Cp the one strip is the whole row.
+    (The reference's force term also asks for a finite value near the row;
+    a row with none computes to cur unchanged, so dropping that test
+    changes nothing.)
+    Rows in pass order, strips in `chunk_dir` order, columns inside a strip:
+    the kernel's skewed schedule reads exactly these values. This version
+    is what the CPU runs; on a card it serves only to check the kernel.
     Returns (out, changed int32 [1], dirty_out)."""
     Rp, Cp, Bp = d.shape
     nj = Bp // EIK_LANES
@@ -307,12 +335,14 @@ def _eik_pass_plain(
     dirty_out = torch.zeros_like(dirty)
     inf_row = torch.full((Cp, Bp), INF, dtype=d.dtype, device=dev)
     changed = torch.zeros((), dtype=torch.bool, device=dev)
-    prev_imp = torch.zeros(nj, dtype=torch.bool, device=dev)
+    strips = _strips(Cp, chunk_dir, strip_width)
+    S = len(strips)
+    # g of the row before and of this row, one zero column on each side
+    g_prev = torch.zeros((nj, S + 2), dtype=torch.bool, device=dev)
     prev = inf_row
-    cols = range(Cp) if chunk_dir > 0 else range(Cp - 1, -1, -1)
 
-    def block_any(x):         # [Cp, Bp] -> [nj]
-        return x.view(Cp, nj, EIK_LANES).any(dim=2).any(dim=0)
+    def block_any(x):         # [n, Bp] -> [nj]
+        return x.view(x.shape[0], nj, EIK_LANES).any(dim=2).any(dim=0)
 
     def lanes(blk):           # [nj] -> [1, Bp]
         return blk.repeat_interleave(EIK_LANES)[None, :]
@@ -322,48 +352,59 @@ def _eik_pass_plain(
         rn = r - 1 if reverse else r + 1
         stale = d[rn] if 0 <= rn < Rp else inf_row
         up, dn = (stale, prev) if reverse else (prev, stale)
-        need = (prev_imp | (dirty[:, r] > 0) | (dirty[:, max(r - 1, 0)] > 0)
+        near = ((dirty[:, r] > 0) | (dirty[:, max(r - 1, 0)] > 0)
                 | (dirty[:, min(r + 1, Rp - 1)] > 0))
         if force:
-            need = torch.ones_like(need)
-        if not bool(need.any()):
-            out[r] = cur
-            prev, prev_imp = cur, torch.zeros_like(prev_imp)
-            continue
+            near = torch.ones_like(near)
+        g_cur = torch.zeros_like(g_prev)
         # rows before / own / after with one inf halo column on each side;
-        # the own row takes each new value as it is made
+        # the own row takes each new value as it is made, and each strip's
+        # kept value once its strip is decided
         buf = torch.full((3, Cp + 2, Bp), INF, dtype=d.dtype, device=dev)
         buf[0, 1:-1], buf[1, 1:-1], buf[2, 1:-1] = up, cur, dn
         ar, br, cr = a[r], b[r], c[r]
         vr = cr < INF
-        for col in cols:
-            u1 = buf[src_r[:, 0], src_c[:, 0] + col]          # [K, Bp]
-            u2 = buf[src_r[:, 1], src_c[:, 1] + col]
-            cand = unfolding_value(u1, u2, ar[:, col, None], br[:, col, None],
-                                   cr[:, col, None], vr[:, col, None])
-            buf[1, col + 1] = torch.minimum(buf[1, col + 1], cand.amin(dim=0))
-        new = buf[1, 1:-1]
-        imp = need & block_any(new * k_rtol + atol < cur)
-        row = torch.where(lanes(imp), new, cur)
-        out[r] = row
-        dirty_out[:, r] = imp.to(torch.int32)
-        changed |= imp.any()
-        prev, prev_imp = row, imp & block_any(new < cur)
+        for s, cols in enumerate(strips):
+            need = near | g_prev[:, s] | g_prev[:, s + 1] | g_prev[:, s + 2] | g_cur[:, s]
+            if not bool(need.any()):
+                continue          # the strip keeps cur in buf[1]
+            for col in cols:
+                u1 = buf[src_r[:, 0], src_c[:, 0] + col]          # [K, Bp]
+                u2 = buf[src_r[:, 1], src_c[:, 1] + col]
+                cand = unfolding_value(u1, u2, ar[:, col, None], br[:, col, None],
+                                       cr[:, col, None], vr[:, col, None])
+                buf[1, col + 1] = torch.minimum(buf[1, col + 1], cand.amin(dim=0))
+            lo, hi = min(cols), max(cols) + 1
+            new, old = buf[1, lo + 1:hi + 1], cur[lo:hi]
+            imp = need & block_any(new * k_rtol + atol < old)
+            buf[1, lo + 1:hi + 1] = torch.where(lanes(imp), new, old)
+            dirty_out[:, r] |= imp.to(torch.int32)
+            changed |= imp.any()
+            g_cur[:, s + 1] = imp & block_any(new < old)
+        out[r] = buf[1, 1:-1]
+        prev, g_prev = out[r], g_cur
     return out, changed.to(torch.int32).reshape(1), dirty_out
 
 
 def eik_pass(
     d: torch.Tensor, abc: torch.Tensor, cls: torch.Tensor, dirty: torch.Tensor, *,
     reverse: bool, chunk_dir: int, atol: float, rtol: float, force: bool = False,
+    strip_width: int = EIK_STRIP_WIDTH, sm_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One directional pass of the CVP unfolding update into a new field:
     the semantics of _eik_pass_plain. CPU tensors run _eik_pass_plain; CUDA
-    tensors launch csrc/eik_pass.cu (one block of 8 warps per 32-lane block,
-    8 threads per lane) or raise.
+    tensors launch csrc/eik_pass.cu or raise: one block of 8 warps (8
+    threads a lane) per (strip, 32-lane block) column of strip-rows, walking
+    the rows in a skewed wavefront, in a cooperative launch that raises
+    where the grid cannot be resident at once. `sm_ids` (CUDA int32,
+    eik_pass_grid's block count or more entries) receives the SM that ran
+    each block.
     Returns (out, changed int32 [1], dirty_out)."""
+    if strip_width < 1:
+        raise ValueError(f"eik_pass: strip_width must be at least 1, got {strip_width}")
     if d.device.type == "cpu":
         return _eik_pass_plain(d, abc, cls, dirty, reverse=reverse, chunk_dir=chunk_dir,
-                               atol=atol, rtol=rtol, force=force)
+                               atol=atol, rtol=rtol, force=force, strip_width=strip_width)
     if d.device.type != "cuda":
         raise ValueError(f"eik_pass: unsupported device {d.device}")
     Rp, Cp, Bp = d.shape
@@ -381,18 +422,47 @@ def eik_pass(
         if (t.device != d.device or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"eik_pass: bad {name} {tuple(t.shape)} {t.dtype} {t.device}")
-    out = d.clone()       # the kernel writes only the rows it computes
-    dirty_out = torch.empty_like(dirty)
+    if sm_ids is not None:
+        n = eik_pass_grid(Cp, Bp, K, strip_width)["blocks"]
+        if sm_ids.device != d.device or sm_ids.dtype != torch.int32 or sm_ids.numel() < n:
+            raise ValueError(f"eik_pass: sm_ids needs {n} int32 entries on {d.device}")
+    nj, S = Bp // EIK_LANES, -(-Cp // strip_width)
+    out = d.clone()       # the kernel writes only the strip-rows it improves
+    dirty_out = torch.zeros_like(dirty)
     chg = torch.zeros(1, dtype=torch.int32, device=d.device)
+    progress = torch.zeros(nj * S, dtype=torch.int32, device=d.device)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = kernels.launcher("eik_pass")(
         d.data_ptr(), out.data_ptr(), abc.data_ptr(), cls.data_ptr(), dirty.data_ptr(),
-        dirty_out.data_ptr(), chg.data_ptr(), Rp, Cp, Bp, K, int(reverse), int(chunk_dir),
-        int(force), 1.0 + rtol, atol, stream,
+        dirty_out.data_ptr(), chg.data_ptr(), progress.data_ptr(),
+        None if sm_ids is None else sm_ids.data_ptr(), Rp, Cp, Bp, K, int(reverse),
+        int(chunk_dir), int(force), strip_width, 1.0 + rtol, atol, stream,
     )
-    kernels.check("eik_pass", err)
+    _check_launch(err, Cp, strip_width)
     kernels.LAUNCHES["eik_pass"] += 1
     return out, chg, dirty_out
+
+
+def _check_launch(err: int, Cp: int, strip_width: int) -> None:
+    if err == CUDA_COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(
+            f"eik_pass: the {-(-Cp // strip_width)} strips of width {strip_width} cannot all be "
+            f"resident on this card at once; use a wider strip")
+    kernels.check("eik_pass", err)
+
+
+def eik_pass_grid(Cp: int, Bp: int, K: int, strip_width: int = EIK_STRIP_WIDTH) -> dict:
+    """The kernel's launch shape for a [*, Cp, Bp] field with K classes on
+    the current card: strips S, lane blocks, the grid (S, G) of 256-thread
+    blocks (a block walks lane blocks g, g + G, ...), resident blocks an SM
+    and the card's SMs. Raises where not even one lane block's S blocks can
+    be resident at once (no safe launch exists)."""
+    info = (ctypes.c_int * 4)()
+    _check_launch(kernels.query("eik_pass")(Cp, Bp, K, strip_width, ctypes.addressof(info)),
+                  Cp, strip_width)
+    S, G, per_sm, n_sm = info
+    return {"strips": S, "lane_blocks": Bp // EIK_LANES, "grid": [S, G], "blocks": S * G,
+            "threads_per_block": 8 * EIK_LANES, "blocks_per_sm": per_sm, "sms": n_sm}
 
 
 # --------------------------------------------------------------------------
@@ -453,6 +523,7 @@ def eikonal_solve_padded(
     orderings: int = 4,
     graph_plan=None,
     timer=None,
+    strip_width: int = EIK_STRIP_WIDTH,
 ) -> EikonalPaddedResult:
     """Batched eikonal fields by fast-sweeping rounds (pallas_eikonal.py:516).
     The first round is forced and runs all four orderings (row direction x
@@ -463,7 +534,8 @@ def eikonal_solve_padded(
     the loop ends on a round with no improvement beyond atol + rtol·|label|.
     `init_vb` [V, B] warm-starts the field with
     upper bounds of the fixed point (a graph-distance field plus the seed
-    offset). The hybrid `graph_plan` mode is not ported."""
+    offset). `strip_width` is the passes' unit of gating (eik_pass). The
+    hybrid `graph_plan` mode is not ported."""
     if graph_plan is not None:
         raise NotImplementedError("the hybrid graph_plan transport mode")
     if orderings not in (2, 4):
@@ -486,7 +558,8 @@ def eikonal_solve_padded(
         chg = torch.zeros(1, dtype=torch.int32, device=dev)
         for rev, cdir in pair:
             d, c, imp = eik_pass(d, abc, cls, torch.maximum(dirty, acc), reverse=rev,
-                                 chunk_dir=cdir, atol=atol, rtol=rtol, force=force)
+                                 chunk_dir=cdir, atol=atol, rtol=rtol, force=force,
+                                 strip_width=strip_width)
             acc = torch.maximum(acc, imp)
             chg = chg | c
         return d, acc, chg

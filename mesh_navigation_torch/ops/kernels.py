@@ -53,9 +53,12 @@ _SIGNATURES = {
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
     "check": ("check_launch", [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
     "eik_pass": ("eik_pass_launch",
-                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _F, _F, _P]),
     "fused_sweep": ("fused_sweep_launch", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
 }
+# launch-shape queries a kernel's library also exports
+_QUERIES = {"eik_pass": ("eik_pass_grid", [_I, _I, _I, _I, _P])}
 
 
 def reset_launches() -> None:
@@ -96,10 +99,13 @@ def build_all(timeout: float = 900.0) -> dict[str, str]:
             )
         for name in SOURCES:
             lib = ctypes.CDLL(_lib_path(name))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            specs = [_SIGNATURES[name]]
+            if name in _QUERIES:
+                specs.append(_QUERIES[name])
+            for fn_name, argtypes in specs:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return logs
 
@@ -109,6 +115,13 @@ def launcher(name: str):
     if name not in _libs:
         build_all()
     return getattr(_libs[name], _SIGNATURES[name][0])
+
+
+def query(name: str):
+    """The C launch-shape query of kernel `name`, building on first use."""
+    if name not in _libs:
+        build_all()
+    return getattr(_libs[name], _QUERIES[name][0])
 
 
 def check(name: str, err: int) -> None:

@@ -150,6 +150,12 @@ def _assert_fields(got, ref, tol):
     np.testing.assert_allclose(got[ok], ref[ok], rtol=tol, atol=tol)
 
 
+def _width(width):
+    """The strip width argument of a solve or pass: the default (None) or
+    a narrow width, so that the 16-column padded rows have several strips."""
+    return {} if width is None else {"strip_width": width}
+
+
 def _face_seeds(jm, face_ids, w=(0.5, 0.3, 0.2)):
     """Goal-face seeds as the planner makes them (cvp_mesh_planner.cpp:
     716-728): the face's three vertices at their Euclidean distances from a
@@ -160,8 +166,9 @@ def _face_seeds(jm, face_ids, w=(0.5, 0.3, 0.2)):
     return seed_v, np.linalg.norm(vp[seed_v] - goal[:, None], axis=-1).astype(np.float32)
 
 
+@pytest.mark.parametrize("width", [None, 4])
 @pytest.mark.parametrize("case", ["raw", "weighted", "masked"])
-def test_eikonal_solve_matches_gather_solver(case):
+def test_eikonal_solve_matches_gather_solver(case, width):
     _, _, jm, tm = _terrain(10, {"raw": 3, "weighted": 7, "masked": 5}[case])
     rng = np.random.default_rng(1)
     costs = rng.uniform(0.0, 0.6 if case != "masked" else 1.4, jm.num_vertices).astype(np.float32)
@@ -176,20 +183,24 @@ def test_eikonal_solve_matches_gather_solver(case):
     seed_v = np.concatenate([[[5, 5, 5]], fv]).astype(np.int64)
     seed_d = np.concatenate([[[0.0, np.inf, np.inf]], fd]).astype(np.float32)
     dist, rounds, conv = teg.eikonal_field_banded(
-        tm, plan, torch.from_numpy(seed_v), torch.from_numpy(seed_d), atol=1e-5, rtol=1e-5)
+        tm, plan, torch.from_numpy(seed_v), torch.from_numpy(seed_d), atol=1e-5, rtol=1e-5,
+        **_width(width))
     assert conv and 1 < rounds < 20
     for b in range(3):
         ref = _reference_field(jm, side, seed_v[b], seed_d[b], mask)
         _assert_fields(dist[b].numpy(), ref, 1e-4)
 
 
-def test_unfolding_fixed_point_depends_on_the_update_order():
+@pytest.mark.parametrize("width", [None, 4])
+def test_unfolding_fixed_point_depends_on_the_update_order(width):
     """The unfolding update is not monotone in its supports (its branches
     switch), so its fixed point is not unique. Three seeds in a row at
     distances their side lengths do not bound tightly: the reference's
     gather solver and the port's sweeps stop at two fixed points of the
     same update, more than 0.1 apart; the native fast-marching oracle agrees
-    with the port's field where they differ most (ROADMAP queue C)."""
+    with the port's field where they differ most (ROADMAP queue C). The
+    finer gating of narrow strips (4 columns) does not change that
+    outcome on this field."""
     _, _, jm, tm = _terrain(10, 7)
     rng = np.random.default_rng(1)
     costs = rng.uniform(0.0, 0.6, jm.num_vertices).astype(np.float32)
@@ -199,7 +210,7 @@ def test_unfolding_fixed_point_depends_on_the_update_order():
     plan = teg.build_eikonal_kernel_plan(tm, side)
     dist, _, conv = teg.eikonal_field_banded(
         tm, plan, torch.from_numpy(seed_v[None]), torch.from_numpy(seed_d[None]),
-        atol=1e-6, rtol=1e-6)
+        atol=1e-6, rtol=1e-6, **_width(width))
     got = dist[0].numpy()
     ref = _reference_field(jm, side, seed_v, seed_d)
     v1, v2, v3, ea, eb, ec = (np.asarray(x) for x in jeik._face_corner_tables(jm))
@@ -230,14 +241,15 @@ def test_eikonal_solve_on_irregular_mesh_with_residual_pairs():
     _assert_fields(dist[0].numpy(), _reference_field(jm, side, seed_v[0], seed_d[0]), 1e-3)
 
 
-def test_orderings_and_warm_start_keep_the_fixed_point():
+@pytest.mark.parametrize("width", [None, 4])
+def test_orderings_and_warm_start_keep_the_fixed_point(width):
     """All four orderings every round, or the two diagonal pairs in turn, and
     an upper-bound warm start all reach the same fixed point."""
     _, _, jm, tm = _terrain(12, 4)
     plan = teg.build_eikonal_kernel_plan(tm, np.asarray(jm.edge_dist))
     seed_v = torch.tensor([[3, 4, 5], [100, 101, 99]])
     seed_d = torch.tensor([[0.1, 0.2, 0.15], [0.0, 0.3, 0.2]])
-    kw = dict(atol=1e-6, rtol=1e-6)
+    kw = dict(atol=1e-6, rtol=1e-6, **_width(width))
     d4, r4, c4 = teg.eikonal_field_banded(tm, plan, seed_v, seed_d, orderings=4, **kw)
     d2, r2, c2 = teg.eikonal_field_banded(tm, plan, seed_v, seed_d, orderings=2, **kw)
     bound = (d4 * 1.2 + 0.5).T                      # an upper bound of the fixed point
@@ -250,14 +262,31 @@ def test_orderings_and_warm_start_keep_the_fixed_point():
         teg.eikonal_solve_padded(plan, seed_v, seed_d, graph_plan=object())
 
 
+def _strip_rows(new, old, strips):
+    """[R, S] bool: which strips of block 0 (lanes 0..31) differ between two
+    fields, and [R, S] bool: which of them hold a lower value."""
+    diff = torch.stack([(new[:, c, :32] != old[:, c, :32]).flatten(1).any(dim=1)
+                        for c in strips], dim=1)
+    lower = torch.stack([(new[:, c, :32] < old[:, c, :32]).flatten(1).any(dim=1)
+                         for c in strips], dim=1)
+    return diff, lower
+
+
 def test_plain_pass_is_gated_per_block_and_leaves_its_input():
-    """One forced pass from a seeded field: the input is unchanged, a row is
-    written where it improves and marked dirty, an empty 32-lane block
-    writes nothing, and a pass driven by that dirty table alone gives what a
-    forced pass gives."""
+    """The strip-row rule at strip width 4 (four strips on the 16-column
+    padded rows). One forced pass from a seeded field leaves its input as
+    it was, writes a strip-row only where it improves (block 0's strips;
+    the empty 32-lane block writes nothing), and marks a row dirty exactly
+    where one of its strips was written. A pass driven by one dirty row
+    writes nothing in the rows it does not need, and below them only strips
+    fed by a written strip (the three above, or the one behind). A pass
+    driven by the forced pass's dirty table gives what a forced pass
+    gives."""
     _, _, jm, tm = _terrain(10, 3)
     plan = teg.build_eikonal_kernel_plan(tm, np.asarray(jm.edge_dist))
     R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
+    W = 4
+    strips = [list(range(c, c + W)) for c in range(0, Cp, W)]
     d = torch.full((R, Cp, 64), torch.inf)
     fv, fd = _face_seeds(jm, [60])
     for v, x in zip(fv[0], fd[0]):
@@ -265,20 +294,133 @@ def test_plain_pass_is_gated_per_block_and_leaves_its_input():
     d0 = d.clone()
     cls = teg.class_sources(plan)
     nd = torch.zeros((2, R), dtype=torch.int32)
-    kw = dict(atol=1e-5, rtol=1e-5)
+    kw = dict(atol=1e-5, rtol=1e-5, strip_width=W)
     out, chg, dirty = teg._eik_pass_plain(d, plan.abc, cls, nd, reverse=False, chunk_dir=1,
                                           force=True, **kw)
     assert torch.equal(d, d0) and bool(chg)
     assert dirty[1].sum() == 0 and dirty[0].any()
     assert torch.isinf(out[:, :, 32:]).all()
-    rows = dirty[0].bool()
-    assert torch.equal(out[~rows], d[~rows])
-    assert bool((out[rows] < d[rows]).flatten(1).any(dim=1).all())
+    written, lower = _strip_rows(out, d, strips)
+    assert torch.equal(written, lower)              # written only where it improves
+    assert torch.equal(dirty[0].bool(), written.any(dim=1))   # the OR of the row's strips
+    assert bool((written.any(dim=1) & ~written.all(dim=1)).any())   # finer than a row
+
+    # a converged field, lowered at (r0, 0) and raised at (r0 + 2, 8 .. 9),
+    # and a pass down, right to left, driven by the dirty row r0 alone
+    conv = teg.eikonal_solve_padded(plan, torch.from_numpy(fv), torch.from_numpy(fd),
+                                    atol=1e-5, rtol=1e-5, strip_width=W)
+    assert conv.converged
+    r0 = 4
+    d1 = torch.nn.functional.pad(conv.d_pad, (0, 64 - conv.d_pad.shape[2]), value=np.inf)
+    d1[r0, 0, 0] *= 0.5
+    d1[r0 + 2, 8:10, 0] += 1.0
+    one = torch.zeros_like(nd)
+    one[0, r0] = 1
+    strips = [c[::-1] for c in strips[::-1]]         # in pass order
+    got, _, _ = teg._eik_pass_plain(d1, plan.abc, cls, one, reverse=False, chunk_dir=-1, **kw)
+    forced, _, _ = teg._eik_pass_plain(d1, plan.abc, cls, one, reverse=False, chunk_dir=-1,
+                                       force=True, **kw)
+    written, lower = _strip_rows(got, d1, strips)
+    assert not bool(written[:r0 - 1].any())          # not needed
+    assert bool(written[r0 - 1:r0 + 2].any())
+    fed = torch.zeros_like(written)                  # from the rule, on the written strips
+    fed[r0 - 1:r0 + 2] = True
+    for r in range(r0 + 2, R):
+        for s in range(len(strips)):
+            fed[r, s] = bool(lower[r - 1, max(s - 1, 0):s + 2].any()) or (
+                s > 0 and bool(lower[r, s - 1]))
+    assert not bool((written & ~fed).any())          # neither needed nor fed: kept
+    raised = _strip_rows(forced, d1, strips)[0]
+    assert bool(raised[r0 + 2, 1]) and not bool(fed[r0 + 2, 1])   # would improve, not fed
+
     full, _, dfull = teg._eik_pass_plain(out, plan.abc, cls, nd, reverse=True, chunk_dir=-1,
                                          force=True, **kw)
     driven, _, ddriven = teg._eik_pass_plain(out, plan.abc, cls, dirty, reverse=True,
                                              chunk_dir=-1, **kw)
     assert torch.equal(full, driven) and torch.equal(dfull, ddriven)
+
+
+def _row_gated_pass(d, abc, cls, dirty, *, reverse, chunk_dir, atol, rtol, force=False):
+    """The pass as it was gated before strips: a 32-lane block computes a
+    whole row when prev_imp | dirty[j, r-1 .. r+1] | force, and writes it
+    when any element of the row improves past the tolerance."""
+    Rp, Cp, Bp = d.shape
+    nj = Bp // teg.EIK_LANES
+    k_rtol = 1.0 + rtol
+    cls = cls.long()
+    src_r, src_c = cls // 3, cls % 3
+    a, b, c = abc[:, 0::3, :], abc[:, 1::3, :], abc[:, 2::3, :]
+    out = torch.empty_like(d)
+    dirty_out = torch.zeros_like(dirty)
+    inf_row = torch.full((Cp, Bp), np.inf, dtype=d.dtype)
+    changed = torch.zeros((), dtype=torch.bool)
+    prev_imp = torch.zeros(nj, dtype=torch.bool)
+    prev = inf_row
+    cols = range(Cp) if chunk_dir > 0 else range(Cp - 1, -1, -1)
+
+    def block_any(x):
+        return x.view(Cp, nj, teg.EIK_LANES).any(dim=2).any(dim=0)
+
+    for r in (range(Rp - 1, -1, -1) if reverse else range(Rp)):
+        cur = d[r]
+        rn = r - 1 if reverse else r + 1
+        stale = d[rn] if 0 <= rn < Rp else inf_row
+        up, dn = (stale, prev) if reverse else (prev, stale)
+        need = (prev_imp | (dirty[:, r] > 0) | (dirty[:, max(r - 1, 0)] > 0)
+                | (dirty[:, min(r + 1, Rp - 1)] > 0))
+        if force:
+            need = torch.ones_like(need)
+        if not bool(need.any()):
+            out[r] = cur
+            prev, prev_imp = cur, torch.zeros_like(prev_imp)
+            continue
+        buf = torch.full((3, Cp + 2, Bp), np.inf, dtype=d.dtype)
+        buf[0, 1:-1], buf[1, 1:-1], buf[2, 1:-1] = up, cur, dn
+        vr = c[r] < np.inf
+        for col in cols:
+            u1 = buf[src_r[:, 0], src_c[:, 0] + col]
+            u2 = buf[src_r[:, 1], src_c[:, 1] + col]
+            cand = teg.unfolding_value(u1, u2, a[r][:, col, None], b[r][:, col, None],
+                                       c[r][:, col, None], vr[:, col, None])
+            buf[1, col + 1] = torch.minimum(buf[1, col + 1], cand.amin(dim=0))
+        new = buf[1, 1:-1]
+        imp = need & block_any(new * k_rtol + atol < cur)
+        row = torch.where(imp.repeat_interleave(teg.EIK_LANES)[None, :], new, cur)
+        out[r] = row
+        dirty_out[:, r] = imp.to(torch.int32)
+        changed |= imp.any()
+        prev, prev_imp = row, imp & block_any(new < cur)
+    return out, changed.to(torch.int32).reshape(1), dirty_out
+
+
+def test_plain_pass_with_one_strip_is_the_row_rule():
+    """With a strip as wide as the row (or wider) the strip-row pass is the
+    row-gated pass bit for bit: each of the four orderings, forced and then
+    driven by the forced pass's dirty table, each from the last output. At
+    strip width 4 the same passes write another field."""
+    _, _, jm, tm = _terrain(12, 3)
+    plan = teg.build_eikonal_kernel_plan(tm, np.asarray(jm.edge_dist))
+    R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
+    rng = np.random.default_rng(0)
+    d = np.full((R, Cp, 64), np.inf, np.float32)
+    for lane in range(0, 64, 7):
+        d[rng.integers(0, R), rng.integers(0, C), lane] = rng.uniform(0, 1)
+    far = rng.uniform(50, 80, d.shape).astype(np.float32)
+    d = torch.from_numpy(np.where(np.isinf(d) & (rng.uniform(size=d.shape) < 0.2), far, d))
+    cls = teg.class_sources(plan)
+    dirty = torch.zeros((2, R), dtype=torch.int32)
+    narrow_differs = False
+    for rev, cdir in (*teg._PAIR_A, *teg._PAIR_B):
+        for force in (True, False):
+            kw = dict(reverse=rev, chunk_dir=cdir, atol=1e-5, rtol=1e-5, force=force)
+            want = _row_gated_pass(d, plan.abc, cls, dirty, **kw)
+            for width in (Cp, Cp + 5):
+                got = teg._eik_pass_plain(d, plan.abc, cls, dirty, strip_width=width, **kw)
+                assert all(torch.equal(x, y) for x, y in zip(got, want)), (rev, cdir, force)
+            narrow = teg._eik_pass_plain(d, plan.abc, cls, dirty, strip_width=4, **kw)
+            narrow_differs |= not torch.equal(narrow[0], want[0])
+            d, dirty = want[0], want[2]
+    assert narrow_differs
 
 
 def _goal_vids(jm, goals):

@@ -198,21 +198,20 @@ def _eik_field(nx, ny, B, device):
     return plan, seed_v, seed_d, torch.where(torch.isinf(d) & some, far, d)
 
 
-@pytest.mark.parametrize("nx,ny,B", [(40, 36, 16), (21, 52, 40)])
-def test_eik_pass_kernel_matches_plain(cuda, nx, ny, B):
-    """Each of the four orderings, forced and then driven by the forced
-    pass's dirty table, on the same inputs: fields bit for bit (the kernel
-    is built without multiply-add contraction), dirty tables and flags
-    equal. Row widths 36 and 52 are not multiples of 32."""
-    plan, _, _, d = _eik_field(nx, ny, B, cuda)
+def _eik_kernel_vs_plain(plan, d, orderings, **extra):
+    """The kernel and the plain pass on the same inputs, each ordering forced
+    and then driven by the forced pass's dirty table, the next one from the
+    plain output: fields bit for bit (the kernel is built without
+    multiply-add contraction), dirty tables and flags equal. Returns the
+    dirty rows of each pass."""
     cls = eg.class_sources(plan)
     dirty = torch.zeros((d.shape[2] // eg.EIK_LANES, d.shape[0]), dtype=torch.int32,
-                        device=cuda)
+                        device=d.device)
     before = kernels.LAUNCHES["eik_pass"]
     n_dirty_rows = []
-    for rev, cdir in (*eg._PAIR_A, *eg._PAIR_B):
+    for rev, cdir in orderings:
         for force in (True, False):
-            kw = dict(reverse=rev, chunk_dir=cdir, atol=ATOL, rtol=RTOL, force=force)
+            kw = dict(reverse=rev, chunk_dir=cdir, atol=ATOL, rtol=RTOL, force=force, **extra)
             out_k, chg_k, dirty_k = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
             out_p, chg_p, dirty_p = eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw)
             torch.cuda.synchronize()
@@ -223,16 +222,65 @@ def test_eik_pass_kernel_matches_plain(cuda, nx, ny, B):
             assert torch.equal(out_k, out_p), float((out_k[fin] - out_p[fin]).abs().max())
             n_dirty_rows.append(int(dirty_p.sum()))
             d, dirty = out_p, dirty_p
-    assert kernels.LAUNCHES["eik_pass"] == before + 8
-    assert n_dirty_rows[0] > 0 and min(n_dirty_rows) < d.shape[0] * dirty.shape[0]
+    assert kernels.LAUNCHES["eik_pass"] == before + 2 * len(orderings)
+    return n_dirty_rows
 
 
-def test_eik_solve_through_the_kernel_matches_the_plain_solve(cuda, monkeypatch):
+# strip widths: narrow (many strips, a partial last one on the 40- and
+# 56-column padded rows at 6), the default, longer than the kernel's
+# 16-column tile (written through), and the whole row (the row rule)
+@pytest.mark.parametrize("width", [4, 6, None, 24, 4096])
+@pytest.mark.parametrize("nx,ny,B", [(40, 36, 16), (21, 52, 40)])
+def test_eik_pass_kernel_matches_plain(cuda, nx, ny, B, width):
+    """Each of the four orderings, forced and then driven by the forced
+    pass's dirty table, at several strip widths. Row widths 36 and 52 are
+    not multiples of 32."""
+    plan, _, _, d = _eik_field(nx, ny, B, cuda)
+    extra = {} if width is None else {"strip_width": width}
+    n_dirty_rows = _eik_kernel_vs_plain(plan, d, (*eg._PAIR_A, *eg._PAIR_B), **extra)
+    n_blocks = d.shape[2] // eg.EIK_LANES
+    assert n_dirty_rows[0] > 0 and min(n_dirty_rows) < d.shape[0] * n_blocks
+
+
+def test_eik_pass_kernel_with_more_work_than_resident_blocks(cuda):
+    """A 64-row, 200-column field with 128 lanes at strip width 4: 12,800
+    strip-rows for 200 warps, each waiting on its neighbours'. Kernel and
+    plain agree, and two launches on the same input agree bit for bit (a
+    race would show as nondeterminism)."""
+    plan, _, _, d = _eik_field(64, 200, 128, cuda)
+    assert d.shape[0] * eg.eik_pass_grid(d.shape[1], d.shape[2], len(plan.classes), 4)[
+        "blocks"] >= 12_800
+    _eik_kernel_vs_plain(plan, d, eg._PAIR_A[:1], strip_width=4)
+    cls = eg.class_sources(plan)
+    dirty = torch.zeros((4, d.shape[0]), dtype=torch.int32, device=cuda)
+    kw = dict(reverse=False, chunk_dir=1, atol=ATOL, rtol=RTOL, force=True, strip_width=4)
+    a = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
+    b = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_eik_pass_kernel_walks_several_lane_blocks_per_block(cuda):
+    """More (strip, lane block) columns than the card holds at once: strip
+    width 1 on a 200-column row and one lane block more than fit, so blocks
+    walk two lane blocks in turn. Kernel and plain agree."""
+    plan, _, _, d = _eik_field(12, 200, 32, cuda)
+    K, Cp = len(plan.classes), d.shape[1]
+    G = eg.eik_pass_grid(Cp, 32 * 4096, K, 1)["grid"][1]
+    plan, _, _, d = _eik_field(12, 200, 32 * (G + 1), cuda)
+    grid = eg.eik_pass_grid(Cp, d.shape[2], K, 1)
+    assert grid["grid"] == [Cp, G] and grid["lane_blocks"] == G + 1
+    _eik_kernel_vs_plain(plan, d, eg._PAIR_A[:1], strip_width=1)
+
+
+@pytest.mark.parametrize("width", [None, 4])
+def test_eik_solve_through_the_kernel_matches_the_plain_solve(cuda, monkeypatch, width):
     """The whole solve on the card, once through the kernel and once with
     the plain version in its place: the same rounds and the same field bit
-    for bit."""
+    for bit, at the default and a narrow strip width."""
     plan, seed_v, seed_d, _ = _eik_field(24, 36, 8, cuda)
     kw = dict(atol=1e-5, rtol=1e-5, orderings=2)
+    if width is not None:
+        kw["strip_width"] = width
     got = eg.eikonal_solve_padded(plan, seed_v, seed_d, **kw)
     monkeypatch.setattr(eg, "eik_pass", eg._eik_pass_plain)
     want = eg.eikonal_solve_padded(plan, seed_v, seed_d, **kw)
@@ -251,6 +299,18 @@ def test_eik_pass_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         eg.eik_pass(d, plan.abc, cls, dirty, chunk_dir=2, **kw)
     with pytest.raises(ValueError, match="dirty"):
         eg.eik_pass(d, plan.abc, cls, dirty.to(torch.int64), chunk_dir=1, **kw)
+    with pytest.raises(ValueError, match="strip_width"):
+        eg.eik_pass(d, plan.abc, cls, dirty, chunk_dir=1, strip_width=0, **kw)
+    with pytest.raises(ValueError, match="sm_ids"):
+        eg.eik_pass(d, plan.abc, cls, dirty, chunk_dir=1, sm_ids=torch.zeros(
+            1, dtype=torch.int32, device=cuda), **kw)
+    # more strips of width 1 than the card can hold at once: no safe launch
+    wide = torch.full((1, 32 * 1024, 32), torch.inf, device=cuda)
+    abc = torch.full((1, 3, 32 * 1024), torch.inf, device=cuda)
+    one = torch.tensor([[1, 3]], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="resident"):
+        eg.eik_pass(wide, abc, one, torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+                    chunk_dir=1, strip_width=1, **kw)
 
 
 def test_cvp_descent_graph_matches_eager(cuda):
