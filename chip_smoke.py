@@ -8,14 +8,15 @@ Phases, each printed as one JSON line on standard output:
 1. device: the card, `nvidia-smi`'s name and power limit, kernel build time
    (every csrc/*.cu is compiled by its own nvcc, all at once).
 2. kernel_check: on a 128x128 terrain with 64 lanes, the pass kernel against
-   its plain PyTorch version (one forced down pass, one up pass; fields
-   within atol + rtol*|d|, flags equal), the class-pred kernel against its
+   its plain PyTorch version (one forced down pass, one up pass; fields bit
+   for bit, flags equal), the class-pred kernel against its
    plain version on the same fields (int8 tables and flags identical), the
    check kernel against its plain version on a converged field and on it with
    one element lowered and one raised (flags equal), and the pass kernel in
    its warm modes (dirty table + warm cut) against its plain version from a
-   converged field with a raised patch (fields within atol + rtol*|d|, dirty
-   tables and flags equal).
+   converged field with a raised patch (fields bit for bit, dirty tables,
+   flags and rows walked equal); the same pass checks on 8-row terrains of
+   1,500 and 3,000 columns (rows past 1,024 columns, 16 lanes).
    eik_kernel_check: on a 40x36 terrain with 16 lanes, the eikonal pass
    kernel against its plain version at the default strip width and at a
    narrow one (4 columns), each of the four orderings forced and then
@@ -48,9 +49,9 @@ Phases, each printed as one JSON line on standard output:
    against the native heap Dijkstra on its costs (below 1%), and the check
    and warm-mode pass kernels launched.
 7. kernels at the replan shapes: the warm resolve of the last update pass by
-   pass (warm pass ms per launch against its bound, the share of rows each
-   pass leaves unchanged), the check kernel against its plain version with its
-   time and bound.
+   pass (warm pass ms per launch against its bound, the share of the blocks'
+   rows each pass walked and the share it leaves unchanged), the check
+   kernel against its plain version with its time and bound.
 8. cvp: the CVP planner at full width (bench.py:451-554) on the same mesh
    and costs — side lengths = edge weights, the eikonal plan with its
    Dijkstra warm plan, 128 lanes with starts and goals on vertices, one
@@ -139,6 +140,7 @@ EIK_NARROW_WIDTH = 4        # the narrow strip width held against the plain pass
 EIK_TUNE_WIDTHS = (4, 8, 16)  # strip widths timed on the CVP path's first forced pass
 EIK_SLAB_ROWS = 4   # rows of a CVP-path pass's own input held against the plain pass
 STRUCTURED_KERNELS = ("fused_sweep",)
+WIDE_PASS_COLS = (1500, 3000)   # row widths past 1,024 held against the plain pass
 STRUCTURED_BATCH = 128      # lanes per structured solve
 STRUCTURED_WAVE_SWEEPS = 64  # sweeps of the path's own solve before the full-shape check
 
@@ -220,18 +222,18 @@ def device_busy(fn, device) -> dict:
             "top_kernels_ms": {k[:60]: v for k, v in top}}
 
 
-def steepness_setup(mesh_n: int, device, cost_limit: float = 2.0):
-    """Terrain -> mesh -> steepness costs (the steepness layer) -> slot
-    weights for the banded plan."""
+def steepness_setup(mesh_n, device, cost_limit: float = 2.0):
+    """Terrain (mesh_n x mesh_n, or the (nx, ny) of a pair) -> mesh ->
+    steepness costs (the steepness layer) -> slot weights for the banded
+    plan."""
     from mesh_navigation_torch.config import LayerConfig
     from mesh_navigation_torch.layers.local import make_steepness
     from mesh_navigation_torch.mesh import synthetic
     from mesh_navigation_torch.mesh.arrays import build_mesh
     from mesh_navigation_torch.ops import sweeps
 
-    v, f = synthetic.terrain_mesh(
-        mesh_n, mesh_n, spacing=0.5, hills=2.0, roughness=0.01, seed=0
-    )
+    nx, ny = mesh_n if isinstance(mesh_n, tuple) else (mesh_n, mesh_n)
+    v, f = synthetic.terrain_mesh(nx, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
     mesh = build_mesh(v, f, device=device)
     steep = make_steepness(LayerConfig(name="steep", kind="steepness", params=(("threshold", 2.0),)))
     costs = steep(mesh, {}, {}).costs
@@ -260,6 +262,7 @@ def compare_fields(kern, plain, atol, rtol) -> dict:
     bound = atol + rtol * torch.where(fin_p, plain.abs(), torch.zeros_like(plain))
     rel = diff / torch.clamp(torch.where(fin_p, plain.abs(), torch.ones_like(plain)), min=1e-6)
     return {
+        "bitwise": bool(torch.equal(kern, plain)),
         "same_finite_support": same_support,
         "max_abs_err": float(diff.max()),
         "max_rel_err": float(rel.max()),
@@ -269,7 +272,8 @@ def compare_fields(kern, plain, atol, rtol) -> dict:
 
 
 def check_pass_pair(prob, device, atol, rtol) -> dict:
-    """Forced down pass then up pass, kernel vs plain, from prob.d0."""
+    """Forced down pass then up pass, kernel vs plain, from prob.d0: fields
+    bit for bit (the plain pass sums in the kernel's order), flags equal."""
     from mesh_navigation_torch.ops import banded_gpu as bg
 
     d_k = prob.d0.clone()
@@ -285,7 +289,7 @@ def check_pass_pair(prob, device, atol, rtol) -> dict:
         cmp = compare_fields(d_k, d_p, atol, rtol)
         cmp["flags_equal"] = bool(chg_k.item()) == bool(chg_p.item())
         out[name] = cmp
-        if not (cmp["within_tol"] and cmp["flags_equal"]):
+        if not (cmp["bitwise"] and cmp["flags_equal"]):
             raise AssertionError(f"pass kernel disagrees with its plain version: {name} {cmp}")
     del d_k, d_p
     return out
@@ -384,7 +388,9 @@ def warm_inputs(plan, mesh, costs, seeds, raise_rows, raise_cols, atol, rtol):
 
 def check_warm_pass_pair(plan1, seeds, d_prev, changed, raised, pos, atol, rtol) -> dict:
     """The pass kernel in its warm modes against its plain version: the cut
-    + dirty down pass, then the dirty up pass, from the same inputs."""
+    + dirty down pass, then the dirty up pass, from the same inputs: fields
+    bit for bit, dirty tables, flags and rows walked equal."""
+    import torch
     from mesh_navigation_torch.ops import banded_gpu as bg
 
     Rp = d_prev.shape[0]
@@ -395,17 +401,23 @@ def check_warm_pass_pair(plan1, seeds, d_prev, changed, raised, pos, atol, rtol)
     out = {}
     for name, reverse, cross, wc in (("down_cut", False, prob.down, cut),
                                      ("up", True, prob.up, None)):
+        wk = torch.zeros(1, dtype=torch.int32, device=d_k.device)
+        wp = torch.zeros(1, dtype=torch.int64, device=d_k.device)
         ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, reverse=reverse,
-                                 atol=atol, rtol=rtol, dirty=dirty_k, warm_cut=wc)
+                                 atol=atol, rtol=rtol, dirty=dirty_k, warm_cut=wc,
+                                 rows_walked=wk)
         cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, reverse=reverse,
                                        bb=prob.bb, atol=atol, rtol=rtol, dirty=dirty_p,
-                                       warm_cut=wc)
+                                       warm_cut=wc, rows_walked=wp)
         cmp = compare_fields(d_k, d_p, atol, rtol)
         cmp["flags_equal"] = bool(ck.item()) == bool(cp.item())
         cmp["dirty_equal"] = bool((dirty_k == dirty_p).all())
         cmp["dirty_rows"] = int(dirty_p.sum())
+        cmp["rows_walked"] = int(wk.item())
+        cmp["rows_walked_equal"] = int(wk.item()) == int(wp.item())
         out[name] = cmp
-        if not (cmp["within_tol"] and cmp["flags_equal"] and cmp["dirty_equal"]):
+        if not (cmp["bitwise"] and cmp["flags_equal"] and cmp["dirty_equal"]
+                and cmp["rows_walked_equal"]):
             raise AssertionError(f"warm pass kernel disagrees with its plain version: {name} {cmp}")
         d_k.copy_(d_p)
     return out
@@ -433,10 +445,32 @@ def kernel_check(device, mesh_n: int = 128, batch: int = 64) -> dict:
     plan1, *inputs = warm_inputs(plan, mesh, costs, seeds, range(mid - 2, mid + 3),
                                  torch.arange(mid - 2, mid + 3, device=device), ATOL, RTOL)
     warm = check_warm_pass_pair(plan1, seeds, *inputs, ATOL, RTOL)
+    wide = {ny: wide_pass_check(device, ny) for ny in WIDE_PASS_COLS}
     return {"phase": "kernel_check", "mesh": f"{mesh_n}x{mesh_n}", "lanes": batch,
             "pass": passes, "pred_after_one_round": pred_partial,
             "pred_converged": pred_conv, "rounds": full.rounds, "check": checks,
-            "warm_pass": warm}
+            "warm_pass": warm, "wide_pass": wide}
+
+
+def wide_pass_check(device, ny: int, nx: int = 8, batch: int = 16) -> dict:
+    """The pass kernel on rows past 1,024 columns (an nx x ny terrain): the
+    main mode's forced down and up pass, then a warm resolve's cut and dirty
+    passes from a raised patch, each against the plain version bit for bit."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    _, _, mesh, _, costs, W = steepness_setup((nx, ny), device)
+    plan = bg.build_banded_kernel_plan(mesh, W)
+    rng = np.random.default_rng(SEED + ny)
+    seeds = torch.from_numpy(rng.integers(0, mesh.num_vertices, batch)).to(device)
+    passes = check_pass_pair(bg.prepare_padded(plan, seeds), device, ATOL, RTOL)
+    plan1, *inputs = warm_inputs(plan, mesh, costs, seeds, range(nx // 2 - 1, nx // 2 + 1),
+                                 torch.arange(ny // 3, ny // 3 + 40, device=device), ATOL, RTOL)
+    warm = check_warm_pass_pair(plan1, seeds, *inputs, ATOL, RTOL)
+    return {"field": [plan.n_rows, plan.n_cols_pad, batch],
+            "cols_per_thread": bg.pass_cols_per_thread(plan.n_cols_pad),
+            "pass": passes, "warm_pass": warm,
+            "max_abs_err": max(c["max_abs_err"] for c in (*passes.values(), *warm.values()))}
 
 
 def main_path(device, mesh_n: int, batch: int, iters: int) -> dict:
@@ -840,6 +874,7 @@ def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
     by pass, each launch timed by its own event pair; the check kernel
     against its plain version on the converged field. Not counted for the
     path."""
+    import torch
     from mesh_navigation_torch.ops import banded_gpu as bg
 
     srv, seeds, plan = rctx["srv"], rctx["seeds"], rctx["plan"]
@@ -857,15 +892,17 @@ def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
     _, Cp, Bp = d.shape
     N = Rp * Cp * Bp
     nb = Bp // bg.PASS_LANES
-    times, bounds, unchanged = [], [], []
+    times, bounds, unchanged, walked = [], [], [], []
     ok, rounds = False, 0
     while not ok and rounds < 64:
         for reverse, cross in ((False, prob.down), (True, prob.up)):
             wc = cut if (rounds == 0 and not reverse) else None
             before = d.clone()
+            nw = torch.zeros(1, dtype=torch.int32, device=d.device)
             times.append(time_ms(lambda: bg.directional_pass(
                 d, cross, prob.a_fwd, prob.a_bwd, reverse=reverse, atol=ATOL, rtol=RTOL,
-                dirty=dirty, warm_cut=wc), device))
+                dirty=dirty, warm_cut=wc, rows_walked=nw), device))
+            walked.append(int(nw.item()) / (Rp * nb))
             diff = d != before
             del before
             n_written = int(diff.sum())
@@ -890,10 +927,15 @@ def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
     detail = {"phase": "kernels_at_replan_shapes", "field": [Rp, Cp, Bp], "warm_pass": warm_cmp,
               "warm_rounds": rounds, "warm_pass_launch_ms": times,
               "warm_pass_bound_ms": [b * 1e3 for b in bounds],
+              "warm_pass_rows_walked_share": walked,
               "warm_pass_unchanged_row_share": unchanged, "check": checks,
               "check_ms": check_ms, "check_plain_ms": plain_check_ms}
+    for i, (t, b, w) in enumerate(zip(times, bounds, walked)):
+        log(f"# warm pass {i}: {t:.3f} ms (bound {b * 1e3:.3f} ms), "
+            f"rows walked {w * Rp * nb:.0f} of {Rp * nb} ({w:.4f})")
     return detail, {
         "warm_ms": warm_ms, "warm_bound_ms": warm_bound,
+        "warm_rows_walked_share": float(np.mean(walked)),
         "warm_max_abs_err": max(c["max_abs_err"] for c in warm_cmp.values()),
         "check": {"ms": check_ms, "plain_ms": plain_check_ms,
                   "bound_ms": max(check_bytes_s, check_ops_s) * 1e3,
@@ -1565,7 +1607,8 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     """Phases 2-13 on `device`; returns the kernels line."""
     import torch
 
-    emit(kernel_check(device, *small))
+    kc = kernel_check(device, *small)
+    emit(kc)
     eik_detail, eik_check = eik_kernel_check(device, *eik_small)
     emit(eik_detail)
     sweep_detail, sweep_err = sweep_kernel_check(device)
@@ -1583,8 +1626,10 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     rdetail, rk = kernels_at_replan_shapes(rctx, device)
     emit(rdetail)
     line[0].update(warm_ms=rk["warm_ms"], warm_bound_ms=rk["warm_bound_ms"],
-                   warm_launches=rctx["launches"]["banded_pass_dirty"])
-    line[0]["max_abs_err"] = max(line[0]["max_abs_err"], rk["warm_max_abs_err"])
+                   warm_launches=rctx["launches"]["banded_pass_dirty"],
+                   warm_rows_walked_share=rk["warm_rows_walked_share"])
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"], rk["warm_max_abs_err"],
+                                 *(w["max_abs_err"] for w in kc["wide_pass"].values()))
     line.append({"name": "check", "route": "cuda",
                  "source": "mesh_navigation_torch/csrc/check.cu",
                  "replaces": "mesh_navigation_tpu/ops/pallas_banded.py:2310",

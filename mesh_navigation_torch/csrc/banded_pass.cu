@@ -2,15 +2,12 @@
 //
 // Replaces: mesh_navigation_tpu/ops/pallas_banded.py::_pass_kernel (:827),
 // launched by _directional_pass_pallas (:1061), with full scan depth, no
-// residual edges and skip=True, in three modes chosen by template flags:
-// - the main path: use_dirty=False, `force` on the first down pass of a solve;
+// residual edges and skip=True, in three modes:
+// - the main path: no dirty table, `force` on the first down pass of a solve;
 // - DIRTY (use_dirty, :1003-1036): the per-(8-lane block, row) table of rows
 //   whose last scan still improved, used by the warm resolve;
 // - CUT (warm_cut, :864-878), only with DIRTY: the first down pass of a warm
-//   resolve applies the raise-invalidation cut and the seed re-insertion as
-//   it loads a row.
-// The main-path instantiation (<false, false>) compiles to the same code as
-// before the other modes existed.
+//   resolve applies the raise-invalidation cut and the seed re-insertion.
 //
 // What it computes. One pass over every row of the field d[Rp, Cp, Bp] (f32,
 // lanes contiguous), down (r = 0..Rp-1) or up (reverse). For each row:
@@ -32,50 +29,85 @@
 // labels several tolerances above their distance while every edge passes
 // the certificate. Every needed row is scanned, so keeping the gains cannot
 // leave a row off its lateral fixed point unflagged.
-// CUT: at load, cur = cur >= cutlb[row, c] + cutth[lane] ? inf : cur, then
-// cur = 0 where (seedrc[0, lane], seedrc[1, lane]) == (row, c); a row that is
-// not needed stores the columns the cut changed.
+// CUT: each label is cut at load, cur = cur >= cutlb[row, c] + cutth[lane]
+// ? inf : cur, then cur = 0 where (seedrc[0, lane], seedrc[1, lane]) ==
+// (row, c); a row that is not needed keeps the cut labels.
 //
-// What bounds it on this card. The field is read once and the improved rows
-// written once per pass: at the main path's 1024 x 1024 x 1024 f32 field that
-// is 4.3 GB each way, about 2.6 ms at 3.35 TB/s. The arithmetic (a few adds
-// and mins per element plus the scan) is far below the f32 rate, so the pass
-// is bound by bytes, and in this first version by the latency of the
-// row-after-row dependency inside each block.
+// What bounds it on this card. The field is read once and the rows the pass
+// changes written once: at the main path's 1024 x 1024 x 1024 f32 field that
+// is 4.3 GB to read, about 1.3 ms at 3.35 TB/s, plus the writes. The
+// arithmetic (a few adds and mins per element plus the scan) is far below
+// the f32 rate, so the pass is bound by bytes; what holds it back is the
+// row-after-row chain inside each block (one block per 8 lanes, 16 blocks
+// at the replan's 128 lanes).
 //
 // What the design does about it.
-// - Row order: CUDA blocks run in no order, so one block owns one batch block
-//   of LANES lanes and walks all rows itself, keeping the carried row in
-//   shared memory (Cp*LANES floats, 32 KB at Cp=1024). Nothing crosses blocks
-//   except the changed flag (atomicOr into one int).
-// - Occupancy: the batch is the only parallel axis. Narrow blocks of 8 lanes
-//   give Bp/8 = 128 blocks at Bp=1024 for the 132 SMs; a row's Cp columns
-//   are spread one per thread (Cp <= 1024), each thread holding its column's
-//   8 lanes (32 contiguous bytes, two float4 loads).
-// - The lateral scan is a block-wide min-plus scan of (weight, value) pairs:
-//   element c carries f_c(x) = min(b_c, x + a_c), a_c the +-1 lateral chain
-//   weight (level 0 of the plan's a_fwd / a_bwd stacks). Warp shuffles scan
-//   within a warp, one warp scans the warp totals, and a last step folds the
-//   prefix back: two barriers per direction instead of one per Hillis-Steele
-//   level. The fixed point does not depend on the in-row scheme
-//   (pallas_banded.py:18-22); on rows wider than a warp the sums are taken
-//   in another order than the chain tables, so the port and JAX agree within
-//   the stopping tolerance, not bit for bit. The plain PyTorch version
-//   (directional_pass_plain) sums in this kernel's order, so the two agree
-//   bit for bit: the warm resolve's dirty flags sit at the tolerance edge by
-//   construction, and any other order flips some of them.
-// - The next row's values are loaded before the current row is processed,
-//   so the load latency overlaps the scan.
+// - Row order: one block owns one batch block of LANES lanes and walks the
+//   rows itself, keeping the carried row in shared memory (Cp*LANES floats,
+//   32 KB at Cp = 1024). Nothing crosses blocks except the changed flag.
+// - Jumping (DIRTY): a row that is not needed is left in place, so the carry
+//   into the row after it is that row as it lies in memory (cut, where CUT
+//   applies), and that row's need depends on memory only. A prescan kernel
+//   over all SMs computes it for every (block, row) from one read of the
+//   field (and applies the cut to memory, which is idempotent), into a bit
+//   table. The walker then jumps from a row that was not needed straight to
+//   the next row whose bit is set, loading its carry from memory; from a
+//   needed row it walks on row by row. Skipped rows were clean (their dirty
+//   entry is 0 already), keep what memory holds, and leave `changed` alone:
+//   what the plain pass leaves, bit for bit.
+// - Columns: a thread holds CPT consecutive columns of the row, each
+//   column's 8 lanes in registers: 1 column up to 32 (one warp), 4 up to
+//   1,024 (8 warps at 1,024 columns), then 8 (at most 512 threads, so
+//   Cp <= 4096). On the card 4 columns a thread beat 2 and 8 at 1,024
+//   columns (PERF.md). The carried row sits in shared memory laid out by
+//   thread, [2 CPT][threads] float4, so a warp's reads are consecutive.
+// - The lateral scan is a min-plus scan of (weight, value) pairs: element c
+//   carries f_c(x) = min(b_c, x + a_c), a_c the +-1 lateral chain weight
+//   (level 0 of the plan's a_fwd / a_bwd stacks). Sequential inside the
+//   thread, then a Kogge-Stone scan of the thread totals by warp shuffles,
+//   then each warp scans the warp totals the same way (every warp alike, so
+//   no second barrier), and the prefixes are folded back: one barrier per
+//   direction. The forward scan's barrier also carries the block's imp and
+//   fin flags. Within one warp of one column a thread (Cp <= 32) this is the
+//   reference's flat Hillis-Steele scan (pallas_banded.py:958-966) exactly;
+//   wider rows associate the sums differently, so the port and JAX agree
+//   within the stopping tolerance, not bit for bit. The plain PyTorch
+//   version (directional_pass_plain) sums in this kernel's order, so the
+//   two agree bit for bit: the warm resolve's dirty flags sit at the
+//   tolerance edge by construction, and any other order flips some of them.
+// - Rows by the Tensor Memory Accelerator: a row of a block touches one
+//   32-byte sector in every column, and moved by the threads those
+//   scattered sectors keep the load/store unit busy for most of a row. So
+//   thread 0 moves rows through three shared-memory stages by TMA (a 3-D
+//   tensor map over the field, boxes of 8 lanes x 256 columns, the 32-byte
+//   swizzle) and the row's cross and lateral weights by bulk copies, all
+//   counted on the stage's barrier: the next row loads while this one is
+//   processed, and a written row goes back from its stage by a TMA store
+//   at the top of the next row (the third stage lets that store drain
+//   while the next row loads). The dirty flag comes one row ahead by a
+//   plain load. A wait past ~20 s traps instead of holding the card. Where
+//   three stages do not fit beside the carried row (Cp > 1,024, where 8
+//   columns a thread would not match the weights' layout anyway), rows and
+//   weights are read from device memory as they are needed and rows
+//   written in place.
+// - DIRTY needs base = row0 after the scan: it is recomputed from the
+//   row and the carried row, which stay in place until the row ends.
 // - Offsets into the field are 64-bit (Rp*Cp*Bp exceeds 2^31 at 1M x 1024).
 // - The flag arithmetic uses __fmul_rn/__fadd_rn so no multiply-add is fused
 //   and `imp` matches the plain PyTorch version on equal inputs.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #define LANES 8
 #define FULL_MASK 0xffffffffu
+#define MAX_THREADS 512
+#define MAX_WARPS (MAX_THREADS / 32)
+#define MAX_COLS 4096
+#define MAX_SMEM 232448
+#define PRESCAN_THREADS 256
 
 namespace {
 
@@ -91,245 +123,814 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[LANES]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// Inclusive min-plus scan of (a, b[LANES]) pairs along the columns of a
-// block: fwd takes prefixes from the left (column 0 first), !fwd suffixes
-// from the right. Combining an earlier pair (ao, bo) into (a, b) gives
-// (ao + a, min(b, bo + a)); the identity is (0, +inf). On return b holds the
-// closure value of this column. wt_a/wt_b hold the warp totals.
-__device__ __forceinline__ void block_scan(
-    float (&b)[LANES], float a, bool fwd, float* wt_a, float* wt_b,
-    int lane_id, int warp, int nwarps) {
-  #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float ao = fwd ? __shfl_up_sync(FULL_MASK, a, off)
-                         : __shfl_down_sync(FULL_MASK, a, off);
-    float bo[LANES];
-    #pragma unroll
-    for (int l = 0; l < LANES; ++l)
-      bo[l] = fwd ? __shfl_up_sync(FULL_MASK, b[l], off)
-                  : __shfl_down_sync(FULL_MASK, b[l], off);
-    const bool ok = fwd ? (lane_id >= off) : (lane_id + off < 32);
-    if (ok) {
-      #pragma unroll
-      for (int l = 0; l < LANES; ++l) b[l] = fminf(b[l], bo[l] + a);
-      a = ao + a;
-    }
+// --- the Tensor Memory Accelerator and its barriers (PTX) ---
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(b)));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(bytes) : "memory");
+}
+// waits for the barrier's phase of this parity; a wait past ~20 s traps, so
+// a broken schedule fails the launch instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned ok;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok) : "r"(smem_u32(b)), "r"(parity) : "memory");
+    if (ok) return;
+    if (clock64() - t0 > 40000000000LL) __trap();
   }
-  if (lane_id == (fwd ? 31 : 0)) {
-    wt_a[warp] = a;
-    #pragma unroll
-    for (int l = 0; l < LANES; ++l) wt_b[warp * LANES + l] = b[l];
+}
+// box (x lanes, y columns, z row) of the [Rp, Cp, Bp] field to / from shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* m, int x, int y, int z,
+                                         uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      ::"r"(smem_u32(dst)), "l"(m), "r"(x), "r"(y), "r"(z), "r"(smem_u32(b)) : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* m, int x, int y, int z,
+                                          const void* src) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];"
+               ::"l"(m), "r"(x), "r"(y), "r"(z), "r"(smem_u32(src)) : "memory");
+}
+// contiguous bytes (a multiple of 16) to shared memory, counted on a barrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(b)) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;"); }
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// the 32-byte swizzle of the tensor map: bit 4 of a byte offset from an
+// aligned base XOR its bit 7 (a wider swizzle pads each 32-byte box row to
+// its span, which a probe on the card showed)
+__device__ __forceinline__ unsigned swz(unsigned off) { return off ^ (((off >> 7) & 1u) << 4); }
+
+__device__ __forceinline__ bool below(float x, float cur, float k_rtol, float atol) {
+  return __fadd_rn(__fmul_rn(x, k_rtol), atol) < cur;
+}
+
+// CUT at load (idempotent: a cut label is +inf or a re-inserted 0)
+__device__ __forceinline__ bool cut8(float (&v)[LANES], float lb, const float* th,
+                                     const int* sr, const int* sc, int r, int c) {
+  bool chg = false;
+  #pragma unroll
+  for (int l = 0; l < LANES; ++l) {
+    float x = v[l] >= lb + th[l] ? CUDART_INF_F : v[l];
+    if (sr[l] == r && sc[l] == c) x = 0.f;
+    chg |= x != v[l];
+    v[l] = x;
+  }
+  return chg;
+}
+
+// ---------------------------------------------------------------------------
+// prescan: need of every (block, row) whose carry is the row before it as it
+// lies in memory; CUT labels written back
+// ---------------------------------------------------------------------------
+
+// One block: PRESCAN_THREADS columns of one lane block and one 32-row word
+// of the bit table, walked in pass order with the row before in shared
+// memory (float4 halves, columns shifted by one for the halo), so the field
+// is read about once.
+template <bool CUT>
+__global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
+    float* __restrict__ d, const float* __restrict__ cross, const int* __restrict__ dirty,
+    unsigned* __restrict__ need_bits, const float* __restrict__ cutlb,
+    const float* __restrict__ cutth, const int* __restrict__ seedrc,
+    int Rp, int Cp, int Bp, int reverse, int force, float k_rtol, float atol) {
+  constexpr int W = PRESCAN_THREADS + 2;
+  __shared__ float4 rowbuf[2][2][W];
+  __shared__ float s_th[LANES];
+  __shared__ int s_sr[LANES], s_sc[LANES];
+  __shared__ unsigned s_word;
+  const int nb = Bp / LANES;
+  const int nq = (Cp + PRESCAN_THREADS - 1) / PRESCAN_THREADS;
+  const int nwords = (Rp + 31) >> 5;
+  long long bid = blockIdx.x;
+  const int q = (int)(bid % nq);
+  bid /= nq;
+  const int j = (int)(bid % nb);
+  const int w = (int)(bid / nb);
+  const int tid = threadIdx.x;
+  const int c = q * PRESCAN_THREADS + tid;
+  const long long b0 = (long long)j * LANES;
+  const long long rs = (long long)Cp * Bp;
+  const int step = reverse ? -1 : 1;
+  const int lo_row = w * 32, hi_row = min(w * 32 + 32, Rp);
+  const float4 inf4 = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+  if (tid < LANES) {
+    s_th[tid] = CUT ? cutth[b0 + tid] : 0.f;
+    s_sr[tid] = CUT ? seedrc[b0 + tid] : -1;
+    s_sc[tid] = CUT ? seedrc[Bp + b0 + tid] : -1;
+  }
+  if (tid == 0) s_word = 0u;
+  __syncthreads();
+  // column cc of row rr as memory holds it after the cut; +inf outside
+  auto col = [&](int rr, int cc, float (&v)[LANES]) -> bool {
+    if (rr < 0 || rr >= Rp || cc < 0 || cc >= Cp) {
+      #pragma unroll
+      for (int l = 0; l < LANES; ++l) v[l] = CUDART_INF_F;
+      return false;
+    }
+    load8(d + rr * rs + (long long)cc * Bp + b0, v);
+    return CUT && cut8(v, cutlb[(long long)rr * Cp + cc], s_th, s_sr, s_sc, rr, cc);
+  };
+  auto put = [&](int buf, int k, const float (&v)[LANES]) {
+    rowbuf[buf][0][k] = make_float4(v[0], v[1], v[2], v[3]);
+    rowbuf[buf][1][k] = make_float4(v[4], v[5], v[6], v[7]);
+  };
+  // the halo columns of row rr: the chunk's neighbours left and right
+  auto halo = [&](int buf, int rr) {
+    if (tid == 0 || tid == PRESCAN_THREADS - 1) {
+      float v[LANES];
+      const int k = tid == 0 ? 0 : W - 1;
+      col(rr, tid == 0 ? q * PRESCAN_THREADS - 1 : q * PRESCAN_THREADS + PRESCAN_THREADS, v);
+      put(buf, k, v);
+    }
+  };
+  int r = reverse ? hi_row - 1 : lo_row;
+  {
+    float v[LANES];
+    col(r - step, c, v);
+    put(0, tid + 1, v);
+    halo(0, r - step);
   }
   __syncthreads();
-  if (warp == 0) {
-    float ta = 0.f;
-    float tb[LANES];
-    #pragma unroll
-    for (int l = 0; l < LANES; ++l) tb[l] = CUDART_INF_F;
-    if (lane_id < nwarps) {
-      ta = wt_a[lane_id];
+  int buf = 0;
+  for (int n = 0; n < hi_row - lo_row; ++n, r += step) {
+    float cur[LANES];
+    if (col(r, c, cur)) store8(d + r * rs + (long long)c * Bp + b0, cur);
+    int flag = 0;
+    if (c < Cp) {
+      const float* cr = cross + (long long)r * 3 * Cp + c;
+      const float x0 = cr[0], x1 = cr[Cp], x2 = cr[2 * Cp];
       #pragma unroll
-      for (int l = 0; l < LANES; ++l) tb[l] = wt_b[lane_id * LANES + l];
-    }
-    #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float ao = fwd ? __shfl_up_sync(FULL_MASK, ta, off)
-                           : __shfl_down_sync(FULL_MASK, ta, off);
-      float bo[LANES];
-      #pragma unroll
-      for (int l = 0; l < LANES; ++l)
-        bo[l] = fwd ? __shfl_up_sync(FULL_MASK, tb[l], off)
-                    : __shfl_down_sync(FULL_MASK, tb[l], off);
-      const bool ok = fwd ? (lane_id >= off) : (lane_id + off < 32);
-      if (ok) {
+      for (int h = 0; h < 2; ++h) {
+        const float4 L = rowbuf[buf][h][tid], S = rowbuf[buf][h][tid + 1],
+                     R = rowbuf[buf][h][tid + 2];
+        const float cd[4] = {fminf(fminf(L.x + x0, S.x + x1), R.x + x2),
+                             fminf(fminf(L.y + x0, S.y + x1), R.y + x2),
+                             fminf(fminf(L.z + x0, S.z + x1), R.z + x2),
+                             fminf(fminf(L.w + x0, S.w + x1), R.w + x2)};
         #pragma unroll
-        for (int l = 0; l < LANES; ++l) tb[l] = fminf(tb[l], bo[l] + ta);
-        ta = ao + ta;
+        for (int l = 0; l < 4; ++l) {
+          flag |= below(cd[l], cur[4 * h + l], k_rtol, atol);
+          if (force) flag |= fminf(cur[4 * h + l], cd[l]) < CUDART_INF_F;
+        }
       }
     }
-    if (lane_id < nwarps) {
-      #pragma unroll
-      for (int l = 0; l < LANES; ++l) wt_b[lane_id * LANES + l] = tb[l];
-    }
+    put(buf ^ 1, tid + 1, cur);
+    halo(buf ^ 1, r);
+    if (__any_sync(FULL_MASK, flag) && (tid & 31) == 0) atomicOr(&s_word, 1u << (r & 31));
+    __syncthreads();
+    buf ^= 1;
   }
-  __syncthreads();
-  const int src = fwd ? warp - 1 : warp + 1;
-  if (src >= 0 && src < nwarps) {
-    #pragma unroll
-    for (int l = 0; l < LANES; ++l)
-      b[l] = fminf(b[l], wt_b[src * LANES + l] + a);
+  if (tid == 0) {
+    unsigned word = s_word;
+    if (q == 0)
+      for (int rr = lo_row; rr < hi_row; ++rr)
+        if (dirty[(long long)j * Rp + rr] > 0) word |= 1u << (rr & 31);
+    if (word) atomicOr(need_bits + (long long)j * nwords + w, word);
   }
 }
 
-template <bool DIRTY, bool CUT>
-__global__ void __launch_bounds__(1024) banded_pass_kernel(
-    float* __restrict__ d, const float* __restrict__ cross,
-    const float* __restrict__ af, long long af_rs,
-    const float* __restrict__ ab, long long ab_rs,
-    int* __restrict__ chg, int* __restrict__ dirty,
-    const float* __restrict__ cutlb, const float* __restrict__ cutth,
-    const int* __restrict__ seedrc,
-    int Rp, int Cp, int Bp, int reverse, int force,
-    float k_rtol, float atol) {
-  static_assert(DIRTY || !CUT, "the warm cut runs only with the dirty table");
-  extern __shared__ float smem[];
-  float* prev = smem;                          // [Cp][LANES] carried row
-  float* wt_b_f = prev + (size_t)Cp * LANES;   // [32][LANES] warp totals
-  float* wt_b_b = wt_b_f + 32 * LANES;
-  float* wt_a_f = wt_b_b + 32 * LANES;         // [32]
-  float* wt_a_b = wt_a_f + 32;
-  float* s_th = wt_a_b + 32;                   // CUT: [LANES] thresholds
-  int* s_sr = reinterpret_cast<int*>(s_th + LANES);   // CUT: seed rows
-  int* s_sc = s_sr + LANES;                           // CUT: seed columns
-
-  const int c = threadIdx.x;
-  const bool col_ok = c < Cp;
-  const int lane_id = c & 31;
-  const int warp = c >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const long long b0 = (long long)blockIdx.x * LANES;
-  const long long row_stride = (long long)Cp * Bp;
-  const long long col_off = (long long)c * Bp + b0;
-
-  for (int i = threadIdx.x; i < Cp * LANES; i += blockDim.x) prev[i] = CUDART_INF_F;
-  if (CUT && threadIdx.x < LANES) {
-    s_th[threadIdx.x] = cutth[b0 + threadIdx.x];
-    s_sr[threadIdx.x] = seedrc[b0 + threadIdx.x];
-    s_sc[threadIdx.x] = seedrc[Bp + b0 + threadIdx.x];
+// the first row at or after `from` in walk order whose bit is set, or -1;
+// every thread of the block gets the same answer
+__device__ int next_needed(const unsigned* bits, int from, int Rp, bool rev) {
+  const int lane = threadIdx.x & 31;
+  const int nwords = (Rp + 31) >> 5;
+  int w = from >> 5;
+  const int f = from & 31;
+  unsigned first = rev ? (f == 31 ? FULL_MASK : ((1u << (f + 1)) - 1u)) : (FULL_MASK << f);
+  for (;;) {
+    const int wi = rev ? w - lane : w + lane;
+    unsigned word = (wi >= 0 && wi < nwords) ? bits[wi] : 0u;
+    if (lane == 0) word &= first;
+    const unsigned ball = __ballot_sync(FULL_MASK, word != 0u);
+    if (ball) {
+      const int src = __ffs(ball) - 1;
+      const unsigned wv = __shfl_sync(FULL_MASK, word, src);
+      return rev ? (w - src) * 32 + 31 - __clz(wv) : (w + src) * 32 + __ffs(wv) - 1;
+    }
+    w = rev ? w - 32 : w + 32;
+    first = FULL_MASK;
+    if (rev ? w < 0 : w >= nwords) return -1;
   }
-  int* const drow = DIRTY ? dirty + (long long)blockIdx.x * Rp : nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// the walker
+// ---------------------------------------------------------------------------
+
+struct Args {
+  float* d;
+  const float* cross;
+  const float* af;
+  long long af_rs;
+  const float* ab;
+  long long ab_rs;
+  int* chg;
+  int* dirty;
+  const unsigned* need_bits;
+  int* walked;
+  int Rp, Cp, Bp, reverse, force, staged;
+  int boxc, n_boxes;   // staged: columns of a TMA box, boxes a row
+  float k_rtol, atol;
+};
+
+#define N_SLOTS 3   // row stages: being read, being loaded, being stored
+
+// shared-memory layout (floats) beside the carried row
+#define TOT_FLOATS (2 * MAX_WARPS * (1 + LANES))
+
+// floats before the stage: the carried row of `cols` (threads x CPT) columns,
+// the warp totals and flags, the slots' barriers; then up to 1,024 bytes to
+// align the stage
+__host__ __device__ __forceinline__ long long stage_offset(int cols) {
+  return ((long long)cols * LANES + TOT_FLOATS + MAX_WARPS + 4 + 2 * N_SLOTS + 2 + 3) & ~3LL;
+}
+
+// per slot: the field's row as its TMA boxes land ([n_boxes * boxc][LANES],
+// swizzled), then the tables as they lie in memory (cross [3][Cp], a_fwd,
+// a_bwd [Cp]): with at most 4 columns a thread, thread t's columns are one
+// vector of each; a multiple of 1,024 bytes
+__host__ __device__ __forceinline__ long long slot_floats(int Cp, int n_boxes, int boxc) {
+  return ((long long)n_boxes * boxc * LANES + 5LL * Cp + 255) & ~255LL;
+}
+
+template <bool DIRTY, int CPT>
+__global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
+    Args g, const __grid_constant__ CUtensorMap tmap) {
+  constexpr int TV = CPT >= 4 ? 4 : CPT;   // floats a thread reads of a table row
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* const d = g.d;
+  const float* const cross = g.cross;
+  const float* const af = g.af;
+  const float* const ab = g.ab;
+  const long long af_rs = g.af_rs, ab_rs = g.ab_rs;
+  const int Rp = g.Rp, Cp = g.Cp, Bp = g.Bp;
+  const bool staged = g.staged != 0;
+  const float k_rtol = g.k_rtol, atol = g.atol;
+  const int NT = blockDim.x;
+  const int nw = NT >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // carried row, [2 CPT][NT] float4: thread t's column t*CPT + i, lanes
+  // 4h..4h+3 at (2i + h) NT + t, so a warp's accesses are consecutive
+  float4* prev4 = smem4;
+  float* tot = smem + (long long)NT * CPT * LANES;      // [2][MAX_WARPS][1 + LANES]
+  int* wflag = reinterpret_cast<int*>(tot + TOT_FLOATS);   // [MAX_WARPS]
+  int* sflag = wflag + MAX_WARPS;                          // [N_SLOTS] staged dirty flags
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(sflag + 4) + 7) & ~uintptr_t(7));   // [N_SLOTS]
+  float* stage = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem + stage_offset(NT * CPT)) + 1023) & ~uintptr_t(1023));
+  const int boxc = g.boxc, n_boxes = g.n_boxes;
+  const long long slot_f = slot_floats(Cp, n_boxes, boxc);
+  const long long d_floats = (long long)n_boxes * boxc * LANES;   // the d part of a slot
+
+  const int c0 = tid * CPT;
+  const bool thr_ok = c0 < Cp;          // Cp % CPT == 0: all or none of the columns
+  const int j = blockIdx.x;
+  const long long b0 = (long long)j * LANES;
+  const long long rs = (long long)Cp * Bp;
+  const bool rev = g.reverse != 0;
+  const int step = rev ? -1 : 1;
+  int* const drow = DIRTY ? g.dirty + (long long)j * Rp : nullptr;
+  const unsigned* bits = DIRTY ? g.need_bits + (long long)j * ((Rp + 31) >> 5) : nullptr;
+  const float4 inf4 = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+
+  // pointers of row r's data for this thread: staged or in device memory
+  auto cur_ptr = [&](int r, int slot) -> float* {
+    return staged ? stage + slot * slot_f : d + r * rs + (long long)c0 * Bp + b0;
+  };
+  // cur value of column i, lanes 4h..4h+3
+  auto ld_cur = [&](const float* p, int i, int h) -> float4 {
+    return staged ? *reinterpret_cast<const float4*>(
+                        reinterpret_cast<const char*>(p) + swz((c0 + i) * 32 + 16 * h))
+                  : reinterpret_cast<const float4*>(p + (long long)i * Bp)[h];
+  };
+  // table s (0..2 cross, 3 a_fwd, 4 a_bwd) of row r from column c
+  auto tab_src = [&](int s, int r, int c) -> const float* {
+    return s < 3 ? cross + ((long long)r * 3 + s) * Cp + c
+                 : (s == 3 ? af + r * af_rs + c : ab + r * ab_rs + c);
+  };
+  // this thread's CPT columns of table s of row r
+  auto ld_tabs = [&](int s, int r, int slot, float (&x)[CPT]) {
+    const float* t = staged ? stage + slot * slot_f + d_floats + (long long)s * Cp + c0
+                            : tab_src(s, r, c0);
+    #pragma unroll
+    for (int ch = 0; ch < CPT / TV; ++ch) {
+      if constexpr (TV == 4) {
+        const float4 q = staged ? reinterpret_cast<const float4*>(t)[ch]
+                                : __ldg(reinterpret_cast<const float4*>(t) + ch);
+        x[4 * ch] = q.x; x[4 * ch + 1] = q.y; x[4 * ch + 2] = q.z; x[4 * ch + 3] = q.w;
+      } else {
+        #pragma unroll
+        for (int e = 0; e < TV; ++e) x[ch * TV + e] = staged ? t[ch * TV + e] : __ldg(t + ch * TV + e);
+      }
+    }
+  };
+  // row r into stage `slot`, by thread 0: the field's boxes by TMA and the
+  // three table rows by bulk copies, all counted on the slot's barrier
+  auto load_row = [&](int r, int slot) {
+    float* base = stage + slot * slot_f;
+    mbar_expect_tx(mbar + slot, (unsigned)((d_floats + 5LL * Cp) * 4));
+    for (int k = 0; k < n_boxes; ++k)
+      tma_load(base + (long long)k * boxc * LANES, &tmap, (int)b0, k * boxc, r, mbar + slot);
+    bulk_load(base + d_floats, cross + (long long)r * 3 * Cp, 12u * Cp, mbar + slot);
+    bulk_load(base + d_floats + 3LL * Cp, af + r * af_rs, 4u * Cp, mbar + slot);
+    bulk_load(base + d_floats + 4LL * Cp, ab + r * ab_rs, 4u * Cp, mbar + slot);
+  };
+  // cand of column i (8 lanes) from the carried row; the neighbours of a
+  // thread's first and last column are its neighbour threads' columns
+  auto cand_col = [&](int i, float x0, float x1, float x2, float (&cd)[LANES]) {
+    const bool has_l = i > 0 || tid > 0;
+    const bool has_r = i + 1 < CPT || c0 + CPT < Cp;
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 L = has_l ? prev4[(i > 0 ? (2 * (i - 1) + h) * NT + tid
+                                            : (2 * (CPT - 1) + h) * NT + tid - 1)]
+                             : inf4;
+      const float4 S = prev4[(2 * i + h) * NT + tid];
+      const float4 R = has_r ? prev4[(i + 1 < CPT ? (2 * (i + 1) + h) * NT + tid
+                                                  : h * NT + tid + 1)]
+                             : inf4;
+      cd[4 * h + 0] = fminf(fminf(L.x + x0, S.x + x1), R.x + x2);
+      cd[4 * h + 1] = fminf(fminf(L.y + x0, S.y + x1), R.y + x2);
+      cd[4 * h + 2] = fminf(fminf(L.z + x0, S.z + x1), R.z + x2);
+      cd[4 * h + 3] = fminf(fminf(L.w + x0, S.w + x1), R.w + x2);
+    }
+  };
+  auto put_prev = [&](int i, const float (&v)[LANES]) {
+    prev4[(2 * i) * NT + tid] = make_float4(v[0], v[1], v[2], v[3]);
+    prev4[(2 * i + 1) * NT + tid] = make_float4(v[4], v[5], v[6], v[7]);
+  };
+
+  // staged: a written row goes back through its stage slot and leaves by
+  // TMA at the top of the next row (thread 0 commits one bulk group a row,
+  // so "all but the newest group" is the store of two rows ago)
+  int store_row = -1, store_slot = 0;
+  unsigned parity = 0;   // bit s: the parity of slot s's next phase
+  auto wait_slot = [&](int slot) {
+    mbar_wait(mbar + slot, (parity >> slot) & 1u);
+    parity ^= 1u << slot;
+  };
+  auto store_pending = [&]() {   // thread 0
+    if (store_row >= 0)
+      for (int k = 0; k < n_boxes; ++k)
+        tma_store(&tmap, (int)b0, k * boxc, store_row,
+                  stage + store_slot * slot_f + (long long)k * boxc * LANES);
+    bulk_commit();
+  };
+
+  #pragma unroll
+  for (int q = 0; q < 2 * CPT; ++q) prev4[q * NT + tid] = inf4;
+  if (staged && tid == 0) {
+    for (int k = 0; k < N_SLOTS; ++k) mbar_init(mbar + k);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  const int step = reverse ? -1 : 1;
-  int r = reverse ? Rp - 1 : 0;
-  float nxt[LANES];   // thread-padding columns stay +inf (scan identity)
-  #pragma unroll
-  for (int l = 0; l < LANES; ++l) nxt[l] = CUDART_INF_F;
-  if (col_ok) load8(d + r * row_stride + col_off, nxt);
-  int changed = 0;
+  int r = rev ? Rp - 1 : 0;
+  int slot = 0, staged_row = -1;
+  bool carried = false;   // the carry is a row this pass wrote (DIRTY: walk on)
+  int changed = 0, n_walked = 0;
+  float* tf = tot;                         // forward totals
+  float* tb = tot + MAX_WARPS * (1 + LANES);   // backward totals
 
-  for (int it = 0; it < Rp; ++it, r += step) {
-    float cur[LANES];
+  // Staged, a row runs: the store of the row before leaves, the next row's
+  // load starts into the next stage, this row's stage is waited for.
+  while (r >= 0 && r < Rp) {
+    if (staged && tid == 0) store_pending();
+    store_row = -1;
+    if (DIRTY && !carried) {
+      // the carry is memory's row before r: need(r) is the prescan's bit
+      const int r2 = next_needed(bits, r, Rp, rev);
+      if (r2 < 0) break;
+      if (r2 != r) {
+        const int rc = r2 - step;   // a skipped row: memory holds it
+        if (thr_ok) {
+          #pragma unroll
+          for (int i = 0; i < CPT; ++i) {
+            float v[LANES];
+            load8(d + rc * rs + (long long)(c0 + i) * Bp + b0, v);
+            put_prev(i, v);
+          }
+        }
+        r = r2;
+        __syncthreads();
+      }
+    }
+    const int rn = r + step;
+    const bool pre = staged && rn >= 0 && rn < Rp;   // prefetch the next row
+    int next_flag = 0;
+    const int nslot = slot + 1 == N_SLOTS ? 0 : slot + 1;
+    if (staged) {
+      // the stage of row r was loaded during the row before; the first row
+      // and a jump load it here (after the load that is no longer wanted)
+      if (staged_row != r) {
+        if (staged_row >= 0) wait_slot(slot);
+        if (tid == 0) {
+          bulk_wait_read<0>();
+          load_row(r, slot);
+          if (DIRTY) sflag[slot] = drow[r];
+        }
+        __syncthreads();
+      }
+      if (pre && tid == 0) {
+        bulk_wait_read<1>();   // the store of two rows ago has left nslot
+        load_row(rn, nslot);
+        if (DIRTY) next_flag = drow[rn];   // into the stage before the row ends
+      }
+      wait_slot(slot);
+    }
+    const float* cp = cur_ptr(r, slot);
+    ++n_walked;
+
+    // cand, row0 and the flags
+    float v[CPT][LANES];
+    float x0[CPT], x1[CPT], x2[CPT];
+    if (thr_ok) {
+      ld_tabs(0, r, slot, x0);
+      ld_tabs(1, r, slot, x1);
+      ld_tabs(2, r, slot, x2);
+    }
+    int bitsf = 0;   // bit 0: imp, bit 1: fin
     #pragma unroll
-    for (int l = 0; l < LANES; ++l) cur[l] = nxt[l];
-    if (col_ok && it + 1 < Rp) load8(d + (r + step) * row_stride + col_off, nxt);
+    for (int i = 0; i < CPT; ++i) {
+      #pragma unroll
+      for (int l = 0; l < LANES; ++l) v[i][l] = CUDART_INF_F;
+      if (thr_ok) {
+        const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
+        const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+        float cd[LANES];
+        cand_col(i, x0[i], x1[i], x2[i], cd);
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) {
+          v[i][l] = fminf(cur[l], cd[l]);
+          bitsf |= below(cd[l], cur[l], k_rtol, atol);
+          bitsf |= (v[i][l] < CUDART_INF_F) << 1;
+        }
+      }
+    }
 
-    bool cut_chg = false;   // CUT: this thread's columns differ from memory
-    if (CUT && col_ok) {
-      const float lb = cutlb[(long long)r * Cp + c];
+    // forward scan, in-thread and in-warp (before the block knows `need`)
+    float A[CPT];
+    #pragma unroll
+    for (int i = 0; i < CPT; ++i) A[i] = 0.f;
+    if (thr_ok) ld_tabs(3, r, slot, A);
+    #pragma unroll
+    for (int i = 1; i < CPT; ++i) {
+      #pragma unroll
+      for (int l = 0; l < LANES; ++l) v[i][l] = fminf(v[i][l], v[i - 1][l] + A[i]);
+      A[i] = A[i - 1] + A[i];
+    }
+    float ta = A[CPT - 1], tbv[LANES];
+    #pragma unroll
+    for (int l = 0; l < LANES; ++l) tbv[l] = v[CPT - 1][l];
+    #pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float ao = __shfl_up_sync(FULL_MASK, ta, off);
       #pragma unroll
       for (int l = 0; l < LANES; ++l) {
-        float v = cur[l] >= lb + s_th[l] ? CUDART_INF_F : cur[l];
-        if (s_sr[l] == r && s_sc[l] == c) v = 0.f;
-        cut_chg |= v != cur[l];
-        cur[l] = v;
+        const float bo = __shfl_up_sync(FULL_MASK, tbv[l], off);
+        if (lane >= off) tbv[l] = fminf(tbv[l], bo + ta);
       }
+      if (lane >= off) ta = ao + ta;
     }
-    float x0 = CUDART_INF_F, x1 = CUDART_INF_F, x2 = CUDART_INF_F;
-    float a_f = 0.f, a_b = 0.f;   // scan identity for thread-padding columns
-    if (col_ok) {
-      const float* cr = cross + (long long)r * 3 * Cp + c;
-      x0 = cr[0];
-      x1 = cr[Cp];
-      x2 = cr[2 * Cp];
-      a_f = af[(long long)r * af_rs + c];
-      a_b = ab[(long long)r * ab_rs + c];
+    const int wbits = __reduce_or_sync(FULL_MASK, bitsf);
+    if (lane == 31) {
+      tf[warp * (1 + LANES)] = ta;
+      #pragma unroll
+      for (int l = 0; l < LANES; ++l) tf[warp * (1 + LANES) + 1 + l] = tbv[l];
+      wflag[warp] = wbits;
     }
-    float row[LANES];
-    int imp = 0, fin = 0;
-    #pragma unroll
-    for (int l = 0; l < LANES; ++l) {
-      float cand = CUDART_INF_F;
-      if (col_ok) {
-        const float pl = c > 0 ? prev[(c - 1) * LANES + l] : CUDART_INF_F;
-        const float pc = prev[c * LANES + l];
-        const float pr = c + 1 < Cp ? prev[(c + 1) * LANES + l] : CUDART_INF_F;
-        cand = fminf(fminf(pl + x0, pc + x1), pr + x2);
-      }
-      row[l] = fminf(cur[l], cand);
-      imp |= __fadd_rn(__fmul_rn(cand, k_rtol), atol) < cur[l];
-      fin |= row[l] < CUDART_INF_F;
-    }
-    // read before the barrier below, after which thread 0 may rewrite it
-    const int dflag = DIRTY ? drow[r] : 0;
-    // block-wide any; also the barrier after which `prev` may be rewritten
-    const int any_imp = __syncthreads_or(imp);
-    int need = any_imp | (dflag > 0);
-    if (force) need |= __syncthreads_or(fin);
+    __syncthreads();
+    int fl = 0;
+    for (int w = 0; w < nw; ++w) fl |= wflag[w];
+    const int any_imp = fl & 1;
+    const int dflag = DIRTY ? (staged ? sflag[slot] : drow[r]) : 0;
+    const bool need = any_imp || dflag > 0 || (g.force && (fl & 2));
     changed |= any_imp;
+
     if (need) {
-      if (DIRTY) {
-        // base = row0, kept in cur; row = scan(base). The reference takes
-        // base = imp ? row0 : cur; see the note on DIRTY above.
+      // forward: scan of the warp totals (every warp alike) and the fold
+      {
+        float wa = lane < nw ? tf[lane * (1 + LANES)] : 0.f;
+        float wb[LANES];
         #pragma unroll
-        for (int l = 0; l < LANES; ++l) cur[l] = row[l];
-      }
-      block_scan(row, a_f, true, wt_a_f, wt_b_f, lane_id, warp, nwarps);
-      block_scan(row, a_b, false, wt_a_b, wt_b_b, lane_id, warp, nwarps);
-      if (DIRTY) {
-        // thread-padding columns are left out: the forward scan carries
-        // finite values into them (their link weight is the identity 0)
-        int simp = 0;
-        if (col_ok) {
+        for (int l = 0; l < LANES; ++l)
+          wb[l] = lane < nw ? tf[lane * (1 + LANES) + 1 + l] : CUDART_INF_F;
+        for (int off = 1; off < nw; off <<= 1) {
+          const float ao = __shfl_up_sync(FULL_MASK, wa, off);
           #pragma unroll
-          for (int l = 0; l < LANES; ++l)
-            simp |= __fadd_rn(__fmul_rn(row[l], k_rtol), atol) < cur[l];
+          for (int l = 0; l < LANES; ++l) {
+            const float bo = __shfl_up_sync(FULL_MASK, wb[l], off);
+            if (lane >= off) wb[l] = fminf(wb[l], bo + wa);
+          }
+          if (lane >= off) wa = ao + wa;
+        }
+        float P[LANES];   // the previous warps' prefix
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l)
+          P[l] = warp > 0 ? __shfl_sync(FULL_MASK, wb[l], warp - 1) : CUDART_INF_F;
+        float bh[LANES];  // this thread's inclusive value over the block
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) bh[l] = warp > 0 ? fminf(tbv[l], P[l] + ta) : tbv[l];
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) {
+          const float up = __shfl_up_sync(FULL_MASK, bh[l], 1);
+          const float E = lane > 0 ? up : P[l];
+          #pragma unroll
+          for (int i = 0; i < CPT - 1; ++i) v[i][l] = fminf(v[i][l], E + A[i]);
+          v[CPT - 1][l] = bh[l];
+        }
+      }
+      // backward: the same from the right
+      {
+        #pragma unroll
+        for (int i = 0; i < CPT; ++i) A[i] = 0.f;
+        if (thr_ok) ld_tabs(4, r, slot, A);
+        #pragma unroll
+        for (int i = CPT - 2; i >= 0; --i) {
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) v[i][l] = fminf(v[i][l], v[i + 1][l] + A[i]);
+          A[i] = A[i + 1] + A[i];
+        }
+        float ba = A[0], bb[LANES];
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) bb[l] = v[0][l];
+        #pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float ao = __shfl_down_sync(FULL_MASK, ba, off);
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) {
+            const float bo = __shfl_down_sync(FULL_MASK, bb[l], off);
+            if (lane + off < 32) bb[l] = fminf(bb[l], bo + ba);
+          }
+          if (lane + off < 32) ba = ao + ba;
+        }
+        if (lane == 0) {
+          tb[warp * (1 + LANES)] = ba;
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) tb[warp * (1 + LANES) + 1 + l] = bb[l];
+        }
+        __syncthreads();
+        float wa = lane < nw ? tb[lane * (1 + LANES)] : 0.f;
+        float wb[LANES];
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l)
+          wb[l] = lane < nw ? tb[lane * (1 + LANES) + 1 + l] : CUDART_INF_F;
+        for (int off = 1; off < nw; off <<= 1) {
+          const float ao = __shfl_down_sync(FULL_MASK, wa, off);
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) {
+            const float bo = __shfl_down_sync(FULL_MASK, wb[l], off);
+            if (lane + off < 32) wb[l] = fminf(wb[l], bo + wa);
+          }
+          if (lane + off < 32) wa = ao + wa;
+        }
+        float P[LANES];   // the following warps' suffix
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l)
+          P[l] = warp < nw - 1 ? __shfl_sync(FULL_MASK, wb[l], warp + 1) : CUDART_INF_F;
+        float bh[LANES];
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) bh[l] = warp < nw - 1 ? fminf(bb[l], P[l] + ba) : bb[l];
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) {
+          const float dn = __shfl_down_sync(FULL_MASK, bh[l], 1);
+          const float E = lane < 31 ? dn : P[l];
+          #pragma unroll
+          for (int i = 1; i < CPT; ++i) v[i][l] = fminf(v[i][l], E + A[i]);
+          v[0][l] = bh[l];
+        }
+      }
+      if (DIRTY) {
+        // base = row0, recomputed from the row and the carry (both still in
+        // place); thread-padding columns are left out
+        int simp = 0;
+        if (thr_ok) {
+          #pragma unroll
+          for (int i = 0; i < CPT; ++i) {
+            const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
+            const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+            float cd[LANES];
+            cand_col(i, x0[i], x1[i], x2[i], cd);
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l)
+              simp |= below(v[i][l], fminf(cur[l], cd[l]), k_rtol, atol);
+          }
         }
         simp = __syncthreads_or(simp);
         if (!simp) {
-          #pragma unroll
-          for (int l = 0; l < LANES; ++l) row[l] = cur[l];
+          if (thr_ok) {
+            #pragma unroll
+            for (int i = 0; i < CPT; ++i) {
+              const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
+              const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+              float cd[LANES];
+              cand_col(i, x0[i], x1[i], x2[i], cd);
+              #pragma unroll
+              for (int l = 0; l < LANES; ++l) v[i][l] = fminf(cur[l], cd[l]);
+            }
+          }
+          __syncthreads();   // every carry read is done before it is rewritten
         }
         changed |= simp;
-        if (threadIdx.x == 0) drow[r] = simp;
+        if (tid == 0) drow[r] = simp;
       }
-      if (col_ok) {
-        store8(d + r * row_stride + col_off, row);
+      if (thr_ok) {
+        char* sd = reinterpret_cast<char*>(stage + slot * slot_f);
         #pragma unroll
-        for (int l = 0; l < LANES; ++l) prev[c * LANES + l] = row[l];
+        for (int i = 0; i < CPT; ++i) {
+          if (staged) {
+            *reinterpret_cast<float4*>(sd + swz((c0 + i) * 32)) =
+                make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+            *reinterpret_cast<float4*>(sd + swz((c0 + i) * 32 + 16)) =
+                make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
+          } else {
+            store8(d + r * rs + (long long)(c0 + i) * Bp + b0, v[i]);
+          }
+          put_prev(i, v[i]);
+        }
+      }
+      if (staged) {   // the TMA store reads what the threads wrote
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        store_row = r;
+        store_slot = slot;
       }
     } else {
-      if (DIRTY && threadIdx.x == 0) drow[r] = 0;
-      if (col_ok) {
-        if (CUT && cut_chg) store8(d + r * row_stride + col_off, cur);
+      if (DIRTY && tid == 0) drow[r] = 0;
+      if (thr_ok) {
         #pragma unroll
-        for (int l = 0; l < LANES; ++l) prev[c * LANES + l] = cur[l];
+        for (int i = 0; i < CPT; ++i) {
+          prev4[(2 * i) * NT + tid] = ld_cur(cp, i, 0);
+          prev4[(2 * i + 1) * NT + tid] = ld_cur(cp, i, 1);
+        }
       }
     }
+    if (staged) staged_row = pre ? rn : -1;
+    if (DIRTY && pre && tid == 0) sflag[nslot] = next_flag;
+    carried = need;
+    slot = nslot;
+    r += step;
     __syncthreads();
   }
-  if (threadIdx.x == 0 && changed) atomicOr(chg, 1);
+  if (staged) {
+    if (staged_row >= 0) wait_slot(slot);   // a prefetch no row took
+    if (tid == 0) {
+      store_pending();   // after the barrier that ended the last row
+      bulk_wait_all();
+    }
+  }
+  if (tid == 0) {
+    if (changed) atomicOr(g.chg, 1);
+    if (g.walked != nullptr) atomicAdd(g.walked, n_walked);
+  }
+}
+
+// columns a thread holds: the whole row in one warp up to 32 columns (the
+// reference's flat scan), then 4 (8 warps at 1,024), then 8
+int cols_per_thread(int Cp) { return Cp <= 32 ? 1 : (Cp <= 1024 ? 4 : 8); }
+
+size_t walker_smem(int NT, int CPT, const Args& g) {
+  if (!g.staged) return (size_t)stage_offset(NT * CPT) * sizeof(float);
+  // slot_floats, and 1,024 bytes to align the stage
+  const long long slot = slot_floats(g.Cp, g.n_boxes, g.boxc);
+  return (size_t)(stage_offset(NT * CPT) + 256 + N_SLOTS * slot) * sizeof(float);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the [Rp, Cp, Bp] field as a 3-D tensor map with boxes of 8 lanes x boxc
+// columns x 1 row and the 32-byte swizzle; the encoder is looked up through
+// the runtime (cudaGetDriverEntryPoint), so nothing links against libcuda
+int field_map(CUtensorMap* m, float* d, int Rp, int Cp, int Bp, int boxc) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+    void* fn = nullptr;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (err != cudaSuccess) return (int)err;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)Bp, (cuuint64_t)Cp, (cuuint64_t)Rp};
+  const cuuint64_t strides[2] = {(cuuint64_t)Bp * 4, (cuuint64_t)Cp * Bp * 4};
+  const cuuint32_t box[3] = {LANES, (cuuint32_t)boxc, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, d, dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool DIRTY, int CPT>
+int launch_walker(const Args& g, const CUtensorMap& m, int NT, size_t smem, cudaStream_t s) {
+  auto kern = banded_pass_kernel<DIRTY, CPT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<g.Bp / LANES, NT, smem, s>>>(g, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// `dirty` null: no dirty table; `cutlb`, `cutth`, `seedrc` all null: no cut.
-// A cut needs the dirty table.
+// The kernel's limits, for the wrapper: the widest row, and the columns a
+// thread holds at a row width (the plain version's scan follows it).
+extern "C" int banded_pass_max_cols() { return MAX_COLS; }
+
+// `dirty` null: no dirty table (then `need_bits` null too); with it,
+// `need_bits` is a zeroed [Bp / 8][ceil(Rp / 32)] uint32 table the prescan
+// fills. `cutlb`, `cutth`, `seedrc` all null: no cut. A cut needs the dirty
+// table. `walked` (nullable) gains the rows the blocks walked.
 extern "C" int banded_pass_launch(
     float* d, const float* cross, const float* af, long long af_rs,
-    const float* ab, long long ab_rs, int* chg, int* dirty,
+    const float* ab, long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
     const float* cutlb, const float* cutth, const int* seedrc,
     int Rp, int Cp, int Bp, int reverse, int force, float k_rtol, float atol,
     void* stream) {
-  if (Cp < 1 || Cp > 1024 || Bp % LANES != 0 || Rp < 1)
+  if (Cp < 1 || Cp > MAX_COLS || Bp < LANES || Bp % LANES != 0 || Rp < 1)
     return (int)cudaErrorInvalidValue;
+  const int CPT = cols_per_thread(Cp);
+  if (Cp % CPT != 0) return (int)cudaErrorInvalidValue;
   const bool cut = cutlb != nullptr;
-  if (cut != (cutth != nullptr) || cut != (seedrc != nullptr) || (cut && dirty == nullptr))
+  if (cut != (cutth != nullptr) || cut != (seedrc != nullptr) || (cut && dirty == nullptr) ||
+      (dirty == nullptr) != (need_bits == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = (Cp + 31) / 32 * 32;
-  const size_t smem =
-      ((size_t)Cp * LANES + 2 * 32 * LANES + 2 * 32 + (cut ? 3 * LANES : 0))
-      * sizeof(float);
-  const dim3 grid(Bp / LANES);
+  const unsigned long long al = (unsigned long long)d | (unsigned long long)cross |
+                                (unsigned long long)af | (unsigned long long)ab;
+  if (al % 16 != 0 || af_rs % 4 != 0 || ab_rs % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define BANDED_PASS_ARGS d, cross, af, af_rs, ab, ab_rs, chg, dirty, cutlb, \
-    cutth, seedrc, Rp, Cp, Bp, reverse, force, k_rtol, atol
-  if (cut)
-    banded_pass_kernel<true, true><<<grid, threads, smem, s>>>(BANDED_PASS_ARGS);
-  else if (dirty != nullptr)
-    banded_pass_kernel<true, false><<<grid, threads, smem, s>>>(BANDED_PASS_ARGS);
-  else
-    banded_pass_kernel<false, false><<<grid, threads, smem, s>>>(BANDED_PASS_ARGS);
-#undef BANDED_PASS_ARGS
-  return (int)cudaGetLastError();
+  if (dirty != nullptr) {
+    const long long nq = (Cp + PRESCAN_THREADS - 1) / PRESCAN_THREADS;
+    const long long n = (long long)((Rp + 31) / 32) * (Bp / LANES) * nq;
+    if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+#define PRESCAN_ARGS d, cross, dirty, need_bits, cutlb, cutth, seedrc, Rp, Cp, Bp, reverse, \
+    force, k_rtol, atol
+    if (cut)
+      banded_prescan_kernel<true><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(PRESCAN_ARGS);
+    else
+      banded_prescan_kernel<false><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(PRESCAN_ARGS);
+#undef PRESCAN_ARGS
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int NT = ((Cp / CPT) + 31) / 32 * 32;
+  const int boxc = Cp < 256 ? (Cp + 31) / 32 * 32 : 256;
+  Args g = {d, cross, af, af_rs, ab, ab_rs, chg, dirty, need_bits, walked,
+            Rp, Cp, Bp, reverse, force, 1, boxc, (Cp + boxc - 1) / boxc, k_rtol, atol};
+  // staged: rows by TMA, at most 4 columns a thread (the tables' own layout)
+  // and rows of whole 16-byte pieces; else rows read and written in place
+  g.staged = CPT <= 4 && Cp % 4 == 0;
+  size_t smem = walker_smem(NT, CPT, g);
+  if (smem > MAX_SMEM) {
+    g.staged = 0;
+    smem = walker_smem(NT, CPT, g);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap m = {};
+  if (g.staged) {
+    const int err = field_map(&m, d, Rp, Cp, Bp, boxc);
+    if (err != 0) return err;
+  }
+#define WALK(DT)                                                        \
+  switch (CPT) {                                                        \
+    case 1: return launch_walker<DT, 1>(g, m, NT, smem, s);             \
+    case 2: return launch_walker<DT, 2>(g, m, NT, smem, s);             \
+    case 4: return launch_walker<DT, 4>(g, m, NT, smem, s);             \
+    case 8: return launch_walker<DT, 8>(g, m, NT, smem, s);             \
+  }
+  if (dirty != nullptr) {
+    WALK(true)
+  } else {
+    WALK(false)
+  }
+#undef WALK
+  return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,8 @@
 // at 3.35 TB/s. About 30 flops per element are far below the f32 rate:
 // bound by bytes.
 //
-// What the design does about it. One thread per (column, 4 lanes): the
+// What the design does about it. One thread per (column, 4 lanes), a
+// one-dimensional grid of every row's blocks (any number of rows): the
 // centre row is read as float4 (16 bytes a thread, neighbouring threads on
 // neighbouring lanes); the 8 neighbour reads hit the same or an adjacent row
 // and are served mostly from L1/L2, so device memory sees the field about
@@ -49,8 +50,10 @@ __global__ void __launch_bounds__(256) class_pred_kernel(
     int R, int C, int Rp, int Cp, int Bp, int V,
     float k_tol, float tol, float k_rtol, float atol) {
   const int q4 = Bp / 4;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
+  // grid.x folds (row, block of the row): rows are not limited to gridDim.y
+  const unsigned per_row = (unsigned)(((long long)Cp * q4 + blockDim.x - 1) / blockDim.x);
+  const int r = (int)(blockIdx.x / per_row);
+  const long long e = (long long)(blockIdx.x % per_row) * blockDim.x + threadIdx.x;
   int bad = 0;
   if (e < (long long)Cp * q4) {
     const int c = (int)(e / q4);
@@ -107,11 +110,12 @@ extern "C" int class_pred_launch(
     const float* d, const float* w8, int8_t* out, int* viol,
     int R, int C, int Rp, int Cp, int Bp, int V,
     float k_tol, float tol, float k_rtol, float atol, void* stream) {
-  // one grid row per field row: gridDim.y is at most 65535
-  if (Bp % 4 != 0 || Rp < 1 || Rp > 65535 || Cp < 1) return (int)cudaErrorInvalidValue;
+  if (Bp % 4 != 0 || Rp < 1 || Cp < 1) return (int)cudaErrorInvalidValue;
   const long long n = (long long)Cp * (Bp / 4);
   const int threads = 256;
-  const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)Rp);
+  const long long blocks = (n + threads - 1) / threads * Rp;   // row-major over grid.x
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   class_pred_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       d, w8, out, viol, R, C, Rp, Cp, Bp, V, k_tol, tol, k_rtol, atol);
   return (int)cudaGetLastError();

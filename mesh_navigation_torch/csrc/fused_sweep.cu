@@ -24,32 +24,47 @@
 // at 3.35 TB/s. The n_inner * K add + min pairs per element are ~15x below
 // the f32 rate: bound by bytes.
 //
-// What the design does about it. A block owns one tile and a group of LG
-// lanes (LG chosen by the launcher so the block's shared memory fits, up to
-// 8). It loads the window of rows [(i+1)T - lo, (i+2)T + hi) once into
-// shared memory, lo and hi being the largest negative and positive offset,
-// and the tile's K x T plane weights beside it, by cp.async with all of
-// the block's copies in flight before one wait, and runs all n_inner
-// relaxations there: each relaxation writes its centre to a second shared
-// buffer and copies it back after a barrier. K is a template parameter, so
-// the offset loop unrolls and the K reads of an element are in flight
-// together. Device memory sees each element read about (1 + (lo + hi) / T)
-// times, the halo rows mostly from L2 since the neighbouring tiles' blocks
-// run at the same time, and written once. Threads of a warp cover 32 / LG
-// consecutive rows of LG lanes, so shared reads at any offset are free of
-// bank conflicts. Row indices are 64-bit: (Vp + 2T) B passes 2^31 at large
-// batches.
+// What the design does about it: a persistent, streaming sweep.
+// - A block owns one group of LG lanes and a contiguous run of tiles, which
+//   it walks in order. The grid is (lane groups) x (runs), about as many
+//   blocks as can be resident, lane group fastest: the blocks of one run
+//   walk the same tiles at the same time, so the planes come from L2 once
+//   they are read from device memory.
+// - The window of rows [(i+1)T - lo, (i+2)T + hi) (lo, hi the largest
+//   negative and positive offset) lives in a ring of shared-memory rows.
+//   Walking tile i -> i+1 slides it by T rows, so each input row enters
+//   shared memory once per run instead of (lo + T + hi) / T times.
+// - Streaming: while tile i relaxes, the T rows that tile i+1 adds to the
+//   window are already in flight (the ring holds lo + 2T + hi rows), by
+//   cp.async in 16-byte pieces where the lanes allow, and so are its K x T
+//   plane weights where two plane buffers fit; with one plane buffer the
+//   next planes load after the tile. Without room for the spare T rows,
+//   the next rows load after the tile too.
+// - The launcher takes the widest lane group that fits (8 lanes: 32-byte
+//   rows, a whole sector), then the most streaming: at the 1M shape that
+//   is 8 lanes with one plane buffer, which ran faster on the card than 4
+//   lanes with two, than 8 lanes reading the planes through the read-only
+//   cache, and than 8 lanes prefetching the next planes into L2 (PERF.md).
+// - The relaxations run in shared memory: the first reads the ring (the
+//   input), writes the centre iterate to its own buffer, and the last
+//   writes its rows straight to `out`, 16 bytes a thread where the lanes
+//   allow. A thread holds 4 lanes of one row (1 for groups of 1 or 2
+//   lanes), neighbouring threads the neighbouring 16 bytes: shared reads at
+//   any offset are free of bank conflicts. K is a template parameter of
+//   the 4-lane kernel, so the offset loop unrolls and the K reads of an
+//   element are in flight together; the 1- and 2-lane groups share one
+//   kernel with K as an argument.
+// - Row indices into the matrix are 64-bit: (Vp + 2T) B passes 2^31 at
+//   large batches.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#define THREADS 256
+#define THREADS 512
 #define MAX_K 16
 // dynamic shared memory a block may ask for: the card's 232,448 bytes
 #define MAX_SMEM 232448
-// at most this, two blocks fit on an SM
-#define SHARED_SMEM (113 * 1024)
 // returned when no lane group's window fits in a block's shared memory
 #define FS_NO_FIT (-1)
 
@@ -59,93 +74,194 @@ struct Offsets {
   int k[MAX_K];
 };
 
-template <int K>
-__global__ void __launch_bounds__(THREADS) fused_sweep_kernel(
+template <int N> struct Vec;
+template <> struct Vec<1> { using T = float; };
+template <> struct Vec<4> { using T = float4; };
+
+__device__ __forceinline__ float vmin_add(float b, float x, float w) { return fminf(b, x + w); }
+__device__ __forceinline__ float4 vmin_add(float4 b, float4 x, float w) {
+  return make_float4(fminf(b.x, x.x + w), fminf(b.y, x.y + w), fminf(b.z, x.z + w),
+                     fminf(b.w, x.w + w));
+}
+
+// one cp.async of n floats (1, 2 or 4; both addresses aligned to n floats)
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int n) {
+  if (n == 4)
+    __pipeline_memcpy_async(dst, src, 16);
+  else if (n == 2)
+    __pipeline_memcpy_async(dst, src, 8);
+  else
+    __pipeline_memcpy_async(dst, src, 4);
+}
+
+__device__ __forceinline__ int wrap(int s, int n) { return s >= n ? s - n : s; }
+
+struct Shape {
+  long long Vp;
+  int K, T, B, n_inner, lo, hi;
+  int LG;       // lanes a block owns (8 or 4 with 4-lane vectors, else 2 or 1)
+  int RR;       // ring rows
+  int pr;       // the ring holds T spare rows: the next tile's rows load during this one
+  int pl2;      // two plane buffers: the next tile's planes load during this one
+  int gv;       // floats per copy / store of the matrix (1, 2 or 4)
+  int pv;       // floats per copy of the planes (1 or 4)
+  int n_chunks; // runs of tiles (grid = lane groups x runs)
+};
+
+__device__ __forceinline__ void copy_rows(float* ring, const float* d, long long row0, int n,
+                                          int slot0, int lane0, const Shape& s) {
+  const int per_row = s.LG / s.gv;
+  const int sh = __ffs(per_row) - 1;
+  for (int q = threadIdx.x; q < (n << sh); q += THREADS) {
+    const int i = q >> sh;
+    const int c = (q & (per_row - 1)) * s.gv;
+    if (lane0 + c >= s.B) continue;   // gv > 1 only where B % gv == 0
+    cp_async(ring + wrap(slot0 + i, s.RR) * s.LG + c, d + (row0 + i) * s.B + lane0 + c, s.gv);
+  }
+}
+
+__device__ __forceinline__ void copy_planes(float* pw, const float* planes, long long tile,
+                                            int nk, const Shape& s) {
+  const int n = s.T / s.pv;
+  const float* pl = planes + tile * s.T;
+  for (int k = 0; k < nk; ++k)
+    for (int q = threadIdx.x; q < n; q += THREADS)
+      cp_async(pw + k * s.T + q * s.pv, pl + k * s.Vp + q * s.pv, s.pv);
+}
+
+// K >= 0: K offsets, unrolled; K < 0: s.K offsets. VEC: lanes a thread
+// reads and writes at once (4: lane groups of 4 or 8; 1: of 2 or 1).
+template <int K, int VEC>
+__global__ void __launch_bounds__(THREADS, 1) fused_sweep_kernel(
     const float* __restrict__ d, const float* __restrict__ planes,
-    float* __restrict__ out, Offsets offs, long long Vp, int T, int B,
-    int n_inner, int LG, int lo, int hi) {
-  extern __shared__ float sm[];
-  const int W = lo + T + hi;
-  float* win = sm;                              // [W][LG], centre at row lo
-  float* nxt = win + (long long)W * LG;         // [T][LG]
-  float* pw = nxt + (long long)T * LG;          // [K][T]
-  int off[K > 0 ? K : 1];
+    float* __restrict__ out, Offsets offs, Shape s) {
+  constexpr int KS = K >= 0 ? K : MAX_K;
+  using V = typename Vec<VEC>::T;
+  extern __shared__ float4 sm4[];
+  const int T = s.T, RR = s.RR, lo = s.lo, LG = s.LG;
+  const int nk = K >= 0 ? K : s.K;
+  const int ncen = s.n_inner < 2 ? 0 : (s.n_inner == 2 ? 1 : 2);
+  float* ring = reinterpret_cast<float*>(sm4);            // [RR][LG]
+  float* cen0 = ring + ((RR * LG + 3) & ~3);               // [T][LG] iterates
+  float* cen1 = cen0 + (ncen > 1 ? T * LG : 0);
+  float* pw = cen0 + ncen * T * LG;                         // [1 or 2][K][T]
+  pw = reinterpret_cast<float*>(((unsigned long long)pw + 15) & ~15ull);
+  int off[KS > 0 ? KS : 1];
 #pragma unroll
-  for (int k = 0; k < K; ++k) off[k] = offs.k[k];
-  const int n_lg = (B + LG - 1) / LG;
-  const long long tile = blockIdx.x / n_lg;
-  const int lane = (blockIdx.x % n_lg) * LG + threadIdx.x % LG;
-  const int l = threadIdx.x % LG;
-  const int r0 = threadIdx.x / LG;
-  const int rpp = THREADS / LG;
-  const bool live = lane < B;
-  const long long row0 = (tile + 1) * T - lo;   // padded row of window row 0
+  for (int k = 0; k < KS; ++k) off[k] = k < nk ? offs.k[k] : 0;
 
-  // every copy of the window and the planes in flight before one wait
-  for (int r = r0; r < W; r += rpp) {
-    if (live)
-      __pipeline_memcpy_async(win + r * LG + l, d + (row0 + r) * B + lane,
-                              sizeof(float));
-    else
-      win[r * LG + l] = CUDART_INF_F;
-  }
-  const float* pl = planes + tile * T;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    for (int r = threadIdx.x; r < T; r += THREADS)
-      __pipeline_memcpy_async(pw + k * T + r, pl + k * Vp + r, sizeof(float));
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
+  const int n_lg = (s.B + LG - 1) / LG;
+  const int lane0 = (blockIdx.x % n_lg) * LG;
+  const long long chunk = blockIdx.x / n_lg;
+  const long long n_tiles = s.Vp / T;
+  const long long t_begin = chunk * n_tiles / s.n_chunks;
+  const long long t_end = (chunk + 1) * n_tiles / s.n_chunks;
+  if (t_begin >= t_end) return;
+  const int qpr = LG / VEC;                 // a row's vectors
+  const int qsh = __ffs(qpr) - 1;
+
+  // dead lanes (lane >= B) are never copied and stay +inf
+  for (int i = threadIdx.x; i < RR * LG; i += THREADS) ring[i] = CUDART_INF_F;
   __syncthreads();
+  copy_rows(ring, d, (t_begin + 1) * T - lo, lo + T + s.hi, 0, lane0, s);
+  copy_planes(pw, planes, t_begin, nk, s);
+  __pipeline_commit();
 
-  for (int it = 0; it < n_inner; ++it) {
-    for (int r = r0; r < T; r += rpp) {
-      float best = win[(lo + r) * LG + l];
+  int wb = 0;   // ring slot of the window's first row, (t + 1) T - lo
+  for (long long t = t_begin; t < t_end; ++t) {
+    const bool nxt = t + 1 < t_end;
+    const long long p0 = (t + 1) * T;   // matrix row of the centre's row 0
+    const int buf = s.pl2 ? (int)((t - t_begin) & 1) : 0;
+    const float* pwt = pw + buf * nk * T;
+    const int new_slot = wrap(wb + lo + T + s.hi, RR);
+    if (nxt && s.pr) copy_rows(ring, d, p0 + T + s.hi, T, new_slot, lane0, s);
+    if (nxt && s.pl2) copy_planes(pw + (buf ^ 1) * nk * T, planes, t + 1, nk, s);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);   // this tile's rows and planes
+    __syncthreads();
+
+    const int cb = wrap(wb + lo, RR);   // ring slot of the centre's row 0
+    int kb[KS > 0 ? KS : 1];
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        best = fminf(best, win[(lo + r + off[k]) * LG + l] + pw[k * T + r]);
-      nxt[r * LG + l] = best;
-    }
-    __syncthreads();
-    for (int r = r0; r < T; r += rpp) win[(lo + r) * LG + l] = nxt[r * LG + l];
-    __syncthreads();
-  }
-  if (live) {
-    float* o = out + (tile + 1) * T * B + lane;
-    for (int r = r0; r < T; r += rpp) o[(long long)r * B] = win[(lo + r) * LG + l];
-  }
-}
-
-template <int K>
-int launch(const float* d, const float* planes, float* out, const Offsets& o,
-           long long Vp, int T, int B, int n_inner, int LG, int lo, int hi,
-           size_t smem, unsigned n_blocks, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sweep_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_sweep_kernel<K><<<n_blocks, THREADS, smem, stream>>>(
-      d, planes, out, o, Vp, T, B, n_inner, LG, lo, hi);
-  return (int)cudaGetLastError();
-}
-
-// Lanes a block owns: the most of 8, 4, 2, 1 (no more than B unless 1) whose
-// window of lo + 2T + hi rows, beside the K x T plane weights, fits two
-// blocks to an SM, else the most that fits one; 0 when none fits. Sets
-// *smem to the block's shared memory.
-int lanes_per_block(int lo, int hi, int T, int K, int B, size_t* smem) {
-  const size_t budgets[2] = {SHARED_SMEM, MAX_SMEM};
-  for (size_t budget : budgets)
-    for (int lg = 8; lg >= 1; lg /= 2) {
-      if (lg > B && lg > 1) continue;
-      const size_t s =
-          ((size_t)(lo + 2 * T + hi) * lg + (size_t)K * T) * sizeof(float);
-      if (s <= budget) {
-        *smem = s;
-        return lg;
+    for (int k = 0; k < KS; ++k) kb[k] = wrap(wb + lo + off[k], RR);
+    float* o = out + p0 * s.B + lane0;
+    const int n_rel = s.n_inner > 0 ? s.n_inner : 1;
+    for (int j = 0; j < n_rel; ++j) {
+      const float* src = j == 0 ? nullptr : (((j - 1) & 1) ? cen1 : cen0);
+      float* dst = (j & 1) ? cen1 : cen0;
+      const bool last = j == n_rel - 1;
+      for (int u = threadIdx.x; u < (T << qsh); u += THREADS) {
+        const int r = u >> qsh;
+        const int h = (u & (qpr - 1)) * VEC;
+        V best = j == 0 ? *reinterpret_cast<const V*>(ring + wrap(cb + r, RR) * LG + h)
+                        : *reinterpret_cast<const V*>(src + r * LG + h);
+        if (s.n_inner > 0) {
+#pragma unroll
+          for (int k = 0; k < KS; ++k) {
+            if (K < 0 && k >= nk) break;
+            const int sr = r + off[k];
+            const float* p = (j > 0 && (unsigned)sr < (unsigned)T)
+                                 ? src + sr * LG
+                                 : ring + wrap(kb[k] + r, RR) * LG;
+            best = vmin_add(best, *reinterpret_cast<const V*>(p + h), pwt[k * T + r]);
+          }
+        }
+        if (!last) {
+          *reinterpret_cast<V*>(dst + r * LG + h) = best;
+        } else if (s.gv >= VEC) {   // B % VEC == 0: a vector is all live or all dead
+          if (lane0 + h < s.B) *reinterpret_cast<V*>(o + (long long)r * s.B + h) = best;
+        } else {
+          const float* bv = reinterpret_cast<const float*>(&best);
+#pragma unroll
+          for (int l = 0; l < VEC; ++l)
+            if (lane0 + h + l < s.B) o[(long long)r * s.B + h + l] = bv[l];
+        }
       }
+      if (!last) __syncthreads();
     }
-  return 0;
+    __syncthreads();   // this tile's ring slots and planes are free
+    if (nxt && !(s.pr && s.pl2)) {
+      if (!s.pr) copy_rows(ring, d, p0 + T + s.hi, T, new_slot, lane0, s);
+      if (!s.pl2) copy_planes(pw, planes, t + 1, nk, s);
+      __pipeline_commit();
+    }
+    wb = wrap(wb + T, RR);
+  }
+  __pipeline_wait_prior(0);
+}
+
+size_t smem_bytes(int LG, int pr, int pl2, const Shape& s) {
+  const int ncen = s.n_inner < 2 ? 0 : (s.n_inner == 2 ? 1 : 2);
+  const long long RR = (long long)s.lo + s.T + s.hi + (pr ? s.T : 0);
+  const long long rows = ((RR * LG + 3) & ~3LL) + (long long)ncen * s.T * LG;
+  return (size_t)((rows + 3) / 4 * 4 + (long long)(pl2 ? 2 : 1) * s.K * s.T) * sizeof(float);
+}
+
+template <int K, int VEC>
+int launch(const float* d, const float* planes, float* out, const Offsets& o, Shape s,
+           size_t smem, cudaStream_t stream) {
+  auto kern = fused_sweep_kernel<K, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  int per_sm = 0, dev = 0;
+  static int n_sm = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                              &per_sm, kern, THREADS, smem);
+  if (err == cudaSuccess && n_sm == 0) {
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return FS_NO_FIT;
+  const long long n_lg = (s.B + s.LG - 1) / s.LG;
+  const long long n_tiles = s.Vp / s.T;
+  long long runs = (long long)per_sm * n_sm / n_lg;
+  runs = runs < 1 ? 1 : (runs > n_tiles ? n_tiles : runs);
+  s.n_chunks = (int)runs;
+  const long long n_blocks = n_lg * runs;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)n_blocks, THREADS, smem, stream>>>(d, planes, out, o, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -157,27 +273,47 @@ extern "C" int fused_sweep_launch(const float* d, const float* planes,
                                   float* out, const int* offs, int K,
                                   long long Vp, int T, int B, int n_inner,
                                   void* stream) {
-  if (K < 0 || K > MAX_K || T < 1 || B < 1 || n_inner < 0 || Vp % T != 0)
+  if (K < 0 || K > MAX_K || T < 1 || B < 1 || n_inner < 0 || Vp < T || Vp % T != 0)
     return (int)cudaErrorInvalidValue;
   Offsets o = {};
-  int lo = 0, hi = 0;
+  Shape s = {};
+  s.Vp = Vp; s.K = K; s.T = T; s.B = B; s.n_inner = n_inner;
   for (int k = 0; k < K; ++k) {
     if (offs[k] > T || offs[k] < -T) return (int)cudaErrorInvalidValue;
     o.k[k] = offs[k];
-    lo = offs[k] < -lo ? -offs[k] : lo;
-    hi = offs[k] > hi ? offs[k] : hi;
+    s.lo = offs[k] < -s.lo ? -offs[k] : s.lo;
+    s.hi = offs[k] > s.hi ? offs[k] : s.hi;
   }
+  // widest copies the lanes and addresses allow
+  const unsigned long long addr = (unsigned long long)d | (unsigned long long)out;
+  s.gv = 4;
+  while (s.gv > 1 && (B % s.gv != 0 || addr % (s.gv * 4) != 0)) s.gv /= 2;
+  s.pv = (T % 4 == 0 && Vp % 4 == 0 && (unsigned long long)planes % 16 == 0) ? 4 : 1;
+  // the widest lane group (no wider than B unless 1) whose window fits:
+  // streaming the next rows and planes, then one plane buffer, then no
+  // spare ring rows
+  const int modes[3][2] = {{1, 1}, {1, 0}, {0, 0}};
   size_t smem = 0;
-  const int LG = lanes_per_block(lo, hi, T, K, B, &smem);
-  if (LG == 0) return FS_NO_FIT;
-  const long long n_blocks = (Vp / T) * ((B + LG - 1) / LG);
-  if (n_blocks < 1 || n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  for (int lg = 8; lg >= 1 && s.LG == 0; lg /= 2) {
+    if (lg > B && lg > 1) continue;
+    for (int m = 0; m < 3; ++m) {
+      const size_t b = smem_bytes(lg, modes[m][0], modes[m][1], s);
+      if (b <= MAX_SMEM) {
+        s.LG = lg;
+        s.pr = modes[m][0];
+        s.pl2 = modes[m][1];
+        smem = b;
+        break;
+      }
+    }
+  }
+  if (s.LG == 0) return FS_NO_FIT;
+  s.RR = s.lo + s.T + s.hi + (s.pr ? s.T : 0);
+  if (s.gv > s.LG) s.gv = s.LG;
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned nb = (unsigned)n_blocks;
-#define FS_CASE(k)                                                          \
-  case k:                                                                   \
-    return launch<k>(d, planes, out, o, Vp, T, B, n_inner, LG, lo, hi, smem, \
-                     nb, st);
+  if (s.LG < 4) return launch<-1, 1>(d, planes, out, o, s, smem, st);
+#define FS_CASE(k) \
+  case k: return launch<k, 4>(d, planes, out, o, s, smem, st);
   switch (K) {
     FS_CASE(0) FS_CASE(1) FS_CASE(2) FS_CASE(3) FS_CASE(4) FS_CASE(5)
     FS_CASE(6) FS_CASE(7) FS_CASE(8) FS_CASE(9) FS_CASE(10) FS_CASE(11)

@@ -36,6 +36,19 @@ from mesh_navigation_torch.utils.timing import stage as _stage
 
 INF = float("inf")
 PASS_LANES = 8   # batch lanes per CUDA block of the pass kernel
+# the pass kernel's widest row (csrc/banded_pass.cu MAX_COLS): 512 threads of
+# PASS_WIDE_COLS columns, each column's 8 lanes in registers; the carried row
+# (Cp * 8 lanes * 4 B, 128 KB at 4,096 columns) fits a block's shared memory.
+# Wider banded plans take the structured tier.
+PASS_WIDE_COLS = 8
+PASS_MAX_COLS = 512 * PASS_WIDE_COLS
+
+
+def pass_cols_per_thread(Cp: int) -> int:
+    """Columns one thread of the pass kernel holds (csrc/banded_pass.cu
+    cols_per_thread): 1 for rows of one warp (the reference's flat scan, bit
+    for bit), 4 up to 1,024 columns, else PASS_WIDE_COLS."""
+    return 1 if Cp <= 32 else (4 if Cp <= 1024 else PASS_WIDE_COLS)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -462,9 +475,9 @@ _WARP = 32
 
 
 def _warp_pair_scan(a: torch.Tensor, b: torch.Tensor, fwd: bool):
-    """Kogge-Stone scan of (a, b) pairs within each 32-column warp, one
-    shuffle step at a time as block_scan in csrc/banded_pass.cu: a [W, 32],
-    b [W, 32, B]. Combining an earlier pair (ao, bo) into (a, b) gives
+    """Kogge-Stone scan of (a, b) pairs within each 32-lane warp, one
+    shuffle step at a time as in csrc/banded_pass.cu: a [W, 32], b [W, 32,
+    B]. Combining an earlier pair (ao, bo) into (a, b) gives
     (ao + a, min(b, bo + a))."""
     lane = torch.arange(_WARP, device=a.device)
     for off in (1, 2, 4, 8, 16):
@@ -476,41 +489,63 @@ def _warp_pair_scan(a: torch.Tensor, b: torch.Tensor, fwd: bool):
     return a, b
 
 
-def _block_scan(b: torch.Tensor, a: torch.Tensor, fwd: bool) -> torch.Tensor:
-    """Min-plus closure of one row, b [W*32, B] with level-0 chain weights
-    a [W*32], in the association of the kernel's block_scan: a scan within
-    each warp, a scan of the warp totals, and the fold of the previous
-    warps' prefix into each column."""
-    n = b.shape[0] // _WARP
-    a, b = _warp_pair_scan(a.view(n, _WARP), b.view(n, _WARP, -1), fwd)
+def _block_scan(b: torch.Tensor, a: torch.Tensor, fwd: bool, cpt: int) -> torch.Tensor:
+    """Min-plus closure of one row in one direction, b [N*cpt, B] with
+    level-0 chain weights a [N*cpt] (N threads, a multiple of 32), in the
+    association of the pass kernel: each thread's cpt columns in order, a
+    Kogge-Stone scan of the thread totals in each warp, the same scan of
+    the warp totals, then each thread's last column takes its prefix over
+    the block and the others fold the exclusive prefix (the thread before's
+    result; at a warp's edge the warps before) into their in-thread values."""
+    n = b.shape[0] // cpt
+    nw = n // _WARP
+    B = b.shape[1]
+    bv = b.view(n, cpt, B).clone()
+    av = a.view(n, cpt).clone()
+    order = range(1, cpt) if fwd else range(cpt - 2, -1, -1)
+    for i in order:
+        k = i - 1 if fwd else i + 1
+        bv[:, i] = torch.minimum(bv[:, i], bv[:, k] + av[:, i, None])
+        av[:, i] = av[:, k] + av[:, i]
+    last = cpt - 1 if fwd else 0
+    ta, tb = _warp_pair_scan(av[:, last].reshape(nw, _WARP), bv[:, last].reshape(nw, _WARP, B), fwd)
     tail = _WARP - 1 if fwd else 0
-    ta = torch.zeros(_WARP, dtype=a.dtype, device=a.device)
-    tb = torch.full((_WARP, b.shape[2]), INF, dtype=b.dtype, device=b.device)
-    ta[:n], tb[:n] = a[:, tail], b[:, tail]
-    _, tb = _warp_pair_scan(ta[None], tb[None], fwd)
-    tb = tb[0, :n]
-    if n > 1:
-        if fwd:
-            b[1:] = torch.minimum(b[1:], tb[:-1, None, :] + a[1:, :, None])
-        else:
-            b[:-1] = torch.minimum(b[:-1], tb[1:, None, :] + a[:-1, :, None])
-    return b.reshape(n * _WARP, -1)
+    wa = torch.zeros(_WARP, dtype=a.dtype, device=a.device)
+    wb = torch.full((_WARP, B), INF, dtype=b.dtype, device=b.device)
+    wa[:nw], wb[:nw] = ta[:, tail], tb[:, tail]
+    _, wb = _warp_pair_scan(wa[None], wb[None], fwd)
+    wb = wb[0, :nw]                                        # [nw, B] inclusive over warps
+    inf_row = wb.new_full((1, B), INF)
+    P = torch.cat([inf_row, wb[:-1]]) if fwd else torch.cat([wb[1:], inf_row])
+    has = torch.arange(nw, device=b.device) > 0 if fwd else torch.arange(nw, device=b.device) < nw - 1
+    bh = torch.where(has[:, None, None], torch.minimum(tb, P[:, None, :] + ta[:, :, None]), tb)
+    if fwd:
+        E = torch.cat([P[:, None, :], bh[:, :-1]], dim=1)  # the previous thread's result
+    else:
+        E = torch.cat([bh[:, 1:], P[:, None, :]], dim=1)
+    E = E.reshape(n, 1, B)
+    out = torch.minimum(bv, E + av[:, :, None])
+    out[:, last] = bh.reshape(n, B)
+    return out.reshape(n * cpt, B)
 
 
 def _scan_row(row: torch.Tensor, af: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
     """Lateral min-plus closure of row [Cp, B], forward then backward, from
     level 0 of the chain-weight stacks (af/ab [S, Cp]), summed in the same
-    order as the kernel's block scan, so the two agree bit for bit. Within
-    one warp (Cp <= 32) this is the reference's flat Hillis-Steele scan over
-    the chain tables (pallas_banded.py:958-966) exactly; wider rows associate
-    the sums differently from it. Columns past Cp hold the scan identity."""
+    order as the kernel's scan, so the two agree bit for bit. Within one
+    warp of one column a thread (Cp <= 32) this is the reference's flat
+    Hillis-Steele scan over the chain tables (pallas_banded.py:958-966)
+    exactly; wider rows associate the sums differently from it. Columns past
+    Cp, up to the kernel's threads times pass_cols_per_thread(Cp), hold the
+    scan identity."""
     Cp, B = row.shape
-    pad = -Cp % _WARP
+    cpt = pass_cols_per_thread(Cp)
+    pad = -Cp % (_WARP * cpt)
     b = torch.cat([row, row.new_full((pad, B), INF)])
     a_f = torch.cat([af[0], af.new_zeros(pad)])
     a_b = torch.cat([ab[0], ab.new_zeros(pad)])
-    b = _block_scan(b, a_f, True)
-    b = _block_scan(b, a_b, False)
+    b = _block_scan(b, a_f, True, cpt)
+    b = _block_scan(b, a_b, False, cpt)
     return b[:Cp]
 
 
@@ -525,6 +560,7 @@ def directional_pass_plain(
     d: torch.Tensor, cross: torch.Tensor, a_fwd: torch.Tensor, a_bwd: torch.Tensor,
     *, reverse: bool, bb: int, atol: float, rtol: float, force: bool = False,
     dirty: torch.Tensor | None = None, warm_cut: tuple | None = None,
+    rows_walked: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the pass, in place on d [Rp, Cp, Bp]: the
     full-depth, residual-free configurations of _pass_kernel (skip=True).
@@ -542,6 +578,10 @@ def directional_pass_plain(
     (:864-878), which needs `dirty`, each row is cut at load: labels >=
     cutlb[row, c] + cutth[lane] become +inf and each lane's seed (row, col)
     becomes 0.
+    `rows_walked` (int [1], optional) gains the rows the kernel's blocks
+    walk, summed over the blocks: every row without `dirty`; with it the
+    rows that are needed or follow a needed row (the kernel jumps over the
+    others, whose need its prescan reads from memory).
     Returns the changed flag (any imp, and with `dirty` any simp), int32 [1]."""
     _require_dirty_for_cut(dirty, warm_cut)
     Rp, Cp, Bp = d.shape
@@ -559,6 +599,8 @@ def directional_pass_plain(
     if warm_cut is not None:
         cutlb, cutth, seedrc = warm_cut
         cols = torch.arange(Cp, device=d.device)[:, None]
+    walked = torch.zeros((), dtype=torch.int64, device=d.device)
+    prev_need = torch.zeros(nb, dtype=torch.bool, device=d.device)
     for r in (range(Rp - 1, -1, -1) if reverse else range(Rp)):
         cur = orig = d[r]
         if warm_cut is not None:
@@ -594,6 +636,10 @@ def directional_pass_plain(
         if new is not orig:
             d[r] = new
         prev = new
+        walked += int(nb) if dirty is None else (need | prev_need).sum()
+        prev_need = need
+    if rows_walked is not None:
+        rows_walked += walked.to(rows_walked.dtype)
     return changed.to(torch.int32).reshape(1)
 
 
@@ -601,17 +647,19 @@ def directional_pass(
     d: torch.Tensor, cross: torch.Tensor, a_fwd: torch.Tensor, a_bwd: torch.Tensor,
     *, reverse: bool, bb: int = PASS_LANES, atol: float, rtol: float,
     force: bool = False, dirty: torch.Tensor | None = None,
-    warm_cut: tuple | None = None,
+    warm_cut: tuple | None = None, rows_walked: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One directional Gauss-Seidel pass over every row of d, in place, with
     the optional dirty table and warm cut of directional_pass_plain.
     CPU tensors run directional_pass_plain; CUDA tensors launch the
-    csrc/banded_pass.cu kernel (8-lane blocks) or raise. Returns the changed
-    flag as an int32 [1] tensor on d's device."""
+    csrc/banded_pass.cu kernel (8-lane blocks, with the dirty table after
+    its prescan) or raise. `rows_walked` (int32 [1] on d's device, optional)
+    gains the rows the kernel's blocks walked. Returns the changed flag as
+    an int32 [1] tensor on d's device."""
     if d.device.type == "cpu":
         return directional_pass_plain(
             d, cross, a_fwd, a_bwd, reverse=reverse, bb=bb, atol=atol,
-            rtol=rtol, force=force, dirty=dirty, warm_cut=warm_cut,
+            rtol=rtol, force=force, dirty=dirty, warm_cut=warm_cut, rows_walked=rows_walked,
         )
     if d.device.type != "cuda":
         raise ValueError(f"directional_pass: unsupported device {d.device}")
@@ -619,8 +667,9 @@ def directional_pass(
     Rp, Cp, Bp = d.shape
     if bb != PASS_LANES or Bp % PASS_LANES:
         raise ValueError(f"the CUDA pass runs {PASS_LANES}-lane blocks (bb={bb}, Bp={Bp})")
-    if Cp > 1024:
-        raise ValueError(f"the CUDA pass takes at most 1024 columns, got {Cp}")
+    if Cp > PASS_MAX_COLS or Cp % pass_cols_per_thread(Cp):
+        raise ValueError(f"the CUDA pass takes rows of at most {PASS_MAX_COLS} columns, a "
+                         f"multiple of pass_cols_per_thread past 32; got {Cp}")
     checks = [
         ("d", d, (Rp, Cp, Bp), torch.float32), ("cross", cross, (Rp, 3, Cp), torch.float32),
         ("a_fwd", a_fwd, (Rp, a_fwd.shape[1], Cp), torch.float32),
@@ -639,14 +688,22 @@ def directional_pass(
     if not (all(t.is_contiguous() for name, t, _, _ in checks if name not in ("a_fwd", "a_bwd"))
             and a_fwd.stride(2) == 1 and a_bwd.stride(2) == 1):
         raise ValueError("directional_pass: d, cross and the mode tables must be contiguous")
+    if (any(t.data_ptr() % 16 for t in (d, cross, a_fwd, a_bwd))
+            or a_fwd.stride(0) % 4 or a_bwd.stride(0) % 4):
+        raise ValueError("directional_pass: d, cross, a_fwd and a_bwd rows must be 16-byte aligned")
+    if rows_walked is not None and (rows_walked.device != d.device or rows_walked.numel() != 1
+                                    or rows_walked.dtype != torch.int32):
+        raise ValueError("directional_pass: rows_walked must be one int32 on d's device")
     ptr = lambda t: None if t is None else t.data_ptr()
     cutlb, cutth, seedrc = warm_cut if warm_cut is not None else (None, None, None)
     chg = torch.zeros(1, dtype=torch.int32, device=d.device)
+    need_bits = (None if dirty is None else
+                 torch.zeros((Bp // PASS_LANES, -(-Rp // 32)), dtype=torch.int32, device=d.device))
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = kernels.launcher("banded_pass")(
         d.data_ptr(), cross.data_ptr(), a_fwd.data_ptr(), a_fwd.stride(0),
-        a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(dirty),
-        ptr(cutlb), ptr(cutth), ptr(seedrc), Rp, Cp, Bp,
+        a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(dirty), ptr(need_bits),
+        ptr(rows_walked), ptr(cutlb), ptr(cutth), ptr(seedrc), Rp, Cp, Bp,
         int(reverse), int(force), 1.0 + rtol, atol, stream,
     )
     kernels.check("banded_pass", err)
@@ -736,8 +793,6 @@ def class_pred(
         raise ValueError(f"class_pred: bad w8 {tuple(w8.shape)}")
     if R > Rp or C > Cp or V > R * C:
         raise ValueError("class_pred: R, C, V exceed the padded field")
-    if Rp > 65535:
-        raise ValueError(f"class_pred: at most 65535 rows, got {Rp}")
     out = torch.empty((V, Bp), dtype=torch.int8, device=d.device)
     viol = torch.zeros(1, dtype=torch.int32, device=d.device)
     stream = torch.cuda.current_stream(d.device).cuda_stream

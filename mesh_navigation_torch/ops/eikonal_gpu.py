@@ -30,7 +30,10 @@ wavefront over the whole card:
   width of at least the row is the reference's row rule). The dirty table
   stays per row. The unfolding update's fixed point depends on the update
   order (ROADMAP queue C), so finer gating may settle at another one
-  within the solve's tolerances.
+  within the solve's tolerances. A solve refuses strips narrower than
+  EIK_MIN_SOLVE_WIDTH (at 2 columns the 16x16 planner's field leaves the
+  reference's by more than 1e-3), and on the card widens its strip until
+  the kernel's strips can all be resident (resident_strip_width).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ INF = float("inf")
 _EPS = 1e-12
 EIK_LANES = 32      # batch lanes per block of the pass kernel
 EIK_STRIP_WIDTH = 8  # columns of a strip-row, the pass's unit of gating (PERF.md)
+EIK_MIN_SOLVE_WIDTH = 4  # the narrowest strip a solve takes (the narrowest the CPU tests hold)
 MAX_CLASSES = 10    # the plan builder's cap on classes; the wrapper passes no more
 CUDA_COOPERATIVE_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
 # the two ordering pairs (row direction reversed?, in-row direction) of a
@@ -465,6 +469,16 @@ def eik_pass_grid(Cp: int, Bp: int, K: int, strip_width: int = EIK_STRIP_WIDTH) 
             "threads_per_block": 8 * EIK_LANES, "blocks_per_sm": per_sm, "sms": n_sm}
 
 
+def resident_strip_width(Cp: int, Bp: int, K: int, strip_width: int = EIK_STRIP_WIDTH) -> int:
+    """The smallest strip width >= strip_width whose ceil(Cp / width) strips
+    can all be resident on the current card at once, from eik_pass_grid's
+    figures at one strip a row (blocks an SM times SMs). Raises where even
+    one strip a row cannot be resident."""
+    info = eik_pass_grid(Cp, Bp, K, Cp)
+    cap = info["blocks_per_sm"] * info["sms"]
+    return max(strip_width, -(-Cp // cap))
+
+
 # --------------------------------------------------------------------------
 # solve loop
 # --------------------------------------------------------------------------
@@ -534,17 +548,24 @@ def eikonal_solve_padded(
     the loop ends on a round with no improvement beyond atol + rtol·|label|.
     `init_vb` [V, B] warm-starts the field with
     upper bounds of the fixed point (a graph-distance field plus the seed
-    offset). `strip_width` is the passes' unit of gating (eik_pass). The
+    offset). `strip_width` is the passes' unit of gating (eik_pass), at
+    least EIK_MIN_SOLVE_WIDTH; on the card it is widened to
+    resident_strip_width where its strips cannot all be resident. The
     hybrid `graph_plan` mode is not ported."""
     if graph_plan is not None:
         raise NotImplementedError("the hybrid graph_plan transport mode")
     if orderings not in (2, 4):
         raise ValueError(f"orderings must be 2 or 4, got {orderings}")
+    if strip_width < EIK_MIN_SOLVE_WIDTH:
+        raise ValueError(f"a solve's strip_width must be at least {EIK_MIN_SOLVE_WIDTH}, "
+                         f"got {strip_width}")
     dev = plan.device
     R, C, V = plan.n_rows, plan.n_cols, plan.num_vertices
     d = seeded_field(plan, seed_v, seed_d)
     B = seed_v.shape[0]
     nj = d.shape[2] // EIK_LANES
+    if d.device.type == "cuda":
+        strip_width = resident_strip_width(d.shape[1], d.shape[2], len(plan.classes), strip_width)
     if init_vb is not None:
         ip = torch.full((R * C, B), INF, dtype=torch.float32, device=dev)
         ip[:V] = init_vb.to(dev, torch.float32)

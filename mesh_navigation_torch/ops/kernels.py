@@ -47,7 +47,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "banded_pass": ("banded_pass_launch",
-                    [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P,
+                    [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _F, _F, _P]),
     "class_pred": ("class_pred_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
@@ -58,7 +58,8 @@ _SIGNATURES = {
     "fused_sweep": ("fused_sweep_launch", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
 }
 # launch-shape queries a kernel's library also exports
-_QUERIES = {"eik_pass": ("eik_pass_grid", [_I, _I, _I, _I, _P])}
+_QUERIES = {"eik_pass": ("eik_pass_grid", [_I, _I, _I, _I, _P]),
+            "banded_pass": ("banded_pass_max_cols", [])}
 
 
 def reset_launches() -> None:

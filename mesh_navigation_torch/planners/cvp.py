@@ -94,6 +94,8 @@ class CVPPlanner:
                         self.mesh, W.astype(np.float32), device=self.device)
                 except ValueError:
                     self._dij_plan = None
+                if self._dij_plan is not None and self._dij_plan.n_cols_pad > _bg.PASS_MAX_COLS:
+                    self._dij_plan = None   # wider than the pass kernel's rows: no warm start
         return plan
 
     def plan_batch_banded(

@@ -53,10 +53,14 @@ class DijkstraPlanner:
 
     def prepare_banded_plan(self, weights_vd, *, min_coverage: float = 0.9):
         """Banded kernel plan when the vertex order has band structure
-        (x-major terrain grids), else None. Rebuild when costs change."""
+        (x-major terrain grids) and its padded rows fit the pass kernel
+        (banded_gpu.PASS_MAX_COLS columns), else None: the server then takes
+        the structured tier. Rebuild when costs change."""
         try:
             plan = _bg.build_banded_kernel_plan(self.mesh, weights_vd, device=self.device)
         except ValueError:
+            return None
+        if plan.n_cols_pad > _bg.PASS_MAX_COLS:
             return None
         return plan if plan.coverage >= min_coverage else None
 

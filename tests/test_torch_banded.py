@@ -102,6 +102,50 @@ def test_pass_plain_matches_pallas_interpret(kind):
         _within_stop_tol(d_t.numpy(), np.asarray(d_j))
 
 
+def _flat_scan(row, af, ab):
+    """The reference's flat Hillis-Steele lateral scan (pallas_banded.py:
+    958-966) in numpy f32: row [C, B], chain-weight stacks af/ab [S, C]."""
+    def shift(x, k):
+        out = np.full_like(x, np.inf)
+        if k > 0:
+            out[k:] = x[:-k]
+        else:
+            out[:k] = x[-k:]
+        return out
+
+    row = row.copy()
+    for s in range(af.shape[0]):
+        row = np.minimum(row, shift(row, 1 << s) + af[s][:, None])
+    for s in range(ab.shape[0]):
+        row = np.minimum(row, shift(row, -(1 << s)) + ab[s][:, None])
+    return row
+
+
+@pytest.mark.parametrize("kind", ["terrain16", "walls24"])
+def test_scan_row_is_the_flat_scan_within_one_warp(kind):
+    """Rows of at most 32 columns are scanned one column a thread in one
+    warp: the reference's flat scan over its chain tables, bit for bit.
+    Wider rows sum in the kernel's association (several columns a thread),
+    within the stopping tolerance of the flat scan."""
+    *_, tplan, _ = _problem(kind)
+    Cp = tplan.n_cols_pad
+    assert Cp <= 32 and tbg.pass_cols_per_thread(Cp) == 1
+    rng = np.random.default_rng(Cp)
+    for r in range(0, tplan.n_rows, 5):
+        row = rng.uniform(0, 20, (Cp, 8)).astype(np.float32)
+        row[rng.uniform(size=row.shape) < 0.4] = np.inf
+        af, ab = tplan.a_fwd[r].numpy(), tplan.a_bwd[r].numpy()
+        got = tbg._scan_row(torch.from_numpy(row), tplan.a_fwd[r], tplan.a_bwd[r]).numpy()
+        np.testing.assert_array_equal(got, _flat_scan(row, af, ab))
+    wide = _problem("wide64")[-2]
+    assert wide.n_cols_pad == 64 and tbg.pass_cols_per_thread(64) > 1
+    for r in range(wide.n_rows):
+        row = rng.uniform(0, 20, (64, 8)).astype(np.float32)
+        got = tbg._scan_row(torch.from_numpy(row), wide.a_fwd[r], wide.a_bwd[r]).numpy()
+        ref = _flat_scan(row, wide.a_fwd[r].numpy(), wide.a_bwd[r].numpy())
+        assert np.all(np.abs(got - ref) <= ATOL + RTOL * np.abs(ref))
+
+
 @pytest.mark.parametrize("kind", ["terrain16", "walls24"])
 def test_solve_matches_reference_and_oracle(kind):
     v, f, costs, jm, jplan, tplan, seeds = _problem(kind)

@@ -191,6 +191,52 @@ def test_eikonal_solve_matches_gather_solver(case, width):
         _assert_fields(dist[b].numpy(), ref, 1e-4)
 
 
+@pytest.mark.parametrize("width", [1, 2, 3])
+def test_solve_refuses_strips_narrower_than_four(width):
+    """A solve takes strips of at least EIK_MIN_SOLVE_WIDTH columns, through
+    each entry point that passes a width into it (at 2 columns the 16 x 16
+    planner's field leaves the reference's by more than 1e-3); a single
+    pass still takes any width, as the card tests of its mechanics do."""
+    _, _, jm, tm = _terrain(10, 3)
+    plan = teg.build_eikonal_kernel_plan(tm, np.asarray(jm.edge_dist))
+    fv, fd = _face_seeds(jm, [60])
+    seed_v, seed_d = torch.from_numpy(fv.astype(np.int64)), torch.from_numpy(fd)
+    assert teg.EIK_MIN_SOLVE_WIDTH == 4
+    with pytest.raises(ValueError, match="at least 4"):
+        teg.eikonal_solve_padded(plan, seed_v, seed_d, strip_width=width)
+    with pytest.raises(ValueError, match="at least 4"):
+        teg.eikonal_field_banded(tm, plan, seed_v, seed_d, strip_width=width)
+    d = teg.seeded_field(plan, seed_v, seed_d)
+    dirty = torch.zeros((1, d.shape[0]), dtype=torch.int32)
+    out, _, _ = teg.eik_pass(d, plan.abc, teg.class_sources(plan), dirty, reverse=False,
+                             chunk_dir=1, atol=1e-5, rtol=1e-5, force=True, strip_width=width)
+    assert torch.isfinite(out).sum() > torch.isfinite(d).sum()
+
+
+@pytest.mark.parametrize("Cp,width,per_sm,sms,want", [
+    (4096, 4, 4, 132, 8),     # 1,024 strips of 4 > 528 resident blocks: 8 columns
+    (4096, 8, 4, 132, 8),     # 512 strips of the default width fit
+    (4096, 16, 4, 132, 16),   # never narrower than asked
+    (1024, 4, 4, 132, 4),
+    (20000, 8, 3, 132, 51),   # 396 resident: ceil(20000 / 396)
+])
+def test_resident_strip_width_widens_from_the_grid_figures(monkeypatch, Cp, width, per_sm, sms,
+                                                           want):
+    """The solve's strip on the card: the smallest width >= the asked one
+    whose ceil(Cp / width) strips fit the resident blocks eik_pass_grid
+    reports (blocks an SM x SMs, read at one strip a row)."""
+    calls = []
+
+    def fake_grid(Cp_, Bp, K, W):
+        calls.append(W)
+        return {"strips": -(-Cp_ // W), "blocks_per_sm": per_sm, "sms": sms}
+
+    monkeypatch.setattr(teg, "eik_pass_grid", fake_grid)
+    got = teg.resident_strip_width(Cp, 128, 6, width)
+    assert got == want and calls == [Cp]
+    assert -(-Cp // got) <= per_sm * sms and (got == width or -(-Cp // (got - 1)) > per_sm * sms)
+
+
 @pytest.mark.parametrize("width", [None, 4])
 def test_unfolding_fixed_point_depends_on_the_update_order(width):
     """The unfolding update is not monotone in its supports (its branches

@@ -56,11 +56,7 @@ def test_pass_and_pred_kernels_match_plain(cuda, nx, ny, B):
                                            bb=prob.bb, atol=ATOL, rtol=RTOL, force=force)
             torch.cuda.synchronize()
             assert bool(ck.item()) == bool(cp.item())
-            fin = torch.isfinite(d_p)
-            assert torch.equal(fin, torch.isfinite(d_k))
-            err = (d_k[fin] - d_p[fin]).abs()
-            assert bool((err <= ATOL + RTOL * d_p[fin].abs()).all()), float(err.max())
-            d_k.copy_(d_p)     # next pass from the same field on both sides
+            assert torch.equal(d_k, d_p)   # the plain pass sums in the kernel's order
     assert kernels.LAUNCHES["banded_pass"] == before + 6
     w8 = bg._w8_planes(plan, d_p.shape[0])
     kw = dict(R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices,
@@ -157,12 +153,8 @@ def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
             torch.cuda.synchronize()
             assert bool(ck.item()) == bool(cp.item())
             assert torch.equal(dirty_k, dirty_p)
-            fin = torch.isfinite(d_p)
-            assert torch.equal(fin, torch.isfinite(d_k))
             assert not bool(torch.isnan(d_k).any())
-            err = (d_k[fin] - d_p[fin]).abs()
-            assert bool((err <= ATOL + RTOL * d_p[fin].abs()).all()), float(err.max())
-            d_k.copy_(d_p)
+            assert torch.equal(d_k, d_p)
     assert kernels.LAUNCHES["banded_pass_dirty"] == before + 4
     # and the warm solve through the kernels converges to the cold field, at
     # twice the tolerance as in tests/test_torch_replan.py: the warm field is
@@ -176,6 +168,146 @@ def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
     assert torch.equal(fin, torch.isfinite(res.d_pad))
     err = (res.d_pad[fin] - cold[fin]).abs()
     assert bool((err <= 2 * (ATOL + RTOL * cold[fin].abs())).all()), float(err.max())
+
+
+def _pass_pair(d_k, d_p, cross, prob, *, reverse, force=False, dirty=None, cut=None):
+    """One pass through the kernel on (d_k, dirty) and through the plain
+    version on (d_p, a copy of dirty): fields, dirty tables, flags and rows
+    walked equal. Returns (the plain side's dirty table, rows walked)."""
+    dirty_p = None if dirty is None else dirty.clone()
+    wk = torch.zeros(1, dtype=torch.int32, device=d_k.device)
+    wp = torch.zeros(1, dtype=torch.int64, device=d_k.device)
+    kw = dict(reverse=reverse, atol=ATOL, rtol=RTOL, force=force, warm_cut=cut)
+    ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, dirty=dirty, rows_walked=wk, **kw)
+    cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, bb=8, dirty=dirty_p,
+                                   rows_walked=wp, **kw)
+    torch.cuda.synchronize()
+    assert bool(ck.item()) == bool(cp.item())
+    assert torch.equal(d_k, d_p), float((d_k - d_p).abs().nan_to_num(0.0).max())
+    if dirty is not None:
+        assert torch.equal(dirty, dirty_p)
+    assert int(wk.item()) == int(wp.item())
+    return dirty_p, int(wk.item())
+
+
+@pytest.mark.parametrize("ny", [1000, 1500, 3000, bg.PASS_MAX_COLS])
+def test_pass_kernel_on_wide_rows_matches_plain_bit_for_bit(cuda, ny):
+    """Rows past the old 1,024-column limit, up to PASS_MAX_COLS (the 1,500
+    columns pad to 1,504; 3,000 and more read rows from device memory
+    instead of staging them): two rounds of the main mode, then a warm
+    resolve's cut pass and dirty pass, kernel against plain bit for bit with
+    the same dirty tables, flags and rows walked."""
+    nx, B = 8, 16
+    mesh, plan = _plan(nx, ny, cuda)
+    assert plan.n_cols_pad == -(-ny // 8) * 8
+    rng = np.random.default_rng(ny)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, B)).to(cuda)
+    prob = bg.prepare_padded(plan, seeds)
+    d_k, d_p = prob.d0.clone(), prob.d0.clone()
+    for rnd in range(2):
+        for reverse, cross in ((False, prob.down), (True, prob.up)):
+            _, walked = _pass_pair(d_k, d_p, cross, prob, reverse=reverse,
+                                   force=rnd == 0 and not reverse)
+            assert walked == nx * B // 8     # the main mode walks every row
+    costs = np.arccos(np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0))
+    costs = costs.astype(np.float32)
+    new = costs.copy()
+    new[(nx // 2) * ny + np.arange(ny // 3, ny // 3 + 40)] = np.inf
+    old_t, new_t = torch.from_numpy(costs).to(cuda), torch.from_numpy(new).to(cuda)
+    kw = dict(edge_cost_factor=1.0, cost_limit=2.0)
+    plan0 = bg.refresh_banded_planes_from_costs(plan, old_t, **kw)
+    plan1 = bg.refresh_banded_planes_from_costs(plan, new_t, **kw)
+    d_prev = bg.banded_solve_padded(plan0, seeds, atol=ATOL, rtol=RTOL).d_pad
+    d_k, dirty, cut = bg._warm_start(
+        plan1, seeds, d_prev, bg.changed_plane_from_costs(plan, old_t, new_t),
+        bg.raised_plane_from_costs(plan, old_t, new_t), bg.position_planes(plan, mesh),
+        Rp=d_prev.shape[0], bb=8, atol=ATOL, rtol=RTOL)
+    d_p = d_k.clone()
+    prob1 = bg.prepare_padded(plan1, seeds, seeded=False)
+    dirty, _ = _pass_pair(d_k, d_p, prob1.down, prob1, reverse=False, dirty=dirty, cut=cut)
+    assert not torch.equal(d_k, d_prev)
+    _pass_pair(d_k, d_p, prob1.up, prob1, reverse=True, dirty=dirty)
+
+
+def test_warm_pass_jumps_between_far_apart_dirty_rows(cuda):
+    """A converged 128-row field, clean but for three dirty rows far apart
+    and one row raised above its fixed point: the kernel's prescan lets its
+    blocks jump over the clean rows. Kernel and plain agree bit for bit, and
+    the rows walked (needed rows and the row after each) are a small share
+    of all rows."""
+    nx, ny, B = 128, 40, 16
+    _, plan = _plan(nx, ny, cuda)
+    rng = np.random.default_rng(3)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, B)).to(cuda)
+    d = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL, converge="check").d_pad
+    Rp = d.shape[0]
+    nb = d.shape[2] // 8
+    d[60] = torch.where(torch.isfinite(d[60]), d[60] + 1.0, d[60])
+    dirty = torch.zeros((nb, Rp), dtype=torch.int32, device=cuda)
+    dirty[:, [5, 90, 121]] = 1
+    prob = bg.prepare_padded(plan, seeds, seeded=False)
+    d_k, d_p = d.clone(), d.clone()
+    dirty, walked = _pass_pair(d_k, d_p, prob.down, prob, reverse=False, dirty=dirty)
+    assert not torch.equal(d_k[60], d[60])           # the raised row was repaired
+    assert 4 * nb <= walked < Rp * nb // 8
+    _, walked_up = _pass_pair(d_k, d_p, prob.up, prob, reverse=True, dirty=dirty)
+    assert walked_up < Rp * nb // 8
+
+
+def test_pass_wrapper_and_kernel_agree_on_the_column_limit(cuda):
+    """PASS_MAX_COLS is the kernel's own limit; a wider row raises."""
+    assert kernels.query("banded_pass")() == bg.PASS_MAX_COLS
+    Cp = bg.PASS_MAX_COLS + 8
+    d = torch.full((2, Cp, 8), torch.inf, device=cuda)
+    cross = torch.zeros((2, 3, Cp), device=cuda)
+    a = torch.zeros((2, 1, Cp), device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL)
+
+
+def test_server_solves_wide_banded_plans_and_routes_wider_ones_to_the_structured_tier(cuda):
+    """Through the server on the card: a 1,600-column terrain keeps its
+    banded plan (past the old 1,024-column limit), a terrain wider than
+    PASS_MAX_COLS takes the structured tier, and both answer every lane."""
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.config import LayerConfig, MeshMapConfig, NavConfig, PlannerConfig
+
+    cfg = NavConfig(mesh_map=MeshMapConfig(default_layer="steep"),
+                    planner=PlannerConfig(cost_limit=2.0),
+                    layers=(LayerConfig(name="steep", kind="steepness",
+                                        params=(("threshold", 2.0),)),))
+    for ny, banded in ((1600, True), (bg.PASS_MAX_COLS + 100, False)):
+        v, f = synthetic.terrain_mesh(6, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+        srv = MeshNavServer(build_mesh(v, f, device=cuda), cfg, max_path_len=4 * ny,
+                            device=cuda)
+        assert (srv.banded_plan is not None) == banded
+        assert banded or srv.offset_plan.coverage > 0.5
+        rng = np.random.default_rng(ny)
+        ext = np.array([2.0, ny * 0.5 - 1.0])
+        pts = np.concatenate([rng.uniform(0.5, 1.0, (4, 2)) * ext, np.zeros((4, 1))], 1)
+        gls = np.concatenate([rng.uniform(0.5, 1.0, (4, 2)) * ext, np.zeros((4, 1))], 1)
+        res = srv.get_path_batch(torch.from_numpy(pts.astype(np.float32)).to(cuda),
+                                 torch.from_numpy(gls.astype(np.float32)).to(cuda))
+        torch.cuda.synchronize()
+        assert (res.potential is None) == banded
+        assert bool((res.outcome == 0).all()), res.outcome
+
+
+def test_class_pred_kernel_past_65535_rows(cuda):
+    """A narrow field of 70,000 rows: the grid folds rows into its x
+    dimension. Tables and flags identical to the plain version's."""
+    Rp, Cp, Bp = 70_000, 8, 4
+    gen = torch.Generator().manual_seed(7)
+    d = torch.rand((Rp, Cp, Bp), generator=gen) * 100
+    d[torch.rand(d.shape, generator=gen) < 0.2] = torch.inf
+    w8 = torch.rand((Rp, 8, Cp), generator=gen)
+    d, w8 = d.to(cuda), w8.to(cuda)
+    kw = dict(R=Rp - 3, C=Cp - 2, V=(Rp - 3) * (Cp - 2) - 5, tol=6e-3, atol=ATOL, rtol=RTOL)
+    cls_k, viol_k = bg.class_pred(d, w8, **kw)
+    cls_p, viol_p = bg.class_pred_plain(d, w8, **kw)
+    assert torch.equal(cls_k, cls_p)
+    assert bool(viol_k.any()) == bool(viol_p.any())
+    assert int((cls_k[-1000:] != 8).sum()) > 0        # the last rows were computed
 
 
 def _eik_field(nx, ny, B, device):
@@ -313,6 +445,26 @@ def test_eik_pass_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                     chunk_dir=1, strip_width=1, **kw)
 
 
+def test_eik_solve_widens_a_strip_whose_strips_cannot_all_be_resident(cuda):
+    """A 2,400-column row at strip width 4 has more strips than the card
+    holds blocks at once: a single pass at that width raises, and the solve
+    widens its strip to resident_strip_width, giving the same field, bit for
+    bit, as a solve asked for that width."""
+    plan, seed_v, seed_d, d = _eik_field(4, 2400, 32, cuda)
+    K, Cp = len(plan.classes), d.shape[1]
+    w = eg.resident_strip_width(Cp, d.shape[2], K, 4)
+    grid = eg.eik_pass_grid(Cp, d.shape[2], K, Cp)
+    assert w > 4 and -(-Cp // w) <= grid["blocks_per_sm"] * grid["sms"]
+    with pytest.raises(RuntimeError, match="resident"):
+        eg.eik_pass_grid(Cp, d.shape[2], K, 4)
+    kw = dict(atol=1e-4, rtol=1e-3, orderings=2, max_rounds=6)
+    got = eg.eikonal_solve_padded(plan, seed_v, seed_d, strip_width=4, **kw)
+    want = eg.eikonal_solve_padded(plan, seed_v, seed_d, strip_width=w, **kw)
+    assert got.rounds == want.rounds and torch.equal(got.d_pad, want.d_pad)
+    seeded = eg.seeded_field(plan, seed_v, seed_d)
+    assert int(torch.isfinite(got.d_pad).sum()) > int(torch.isfinite(seeded).sum())
+
+
 def test_cvp_descent_graph_matches_eager(cuda):
     """The descent's CUDA-graph replay walks the same paths as its eager
     steps, on a converged field through the kernel."""
@@ -374,6 +526,36 @@ def test_fused_sweep_kernel_matches_plain(cuda, tile, V, B, n_inner, offsets):
     again = sg.fused_sweep(got, planes, offsets, tile=tile, n_inner=n_inner, out=out)
     assert again is out
     assert torch.equal(again, sg._fused_sweep_plain(want, planes, offsets, tile, n_inner))
+
+
+# (tile, V, lanes, n_inner, offsets) chosen so the launcher takes each lane
+# group and each layout (csrc/fused_sweep.cu): LG 1, 2, 4 and 8 with both
+# the next rows and the next planes streamed; 4 lanes where 8 with two plane
+# buffers do not fit (the structured path's 1M shape); one plane buffer
+# (4096-row tile, 6 offsets); and no spare ring rows (5632-row tile). Lanes
+# 3, 5 and 13 end inside a lane group; the many-tile cases give each block a
+# run of several tiles, and 782 tiles of one lane exceed the resident blocks.
+@pytest.mark.parametrize("tile,V,B,n_inner,offsets", [
+    (256, 200_000, 1, 1, (1, -1, 256, -256)),
+    (256, 100_000, 3, 2, (1, -1, 200, -256)),
+    (512, 300_000, 5, 3, (1, -512, 7)),
+    (256, 50_000, 13, 2, (1, -1, 256, -256)),
+    (1280, 400_000, 24, 2, (1, -1, 1024, -1024, 1025, -1025)),
+    (4096, 40_960, 2, 2, (1, -1, 4095, -4095, 4096, -4096)),
+    (5632, 56_320, 1, 2, (1, -1, 5631, -5631, 5632, -5632)),
+    (256, 20_000, 8, 0, (1, -1, 256, -256)),
+])
+def test_fused_sweep_kernel_walks_runs_of_tiles(cuda, tile, V, B, n_inner, offsets):
+    """The persistent sweep on runs of tiles, every lane group and every
+    streaming layout: bit for bit the plain version, twice in a row."""
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    d, planes = _sweep_inputs(tile, V, B, offsets, cuda, seed=V + B)
+    got = sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=n_inner)
+    want = sg._fused_sweep_plain(d, planes, offsets, tile, n_inner)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=n_inner), got)
 
 
 def _rcm_relabel(v, f):

@@ -425,6 +425,36 @@ def test_server_takes_the_structured_branch_like_reference():
     assert not torch.equal(after.potential, before.potential)
 
 
+@pytest.mark.parametrize("limit_below_row", [False, True])
+def test_server_routes_plans_wider_than_the_pass_to_the_structured_tier(monkeypatch,
+                                                                       limit_below_row):
+    """A banded plan whose padded rows exceed the pass kernel's column limit
+    (banded_gpu.PASS_MAX_COLS, lowered here so the 24 x 24 terrain crosses
+    it) is not built: the server answers through the structured tier, as
+    the planner's own structured path does. At the limit the plan stays."""
+    from mesh_navigation_torch.ops import banded_gpu as tbg
+
+    _, _, jm, tm, _, W = _case("terrain24")
+    Cp = tbg.build_banded_kernel_plan(tm, W).n_cols_pad
+    monkeypatch.setattr(tbg, "PASS_MAX_COLS", Cp - 8 if limit_below_row else Cp)
+    ts = MeshNavServer(tm, _server_config(NavConfig, MeshMapConfig, PlannerConfig, LayerConfig),
+                       max_path_len=64, device="cpu")
+    s, g = _scenarios(jm, "terrain24", B=4)
+    got = ts.get_path_batch(torch.from_numpy(s), torch.from_numpy(g))
+    if not limit_below_row:
+        assert ts.banded_plan is not None and ts.banded_plan.n_cols_pad == Cp
+        assert got.potential is None and got.d_pad is not None
+        return
+    assert ts.planner.prepare_banded_plan(W) is None
+    assert ts.banded_plan is None and ts.offset_plan.coverage > 0.5
+    want = ts.planner.plan_batch_structured(ts.slot_weights, ts.offset_plan,
+                                            torch.from_numpy(s), torch.from_numpy(g))
+    assert got.potential is not None and got.d_pad is None
+    assert torch.equal(got.potential, want.potential) and torch.equal(got.pred, want.pred)
+    assert torch.equal(got.outcome, want.outcome)
+    assert (got.outcome.numpy()[:-1] == 0).all()
+
+
 def test_server_without_a_plan_raises():
     v, f = synthetic.terrain_mesh(12, 12, spacing=0.5, hills=1.0, seed=2)
     ts = MeshNavServer(build_mesh(v, f, device="cpu"), NavConfig(), device="cpu")
