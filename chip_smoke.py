@@ -9,8 +9,9 @@ Phases, each printed as one JSON line on standard output:
    (every csrc/*.cu is compiled by its own nvcc, all at once).
 2. kernel_check: on a 128x128 terrain with 64 lanes, the pass kernel against
    its plain PyTorch version (one forced down pass, one up pass; fields bit
-   for bit, flags equal), the class-pred kernel against its
-   plain version on the same fields (int8 tables and flags identical), the
+   for bit, flags equal), the class-pred kernel against its plain version
+   on the same fields (int8 class and int32 id tables identical, with and
+   without the certificate; flags equal), the
    check kernel against its plain version on a converged field and on it with
    one element lowered and one raised (flags equal), and the pass kernel in
    its warm modes (dirty table + warm cut) against its plain version from a
@@ -37,8 +38,23 @@ Phases, each printed as one JSON line on standard output:
    below 1%.
 5. kernels at the main path's shapes: each kernel against its plain version
    on the main path's own field, with its time, the plain version's time and
-   the bound.
-6. replan: the live-replan cascade at full width (bench.py:367-445) on the
+   the bound; the class-pred kernel in both modes (int8 classes with the
+   certificate, int32 ids).
+6. banded_full: the full banded plan result at full width on the same mesh
+   and plan — 128 lanes (scenarios from the seed), one warm-up, then ITERS
+   timed DijkstraPlanner.plan_batch_banded(light=False) calls (a quiet-round
+   solve, the int32 predecessor table of the class-pred kernel's id mode,
+   the [B, V, 3] vector map, the walk), each followed by one
+   MeshController.compute_velocity cycle: solves/s, rounds and `converged`
+   per solve (gated), per-stage device times, launches, peak memory, one
+   traced iteration for the idle share.
+7. banded_full_oracle: two lanes of the warm-up solve against the native
+   heap Dijkstra: the field's largest relative error and the path cost
+   against the native predecessor chain's, both below 1%.
+8. kernels at the banded_full shapes: the id-mode kernel on the path's own
+   field against its plain version (both modes, bit for bit), its time, the
+   plain version's and the bound.
+9. replan: the live-replan cascade at full width (bench.py:367-445) on the
    same mesh — layers steepness + obstacle + inflation + max combination,
    128 lanes, one cold base solve, a warm-up step, then the jump / drift /
    clear pattern of 512-point clouds, timed ITERS times: ms and Hz per update,
@@ -48,23 +64,23 @@ Phases, each printed as one JSON line on standard output:
    below 1%), `converged` after every step, two lanes of the last field
    against the native heap Dijkstra on its costs (below 1%), and the check
    and warm-mode pass kernels launched.
-7. kernels at the replan shapes: the warm resolve of the last update pass by
+10. kernels at the replan shapes: the warm resolve of the last update pass by
    pass (warm pass ms per launch against its bound, the share of the blocks'
    rows each pass walked and the share it leaves unchanged), the check
    kernel against its plain version with its time and bound.
-8. cvp: the CVP planner at full width (bench.py:451-554) on the same mesh
+11. cvp: the CVP planner at full width (bench.py:451-554) on the same mesh
    and costs — side lengths = edge weights, the eikonal plan with its
    Dijkstra warm plan, 128 lanes with starts and goals on vertices, one
    warm-up, then ITERS timed CVPPlanner.plan_batch_banded calls, each
    followed by one MeshController.compute_velocity_cvp cycle: solves/s,
    rounds and `converged` per solve (gated), per-stage device times,
    launches per solve, peak memory, one traced iteration for the idle share.
-9. cvp_oracle: two lanes of the warm-up solve against the native CVP fast
+12. cvp_oracle: two lanes of the warm-up solve against the native CVP fast
    marching, the 99.9th-percentile relative error below 1%, and each
    lane's walked cost within 1% + 1e-2 of the same descent walked on the
    oracle's field (the vertex descent walks along edges, so the oracle's
    distance itself is no bound on it; the ratio is printed).
-10. kernels at the CVP shapes: each eikonal pass of one more solve timed by
+13. kernels at the CVP shapes: each eikonal pass of one more solve timed by
    its own event pair against its bound (from the strip-rows it computed),
    the launch's strip width, lane block, grid and the SMs its blocks ran
    on; its first forced pass launched twice (bit for bit equal) and timed
@@ -72,7 +88,7 @@ Phases, each printed as one JSON line on standard output:
    held against the plain version on a 4-row slab of their own input at
    the full width, lanes and classes (fields bit for bit, dirty tables and
    flags equal).
-11. structured: the structured Dijkstra tier at full width on the same mesh
+14. structured: the structured Dijkstra tier at full width on the same mesh
    and costs — the host offset classification (timed; offsets, coverage,
    the port's tile and n_inner printed), 128 lanes with starts and goals on
    vertices, one warm-up, then ITERS timed
@@ -81,17 +97,18 @@ Phases, each printed as one JSON line on standard output:
    MeshController.compute_velocity cycle: solves/s, sweeps and `converged`
    per solve (gated), per-stage device times, fused-sweep launches per
    solve, peak memory, one traced iteration for the idle share.
-12. structured_oracle: two lanes of the warm-up solve against the native
+15. structured_oracle: two lanes of the warm-up solve against the native
    heap Dijkstra: the field's largest relative error and the path cost
    against the native predecessor chain's, both below 1%.
-13. kernels at the structured shapes: the fused sweep on the path's own
+16. kernels at the structured shapes: the fused sweep on the path's own
    field after 64 sweeps, one launch against the plain version bit for bit,
    its time against its bound and the plain version's time; then the
-   `{"kernels": [...]}` line with all five kernels.
+   `{"kernels": [...]}` line with all five kernels (`class_pred` with its
+   id mode's time, bound and launches beside the main mode's).
 
 Kernel launches are counted per path: the counts are set to 0 just before
-the main path, the replan path, the CVP path and the structured path, and
-read just after each;
+the main path, the banded_full path, the replan path, the CVP path and the
+structured path, and read just after each;
 launches made to hold a kernel against its plain version are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
@@ -140,6 +157,8 @@ EIK_NARROW_WIDTH = 4        # the narrow strip width held against the plain pass
 EIK_TUNE_WIDTHS = (4, 8, 16)  # strip widths timed on the CVP path's first forced pass
 EIK_SLAB_ROWS = 4   # rows of a CVP-path pass's own input held against the plain pass
 STRUCTURED_KERNELS = ("fused_sweep",)
+FULL_PATH_KERNELS = ("banded_pass", "class_pred_ids")
+FULL_BATCH = 128            # lanes per banded_full solve
 WIDE_PASS_COLS = (1500, 3000)   # row widths past 1,024 held against the plain pass
 STRUCTURED_BATCH = 128      # lanes per structured solve
 STRUCTURED_WAVE_SWEEPS = 64  # sweeps of the path's own solve before the full-shape check
@@ -295,22 +314,38 @@ def check_pass_pair(prob, device, atol, rtol) -> dict:
     return out
 
 
-def check_pred_pair(plan, d_pad, atol, rtol) -> dict:
-    """Class-pred kernel vs plain on one field: identical tables and flags."""
+def check_pred_pair(plan, d_pad, atol, rtol, tol=None) -> dict:
+    """Class-pred kernel vs plain on one field, in both modes (int8 classes,
+    int32 real ids), each with and without the certificate: identical
+    tables, equal flags. max_abs_err is the largest table difference over
+    all four (0 when they are identical)."""
     import torch
     from mesh_navigation_torch.ops import banded_gpu as bg
 
     w8 = bg._w8_planes(plan, d_pad.shape[0])
     kw = dict(R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices,
-              tol=max(atol, 3.0 * rtol), atol=atol, rtol=rtol)
-    cls_k, viol_k = bg.class_pred(d_pad, w8, **kw)
-    cls_p, viol_p = bg.class_pred_plain(d_pad, w8, **kw)
+              tol=max(atol, 3.0 * rtol) if tol is None else tol)
+    modes, flags = {}, []
+    for as_class, mode in ((True, "classes"), (False, "ids")):
+        for check in (None, (atol, rtol)):
+            tk, fk = bg.class_pred(d_pad, w8, **kw, check=check, as_class=as_class)
+            tp, fp = bg.class_pred_plain(d_pad, w8, **kw, check=check, as_class=as_class)
+            bad = tk != tp
+            n_bad = int(bad.sum())
+            r = {"identical": n_bad == 0, "n_mismatch": n_bad,
+                 "max_abs_err": int((tk[bad].long() - tp[bad].long()).abs().max()) if n_bad else 0}
+            if check is not None:
+                r["flags_equal"] = bool(fk.any()) == bool(fp)
+                flags.append(bool(fp))
+            modes[mode + ("_check" if check is not None else "")] = r
+            del tk, tp, bad
     res = {
-        "tables_identical": bool(torch.equal(cls_k, cls_p)),
-        "n_mismatch": int((cls_k != cls_p).sum()),
-        "max_abs_err": int((cls_k.int() - cls_p.int()).abs().max()),
-        "flags_equal": bool(viol_k.any()) == bool(viol_p.any()),
-        "violation": bool(viol_p.any()),
+        "modes": modes,
+        "tables_identical": all(m["identical"] for m in modes.values()),
+        "flags_equal": all(m.get("flags_equal", True) for m in modes.values())
+        and len(set(flags)) == 1,
+        "max_abs_err": max(m["max_abs_err"] for m in modes.values()),
+        "violation": flags[0],
     }
     if not (res["tables_identical"] and res["flags_equal"]):
         raise AssertionError(f"pred kernel disagrees with its plain version: {res}")
@@ -663,16 +698,27 @@ def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
     pred_cmp = check_pred_pair(kplan, d_conv, ATOL, RTOL)
     w8 = bg._w8_planes(kplan, Rp)
     kw = dict(R=kplan.n_rows, C=kplan.n_cols, V=kplan.num_vertices,
-              tol=max(ATOL, 3.0 * RTOL), atol=ATOL, rtol=RTOL)
-    time_ms(lambda: bg.class_pred(d_conv, w8, **kw), device)          # warm
-    pred_ms = time_ms(lambda: bg.class_pred(d_conv, w8, **kw), device, reps=5)
+              tol=max(ATOL, 3.0 * RTOL), check=(ATOL, RTOL))
+    ids_kw = dict(kw, check=None, as_class=False)
+
+    def kernel_ms(**extra):
+        time_ms(lambda: bg.class_pred(d_conv, w8, **extra), device)        # warm
+        return time_ms(lambda: bg.class_pred(d_conv, w8, **extra), device, reps=5)
+
+    pred_ms = kernel_ms(**kw)
+    ids_ms = kernel_ms(**ids_kw)
     plain_pred_ms = time_ms(lambda: bg.class_pred_plain(d_conv, w8, **kw), device)
-    pred_bytes = N * 4 + kplan.num_vertices * Bp + 8 * Rp * Cp * 4
+    V = kplan.num_vertices
+    pred_bytes = N * 4 + V * Bp + 8 * Rp * Cp * 4
+    ids_bytes = N * 4 + V * Bp * 4 + 8 * Rp * Cp * 4
     pred_bound = max(pred_bytes / HBM_BYTES_PER_S, PRED_OPS * N / F32_OPS_PER_S) * 1e3
+    ids_bound = max(ids_bytes / HBM_BYTES_PER_S, PRED_OPS * N / F32_OPS_PER_S) * 1e3
 
     detail = {"phase": "kernels_at_main_shapes", "field": [Rp, Cp, Bp],
               "pass": pass_cmp, "pass_launch_ms": times,
-              "pass_bound_ms": [b * 1e3 for b in bounds_by_bytes], "pred": pred_cmp}
+              "pass_bound_ms": [b * 1e3 for b in bounds_by_bytes], "pred": pred_cmp,
+              "pred_ms": pred_ms, "pred_ids_ms": ids_ms,
+              "pred_bound_ms": pred_bound, "pred_ids_bound_ms": ids_bound}
     launches = ctx["launches"]
     line = [
         {"name": "banded_pass", "route": "cuda",
@@ -691,9 +737,139 @@ def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
          "ms": pred_ms, "plain_ms": plain_pred_ms, "bound_ms": pred_bound,
          "bound_by": "bytes" if pred_bytes / HBM_BYTES_PER_S >= PRED_OPS * N / F32_OPS_PER_S
          else "operations",
-         "library_ms": None},
+         "library_ms": None, "ids_ms": ids_ms, "ids_bound_ms": ids_bound},
     ]
     return detail, line
+
+
+def banded_full(device, ctx, iters: int, batch: int = FULL_BATCH) -> tuple[dict, dict]:
+    """Phase 6: the full banded plan result at full width on the main path's
+    mesh, plan and costs: one warm-up and `iters` timed
+    DijkstraPlanner.plan_batch_banded(light=False) calls with `batch` lanes
+    (scenarios from the seed as on the main path), each followed by one
+    MeshController.compute_velocity cycle on the result's vector map.
+    Gates: converged on every solve, the pass and the id-mode class-pred
+    kernels launched, sane outputs."""
+    import torch
+    from mesh_navigation_torch.config import ControllerConfig
+    from mesh_navigation_torch.control import MeshController
+    from mesh_navigation_torch.control.controller import initial_state
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    planner, kplan, mesh = ctx["planner"], ctx["kplan"], ctx["mesh"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    V = mesh.num_vertices
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    costs = torch.from_numpy(ctx["costs_np"]).to(device)
+    ctrl = MeshController(mesh, ControllerConfig(), grid=planner.grid, device=device)
+    rng = np.random.default_rng(SEED + 6)
+
+    def step(s, g, q, timer=None):
+        res = planner.plan_batch_banded(kplan, torch.from_numpy(s), torch.from_numpy(g),
+                                        light=False, atol=ATOL, rtol=RTOL, timer=timer)
+        st = initial_state(torch.from_numpy(g).to(device), torch.tensor([1.0, 0.0, 0.0]))
+        cmds, _ = ctrl.compute_velocity(res.vector_map, costs, torch.from_numpy(s),
+                                        torch.from_numpy(q), st, timer=timer)
+        return res, cmds
+
+    kernels.reset_launches()
+    warm = sample_scenarios(rng, mesh_n, batch)
+    tw = time.perf_counter()
+    res, cmds = step(*warm)
+    sync(device)
+    t_warm = time.perf_counter() - tw
+    solves = [{"rounds": res.rounds, "converged": bool(res.converged)}]
+    warm_small = {"potential": res.potential[:2].cpu().numpy(),
+                  "pred": res.pred[:2].cpu().numpy(), "cost": res.cost[:2].cpu().numpy()}
+    timer = StageTimer(device)
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        res = cmds = None
+        res, cmds = step(*sample_scenarios(rng, mesh_n, batch), timer=timer)
+        solves.append({"rounds": res.rounds, "converged": bool(res.converged)})
+    sync(device)
+    dt = time.perf_counter() - t1
+    launches = {name: kernels.LAUNCHES[name] for name in FULL_PATH_KERNELS}
+    for name, n in launches.items():
+        if n <= 0 and cuda:
+            raise AssertionError(f"kernel {name} was not launched on the banded_full path")
+    if not all(x["converged"] for x in solves):
+        raise AssertionError(f"a banded_full solve did not converge: {solves}")
+    ok_lanes = res.outcome == 0
+    checks = {
+        "shapes": list(res.path_positions.shape) == [batch, planner.max_path_len, 3]
+        and list(res.vector_map.shape) == [batch, V, 3] and list(res.pred.shape) == [batch, V]
+        and list(res.potential.shape) == [batch, V] and list(cmds.linear.shape) == [batch],
+        "pred_int32": res.pred.dtype == torch.int32,
+        "reach_rate": float(ok_lanes.float().mean()),
+        "costs_finite_where_reached": bool(torch.isfinite(res.cost[ok_lanes]).all()),
+        "vector_map_finite": bool(torch.isfinite(res.vector_map).all()),
+        "commands_finite": bool(torch.isfinite(cmds.linear).all()
+                                and torch.isfinite(cmds.angular).all()),
+        "control_success_rate": float((cmds.outcome == 0).float().mean()),
+    }
+    if not (checks["shapes"] and checks["pred_int32"] and checks["costs_finite_where_reached"]
+            and checks["vector_map_finite"] and checks["commands_finite"]
+            and checks["reach_rate"] > 0.5):
+        raise AssertionError(f"banded_full output check failed: {checks}")
+    stages = {k: val / iters for k, val in timer.totals().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    res = cmds = None
+    trace = device_busy(lambda: step(*sample_scenarios(rng, mesh_n, batch)), device)
+    out = {
+        "phase": "banded_full", "mesh": f"{mesh_n}x{mesh_n}", "V": V, "lanes": batch,
+        "dtype": "float32", "atol": ATOL, "rtol": RTOL, "pred_tol": max(ATOL, 1e-6),
+        "warmup_s": t_warm, "iters": iters, "solves_per_s": batch * iters / dt,
+        "ms_per_iter": dt * 1e3 / iters, "solves": solves, "stage_ms_per_iter": stages,
+        "launches": launches, "launches_per_solve": {k: n / (iters + 1) for k, n in launches.items()},
+        "checks": checks, "trace": trace, "peak_mem_gb": peak,
+    }
+    return out, dict(warm=warm, warm_small=warm_small, launches=launches)
+
+
+def banded_full_oracle_gate(ctx, bctx, n_lanes: int = 2) -> dict:
+    """Phase 7: two lanes of the banded_full warm-up solve against the native
+    heap Dijkstra, as the structured phase's gate: the field's largest
+    relative error and the path cost against the native predecessor chain's,
+    both below 1%."""
+    s, g, _ = (x[:n_lanes] for x in bctx["warm"])
+    return full_result_gate("banded_full_oracle",
+                            full_result_oracle(ctx, ctx["planner"], s, g, bctx["warm_small"]))
+
+
+def kernels_at_full_shapes(ctx, bctx, device) -> tuple[dict, dict]:
+    """Phase 8: the id-mode class-pred kernel on the banded_full path's own
+    field (the warm-up draw's goals, solved as the path solves them), held
+    against its plain version in both modes, and its time at this shape.
+    Not counted for the path."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    planner, kplan = ctx["planner"], ctx["kplan"]
+    _, g, _ = bctx["warm"]
+    with uncounted():
+        gv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(g).to(device))[0]
+        d = bg.banded_solve_padded(kplan, gv, max_rounds=max(planner.config.max_sweeps // 2, 64),
+                                   atol=ATOL, rtol=RTOL, converge="round").d_pad
+        tol = max(ATOL, 1e-6)
+        pair = check_pred_pair(kplan, d, ATOL, RTOL, tol=tol)
+        w8 = bg._w8_planes(kplan, d.shape[0])
+        kw = dict(R=kplan.n_rows, C=kplan.n_cols, V=kplan.num_vertices, tol=tol, as_class=False)
+        time_ms(lambda: bg.class_pred(d, w8, **kw), device)                  # warm
+        ms = time_ms(lambda: bg.class_pred(d, w8, **kw), device, reps=5)
+        plain_ms = time_ms(lambda: bg.class_pred_plain(d, w8, **kw), device)
+    Rp, Cp, Bp = d.shape
+    N = Rp * Cp * Bp
+    bytes_s = (N * 4 + kplan.num_vertices * Bp * 4 + 8 * Rp * Cp * 4) / HBM_BYTES_PER_S
+    bound = max(bytes_s, PRED_OPS * N / F32_OPS_PER_S) * 1e3
+    detail = {"phase": "kernels_at_full_shapes", "field": [Rp, Cp, Bp], "pred": pair,
+              "ids_ms": ms, "ids_plain_ms": plain_ms, "ids_bound_ms": bound}
+    return detail, {"ids_ms_full_shape": ms, "ids_bound_ms_full_shape": bound,
+                    "ids_plain_ms_full_shape": plain_ms, "max_abs_err": pair["max_abs_err"]}
 
 
 def replan_config():
@@ -753,7 +929,7 @@ def warm_vs_cold(step, seeds, d_warm) -> dict:
 
 
 def replan(device, ctx, iters: int) -> tuple[dict, dict]:
-    """Phase 6: the live-replan cascade at full width through
+    """Phase 9: the live-replan cascade at full width through
     MeshNavServer.make_replan_step."""
     import torch
     from mesh_navigation_torch.api.server import MeshNavServer
@@ -870,7 +1046,7 @@ def replan(device, ctx, iters: int) -> tuple[dict, dict]:
 
 
 def kernels_at_replan_shapes(rctx, device) -> tuple[dict, dict]:
-    """Phase 7: the warm resolve of the last timed jump update again, pass
+    """Phase 10: the warm resolve of the last timed jump update again, pass
     by pass, each launch timed by its own event pair; the check kernel
     against its plain version on the converged field. Not counted for the
     path."""
@@ -1052,7 +1228,7 @@ def eik_slab_check(pass_fn, d, abc, cls, dirty, r0: int, kw: dict, device) -> di
 
 
 def cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
-    """Phase 8: the CVP planner at full width (bench.py:451-554) on the main
+    """Phase 11: the CVP planner at full width (bench.py:451-554) on the main
     path's terrain and steepness costs: side lengths = edge weights (cost
     factor 1.0), the eikonal plan with its Dijkstra warm plan, `batch`
     lanes with starts and goals drawn on vertices, one warm-up, then `iters`
@@ -1157,7 +1333,7 @@ def cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
 
 
 def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2) -> dict:
-    """Phase 9: two lanes of the warm-up solve against the native CVP fast
+    """Phase 12: two lanes of the warm-up solve against the native CVP fast
     marching (bench.py:520-550): the 99.9th-percentile relative error of the
     field below 1%, and the walked cost of each lane's descent no more than
     1% + 1e-2 above the walked cost of the same descent on the oracle's own
@@ -1248,7 +1424,7 @@ def eik_strip_rows_computed(d, new, dirty, kw) -> "torch.Tensor":
 
 
 def kernels_at_cvp_shapes(cctx, device) -> tuple[dict, dict]:
-    """Phase 10: the eikonal solve of one more plan_batch_banded call on the
+    """Phase 13: the eikonal solve of one more plan_batch_banded call on the
     warm-up draw, pass by pass: each eik_pass launch timed by its own event
     pair, with its bound from what that launch's data needs: the operations
     of the strip-rows it computes (eik_strip_rows_computed: K unfold updates
@@ -1401,7 +1577,7 @@ def sweep_kernel_check(device) -> tuple[dict, float]:
 
 
 def structured(device, ctx, iters: int, batch: int = STRUCTURED_BATCH) -> tuple[dict, dict]:
-    """Phase 11: the structured Dijkstra tier at full width on the main
+    """Phase 14: the structured Dijkstra tier at full width on the main
     path's terrain and steepness costs (cost_limit 2.0, edge_cost_factor
     1.0): the host offset classification (timed), then one warm-up and
     `iters` timed DijkstraPlanner.plan_batch_structured calls with `batch`
@@ -1515,19 +1691,18 @@ def structured(device, ctx, iters: int, batch: int = STRUCTURED_BATCH) -> tuple[
                      warm=warm, warm_small=warm_small, launches=launches)
 
 
-def structured_oracle_gate(ctx, sctx, n_lanes: int = 2) -> dict:
-    """Phase 12: two lanes of the structured warm-up solve against the native
-    heap Dijkstra on the same costs: the field's largest relative error and
-    the walked path cost against the native predecessor chain's
-    (tests/test_baseline_parity.py:54-61), both below 1%."""
+def full_result_oracle(ctx, planner, starts, goals, ws) -> list:
+    """The lanes of a full plan result (`ws`: potential, pred and cost of
+    the first lanes, numpy) against the native heap Dijkstra on the same
+    costs: the field's largest relative error and the walked path cost
+    against the native predecessor chain's
+    (tests/test_baseline_parity.py:54-61)."""
     import torch
     from mesh_navigation_torch.mesh import query
 
-    planner, ws = sctx["planner"], sctx["warm_small"]
-    s, g = (x[:n_lanes] for x in sctx["warm"])
     dev = planner.device
-    sv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(s).to(dev))[0]
-    gv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(g).to(dev))[0]
+    sv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(starts).to(dev))[0]
+    gv = query.nearest_vertex_batch(planner.mesh, planner.grid, torch.from_numpy(goals).to(dev))[0]
     sv, gv = sv.cpu().numpy(), gv.cpu().numpy()
     v = ctx["v"]
     lanes = []
@@ -1546,16 +1721,29 @@ def structured_oracle_gate(ctx, sctx, n_lanes: int = 2) -> dict:
                       "path_cost_rel_err": abs(got - ref_cost) / max(ref_cost, 1e-6),
                       "native_chain_steps": len(chain),
                       "pred_equal_share": float(np.mean(ws["pred"][b] == opred))})
-    out = {"phase": "structured_oracle", "lanes": lanes, "budget": 0.01,
+    return lanes
+
+
+def full_result_gate(phase: str, lanes: list) -> dict:
+    out = {"phase": phase, "lanes": lanes, "budget": 0.01,
            "max_rel_err": max(x["max_rel_err"] for x in lanes)}
     if not all(x["max_rel_err"] < 0.01 and x["same_finite_set"] and x["path_cost_rel_err"] < 0.01
                for x in lanes):
-        raise AssertionError(f"structured oracle gate failed: {out}")
+        raise AssertionError(f"{phase} gate failed: {out}")
     return out
 
 
+def structured_oracle_gate(ctx, sctx, n_lanes: int = 2) -> dict:
+    """Phase 15: two lanes of the structured warm-up solve against the native
+    heap Dijkstra: the field's largest relative error and the path cost
+    against the native predecessor chain's, both below 1%."""
+    s, g = (x[:n_lanes] for x in sctx["warm"])
+    return full_result_gate("structured_oracle",
+                            full_result_oracle(ctx, sctx["planner"], s, g, sctx["warm_small"]))
+
+
 def kernels_at_structured_shapes(sctx, device) -> tuple[dict, dict]:
-    """Phase 13: the fused sweep at the structured path's shape, on the
+    """Phase 16: the fused sweep at the structured path's shape, on the
     path's own field after STRUCTURED_WAVE_SWEEPS sweeps of the warm-up
     draw's solve: one launch held against the plain version bit for bit, the
     launch's time (mean of 10 event-timed launches after one warm-up) and the
@@ -1603,8 +1791,8 @@ def kernels_at_structured_shapes(sctx, device) -> tuple[dict, dict]:
 
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
-        structured_batch=STRUCTURED_BATCH) -> list:
-    """Phases 2-13 on `device`; returns the kernels line."""
+        structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH) -> list:
+    """Phases 2-16 on `device`; returns the kernels line."""
     import torch
 
     kc = kernel_check(device, *small)
@@ -1619,8 +1807,21 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     emit(oracle_gate(ctx))
     detail, line = kernels_at_main_shapes(ctx, device)
     emit(detail)
-    for key in ("res", "warm_res", "kplan"):
+    for key in ("res", "warm_res"):
         ctx.pop(key)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    bp, bctx = banded_full(device, ctx, iters, full_batch)
+    emit(bp)
+    emit(banded_full_oracle_gate(ctx, bctx))
+    fdetail, fk = kernels_at_full_shapes(ctx, bctx, device)
+    emit(fdetail)
+    line[1].update(ids_launches=bctx["launches"]["class_pred_ids"],
+                   pass_launches_full=bctx["launches"]["banded_pass"],
+                   **{k: v for k, v in fk.items() if k != "max_abs_err"})
+    line[1]["max_abs_err"] = max(line[1]["max_abs_err"], fk["max_abs_err"])
+    del bctx
+    ctx.pop("kplan")
     rp, rctx = replan(device, ctx, iters)
     emit(rp)
     rdetail, rk = kernels_at_replan_shapes(rctx, device)

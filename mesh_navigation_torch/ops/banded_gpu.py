@@ -4,8 +4,9 @@ Counterpart of mesh_navigation_tpu/ops/pallas_banded.py: the host plan
 builder (BandedKernelPlan / build_banded_kernel_plan, :56-511), the padded
 problem (prepare_padded, :1332), the solve loop (banded_solve_padded,
 :1413, converge="pred", "round" and "check", and the warm incremental
-resolve), lane grouping (:2041), the int8 class predecessor table (:2531),
-the class-decoding path walk (:2644), the on-the-fly predecessor lookup
+resolve), lane grouping (:2041), the int8 class predecessor table (:2531)
+and the int32 real-id table (predecessors_banded_pallas, :2463), the
+class-decoding path walk (:2644), the on-the-fly predecessor lookup
 (:2834), and the live-replan plane refresh and changed-region planes
 (:580-807, :2069-2143).
 
@@ -14,7 +15,8 @@ with the same semantics (row order, carry, gated writes, class order):
 
 - `directional_pass` — csrc/banded_pass.cu, replacing `_pass_kernel`, with
   its dirty-table and warm-cut modes;
-- `class_pred` — csrc/class_pred.cu, replacing `_pred_kernel`;
+- `class_pred` — csrc/class_pred.cu, replacing `_pred_kernel` in both of its
+  modes (int8 classes with the certificate; int32 real ids);
 - `check` — csrc/check.cu, replacing `_check_kernel`.
 
 A wrapper runs the plain version only for a tensor on the CPU. On a CUDA
@@ -121,6 +123,10 @@ class BandedKernelPlan:
     l2_bwd: torch.Tensor = None
     wback_fwd: torch.Tensor = None
     wback_bwd: torch.Tensor = None
+    # the [Rp, 8, Cp] class-order weight stacks of _w8_planes, by Rp; a
+    # refreshed plan (dataclasses.replace) starts with none
+    w8_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                       compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -714,15 +720,21 @@ def directional_pass(
 
 
 # --------------------------------------------------------------------------
-# kernel 2: int8 class predecessors + fixed-point certificate
+# kernel 2: class / real-id predecessors + fixed-point certificate
 # --------------------------------------------------------------------------
 
 def _w8_planes(plan: BandedKernelPlan, Rp: int) -> torch.Tensor:
-    """In-edge weight planes in class order, [Rp, 8, Cp]."""
-    planes = [plan.lat_fwd, plan.lat_bwd] + [plan.down[:, i] for i in range(3)] + [
-        plan.up[:, i] for i in range(3)
-    ]
-    return torch.stack([_pad_rows(p, Rp) for p in planes], dim=1).contiguous()
+    """In-edge weight planes in class order, [Rp, 8, Cp], built once per plan
+    and Rp and kept in plan.w8_cache for its later pred, ids and check
+    calls."""
+    w8 = plan.w8_cache.get(Rp)
+    if w8 is None:
+        planes = [plan.lat_fwd, plan.lat_bwd] + [plan.down[:, i] for i in range(3)] + [
+            plan.up[:, i] for i in range(3)
+        ]
+        w8 = torch.stack([_pad_rows(p, Rp) for p in planes], dim=1).contiguous()
+        plan.w8_cache[Rp] = w8
+    return w8
 
 
 def _class_sources(d: torch.Tensor, r0: int, r1: int):
@@ -739,18 +751,23 @@ def _class_sources(d: torch.Tensor, r0: int, r1: int):
 
 
 def class_pred_plain(
-    d: torch.Tensor, w8: torch.Tensor, *, R: int, C: int, V: int,
-    tol: float, atol: float, rtol: float, row_chunk: int = 64,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    d: torch.Tensor, w8: torch.Tensor, *, R: int, C: int, V: int, tol: float,
+    check: tuple | None = None, as_class: bool = True, row_chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of the class-pred pass over d [Rp, Cp, Bp]:
     argmin over the 8 classes with strict < in class order, halo rows
-    clamped at the field's edges, class 8 = self. Rows go in chunks so the
-    temporaries stay small. Returns (cls [V, Bp] int8, violation bool [])."""
+    clamped at the field's edges. as_class: the int8 class, 8 = self;
+    else the int32 real id r*C + c + off_real[class], r*C + c for self
+    (_pred_kernel's two modes). Rows go in chunks so the temporaries stay
+    small. Returns (table [V, Bp], violation bool [] with check=(atol,
+    rtol), else None)."""
     Rp, Cp, Bp = d.shape
     dev = d.device
-    out = torch.empty((R * C, Bp), dtype=torch.int8, device=dev)
-    viol = torch.zeros((), dtype=torch.bool, device=dev)
-    kt, kr = 1.0 + tol, 1.0 + rtol
+    out = torch.empty((R * C, Bp), dtype=torch.int8 if as_class else torch.int32, device=dev)
+    viol = None if check is None else torch.zeros((), dtype=torch.bool, device=dev)
+    kt = 1.0 + tol
+    off = torch.tensor(_class_offsets(C), dtype=torch.int32, device=dev)
+    cols = torch.arange(Cp, dtype=torch.int64, device=dev)
     for r0 in range(0, Rp, row_chunk):
         r1 = min(r0 + row_chunk, Rp)
         cur, srcs = _class_sources(d, r0, r1)
@@ -763,45 +780,54 @@ def class_pred_plain(
             best = torch.where(take, cand, best)
             rel = torch.where(take, torch.tensor(k, dtype=torch.int8, device=dev), rel)
         has = (best <= cur * kt + tol) & (cur > 0) & torch.isfinite(cur)
-        viol |= (best * kr + atol < cur).any()
-        cls = torch.where(has, rel, torch.tensor(8, dtype=torch.int8, device=dev))
+        if check is not None:
+            atol, rtol = check
+            viol |= (best * (1.0 + rtol) + atol < cur).any()
+        if as_class:
+            res = torch.where(has, rel, torch.tensor(8, dtype=torch.int8, device=dev))
+        else:
+            rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+            self_id = (rows[:, None] * C + cols[None, :]).to(torch.int32)[:, :, None]
+            res = self_id + torch.where(has, off[rel.long()], 0)
         rr = min(r1, R) - r0
         if rr > 0:
-            out[r0 * C:(r0 + rr) * C] = cls[:rr, :C].reshape(rr * C, Bp)
+            out[r0 * C:(r0 + rr) * C] = res[:rr, :C].reshape(rr * C, Bp)
     return out[:V], viol
 
 
 def class_pred(
-    d: torch.Tensor, w8: torch.Tensor, *, R: int, C: int, V: int,
-    tol: float, atol: float, rtol: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """int8 class-predecessor table [V, Bp] and the fixed-point violation
-    flag of a padded field. CPU tensors run class_pred_plain; CUDA tensors
-    launch csrc/class_pred.cu or raise. The flag is a [1] int32 (CUDA) or
-    [] bool (CPU) tensor; test it with bool()."""
+    d: torch.Tensor, w8: torch.Tensor, *, R: int, C: int, V: int, tol: float,
+    check: tuple | None = None, as_class: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Predecessor table [V, Bp] of a padded field (int8 classes, or int32
+    real ids with as_class=False) and, with check=(atol, rtol), the
+    fixed-point violation flag. CPU tensors run class_pred_plain; CUDA
+    tensors launch csrc/class_pred.cu or raise. The flag is a [1] int32
+    (CUDA) or [] bool (CPU) tensor; test it with bool()."""
     if d.device.type == "cpu":
-        return class_pred_plain(d, w8, R=R, C=C, V=V, tol=tol, atol=atol, rtol=rtol)
+        return class_pred_plain(d, w8, R=R, C=C, V=V, tol=tol, check=check, as_class=as_class)
     if d.device.type != "cuda":
         raise ValueError(f"class_pred: unsupported device {d.device}")
     Rp, Cp, Bp = d.shape
     if Bp % 4:
         raise ValueError(f"class_pred: lanes must be a multiple of 4, got {Bp}")
-    if not (d.is_contiguous() and d.dtype == torch.float32):
-        raise ValueError("class_pred: d must be contiguous f32")
+    if not (d.is_contiguous() and d.dtype == torch.float32) or d.data_ptr() % 16:
+        raise ValueError("class_pred: d must be contiguous 16-byte aligned f32")
     if (tuple(w8.shape) != (Rp, 8, Cp) or w8.dtype != torch.float32
             or not w8.is_contiguous() or w8.device != d.device):
         raise ValueError(f"class_pred: bad w8 {tuple(w8.shape)}")
     if R > Rp or C > Cp or V > R * C:
         raise ValueError("class_pred: R, C, V exceed the padded field")
-    out = torch.empty((V, Bp), dtype=torch.int8, device=d.device)
-    viol = torch.zeros(1, dtype=torch.int32, device=d.device)
+    out = torch.empty((V, Bp), dtype=torch.int8 if as_class else torch.int32, device=d.device)
+    viol = None if check is None else torch.zeros(1, dtype=torch.int32, device=d.device)
+    atol, rtol = check if check is not None else (0.0, 0.0)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = kernels.launcher("class_pred")(
-        d.data_ptr(), w8.data_ptr(), out.data_ptr(), viol.data_ptr(),
-        R, C, Rp, Cp, Bp, V, 1.0 + tol, tol, 1.0 + rtol, atol, stream,
+        d.data_ptr(), w8.data_ptr(), out.data_ptr(), None if viol is None else viol.data_ptr(),
+        R, C, Rp, Cp, Bp, V, int(as_class), 1.0 + tol, tol, 1.0 + rtol, atol, stream,
     )
     kernels.check("class_pred", err)
-    kernels.LAUNCHES["class_pred"] += 1
+    kernels.LAUNCHES["class_pred" if as_class else "class_pred_ids"] += 1
     return out, viol
 
 
@@ -814,15 +840,31 @@ def predecessors_banded_classes(
     edge violates the fixed point by more than the tolerance)."""
     if plan.n_residual:
         raise ValueError("class pred table requires n_residual == 0")
-    Rp = d_pad.shape[0]
-    atol, rtol = check if check is not None else (0.0, 0.0)
     cls, viol = class_pred(
-        d_pad, _w8_planes(plan, Rp), R=plan.n_rows, C=plan.n_cols,
-        V=plan.num_vertices, tol=tol, atol=atol, rtol=rtol,
+        d_pad, _w8_planes(plan, d_pad.shape[0]), R=plan.n_rows, C=plan.n_cols,
+        V=plan.num_vertices, tol=tol, check=check,
     )
     if check is None:
         return cls
     return cls, not bool(viol.any())
+
+
+def predecessors_banded_ids(
+    plan: BandedKernelPlan, d_pad: torch.Tensor, *, tol: float = 1e-5,
+) -> torch.Tensor:
+    """[V, Bp] int32 real-id predecessor table of a padded field, self where
+    no in-edge explains the label: the counterpart of
+    predecessors_banded_pallas (pallas_banded.py:2463), one launch of the
+    class-pred kernel in its id mode. Lanes stay padded; callers slice
+    [:, :B]. The residual post-pass (:2511-2527) is not ported: plans with
+    residual edges raise."""
+    if plan.n_residual:
+        raise NotImplementedError("the residual predecessor post-pass (irregular plans)")
+    ids, _ = class_pred(
+        d_pad, _w8_planes(plan, d_pad.shape[0]), R=plan.n_rows, C=plan.n_cols,
+        V=plan.num_vertices, tol=tol, as_class=False,
+    )
+    return ids
 
 
 # --------------------------------------------------------------------------
@@ -986,7 +1028,7 @@ def banded_solve_padded(
             with _stage(timer, "pred"):
                 cls, viol = class_pred(
                     d, w8, R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices,
-                    tol=pred_tol, atol=atol, rtol=rtol,
+                    tol=pred_tol, check=(atol, rtol),
                 )
                 return cls, bool(viol.any())
 

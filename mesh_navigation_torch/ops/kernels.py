@@ -9,7 +9,8 @@ Nothing is built while a module is imported.
 ops/banded_gpu.py, ops/eikonal_gpu.py and ops/sweep_gpu.py add one where
 they launch and nowhere else. The pass
 kernel's launches in its dirty-table mode (the warm resolve) are also
-counted apart, under "banded_pass_dirty".
+counted apart, under "banded_pass_dirty"; the class-pred kernel's launches
+in its int32-id mode are counted under "class_pred_ids", not "class_pred".
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ NVCC_FLAGS = [
 # per-source additions: the eikonal pass rounds as its plain PyTorch version
 # does only without multiply-add contraction
 EXTRA_FLAGS = {"eik_pass": ["--fmad=false"]}
-LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, "banded_pass_dirty")}
+LAUNCHES: dict[str, int] = {
+    name: 0 for name in (*SOURCES, "banded_pass_dirty", "class_pred_ids")
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -50,7 +53,7 @@ _SIGNATURES = {
                     [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _F, _F, _P]),
     "class_pred": ("class_pred_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
     "check": ("check_launch", [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
     "eik_pass": ("eik_pass_launch",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

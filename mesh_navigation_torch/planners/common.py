@@ -18,7 +18,7 @@ class PlanResult:
     goal-grouped layout: `d_pad` [Rp, Cp, Bp] and `lane_map` (solver lane of
     robot b). A [B, V] potential is never built on it (4 GB at 1M x 1024);
     take the lanes you need with planners.dijkstra.potential_lanes. The
-    structured path gives the full result instead: `potential`, `pred` and
+    banded full path and the structured path give the full result instead: `potential`, `pred` and
     the `vector_map` the controller samples, in robot order. `rounds` counts
     the solve's rounds (sweeps on the structured path)."""
     outcome: torch.Tensor         # [B] i32 Outcome code

@@ -1,14 +1,17 @@
 """Dijkstra-parity batched planner (port of
 mesh_navigation_tpu/planners/dijkstra.py:137-156 and 158-341).
 
-Two batch paths. The banded light path snaps starts and goals to vertices,
-groups lanes by goal, solves the goal-seeded fields with the banded kernels
-(converge="pred": the last certificate pass emits the int8 class table),
-walks each lane's predecessor chain from its start and builds the pose
-chain; it gives no potential, predecessor map or vector field. The
-structured path solves with the fused offset-shift sweeps (ops/structured.py)
-on meshes without a banded plan and gives the full result: potential,
-predecessor map and the [B, V, 3] vector field the controller samples.
+Three batch paths. The banded light path snaps starts and goals to
+vertices, groups lanes by goal, solves the goal-seeded fields with the
+banded kernels (converge="pred": the last certificate pass emits the int8
+class table), walks each lane's predecessor chain from its start and builds
+the pose chain; it gives no potential, predecessor map or vector field. The
+banded full path (light=False) solves the same fields to a quiet round and
+gives the full result: potential, the int32 predecessor map of the
+class-pred kernel's id mode and the [B, V, 3] vector field the controller
+samples. The structured path solves with the fused offset-shift sweeps
+(ops/structured.py) on meshes without a banded plan and gives the same full
+result.
 """
 
 from __future__ import annotations
@@ -70,14 +73,31 @@ class DijkstraPlanner:
         starts: torch.Tensor,    # [B, 3]
         goals: torch.Tensor,     # [B, 3]
         *,
+        light: bool = True,
         atol: float = 1e-5,
         rtol: float = 1e-5,
         timer=None,
     ) -> PlanResult:
-        """Batch planning via banded GS fast sweeping, light path: the result
-        has no vector map, predecessor map or [B, V] potential; predecessors
-        come from the solve's int8 class table. `timer` (utils.timing.StageTimer) records the
-        snap, solve, pred, extract and pose stages."""
+        """Batch planning via banded GS fast sweeping.
+
+        light=True: the result has no vector map, predecessor map or [B, V]
+        potential; predecessors come from the solve's int8 class table.
+        `timer` (utils.timing.StageTimer) records the snap, solve, pred,
+        extract and pose stages.
+
+        light=False: the full result (reference dijkstra.py:213-221,
+        pallas_banded.py:2969-3012): the goal-seeded fields solved to a round
+        with no supra-tolerance gain (no lane grouping), unpadded to [B, V],
+        the int32 predecessor table of the class-pred kernel's id mode at
+        tol max(atol, 1e-6), then _finish_batch (vector map, walk, pose
+        chain). The reference recovers predecessors with its roll-based
+        predecessors_banded, whose class order differs from the kernel's:
+        ids differ only where two in-edges tie (ROADMAP queue C). `timer`
+        records the snap, solve, pred, vector_map, extract and pose
+        stages."""
+        if not light:
+            return self._plan_batch_banded_full(kernel_plan, starts, goals, atol=atol,
+                                                rtol=rtol, timer=timer)
         plan = kernel_plan
         if plan.n_residual:
             raise NotImplementedError("residual (irregular) plans")
@@ -127,6 +147,28 @@ class DijkstraPlanner:
                 converged=res.converged,
             )
         return result
+
+    def _plan_batch_banded_full(self, plan, starts, goals, *, atol, rtol, timer):
+        if plan.n_residual:
+            raise NotImplementedError("residual (irregular) plans")
+        starts = starts.to(self.device, torch.float32)
+        goals = goals.to(self.device, torch.float32)
+        with _stage(timer, "snap"):
+            start_v = query.nearest_vertex_batch(self.mesh, self.grid, starts)[0]
+            goal_v = query.nearest_vertex_batch(self.mesh, self.grid, goals)[0]
+        max_rounds = max(self.config.max_sweeps // 2, 64)
+        res = _bg.banded_solve_padded(
+            plan, goal_v, max_rounds=max_rounds, atol=atol, rtol=rtol, converge="round",
+            timer=timer,
+        )
+        R, C, V, B = plan.n_rows, plan.n_cols, plan.num_vertices, start_v.shape[0]
+        with _stage(timer, "pred"):
+            dist = res.d_pad[:R, :C, :B].reshape(R * C, B)[:V].T.contiguous()   # [B, V]
+            ids = _bg.predecessors_banded_ids(plan, res.d_pad, tol=max(atol, 1e-6))
+            pred = ids[:, :B].T.contiguous()
+            del ids
+        return self._finish_batch(dist, pred, start_v, goal_v, rounds=res.rounds,
+                                  converged=res.converged, timer=timer)
 
     def prepare_offset_plan(self, weights_vd) -> _structured.OffsetPlan:
         """Host-side offset classification for the structured solver, on

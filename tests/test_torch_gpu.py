@@ -59,12 +59,97 @@ def test_pass_and_pred_kernels_match_plain(cuda, nx, ny, B):
             assert torch.equal(d_k, d_p)   # the plain pass sums in the kernel's order
     assert kernels.LAUNCHES["banded_pass"] == before + 6
     w8 = bg._w8_planes(plan, d_p.shape[0])
-    kw = dict(R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices,
-              tol=max(ATOL, 3 * RTOL), atol=ATOL, rtol=RTOL)
-    cls_k, viol_k = bg.class_pred(d_p, w8, **kw)
-    cls_p, viol_p = bg.class_pred_plain(d_p, w8, **kw)
-    assert torch.equal(cls_k, cls_p)
-    assert bool(viol_k.any()) == bool(viol_p.any())
+    kw = dict(R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices, tol=max(ATOL, 3 * RTOL))
+    _pred_pair(d_p, w8, kw)
+
+
+def _pred_pair(d, w8, kw) -> bool:
+    """The class-pred kernel against its plain version on one field, in both
+    modes, with and without the flag: tables identical, flags equal, and each
+    mode counted under its own name. Returns the flag."""
+    flags = set()
+    for as_class, name in ((True, "class_pred"), (False, "class_pred_ids")):
+        for check in (None, (ATOL, RTOL)):
+            before = dict(kernels.LAUNCHES)
+            tk, fk = bg.class_pred(d, w8, **kw, check=check, as_class=as_class)
+            tp, fp = bg.class_pred_plain(d, w8, **kw, check=check, as_class=as_class)
+            torch.cuda.synchronize()
+            assert tk.dtype == (torch.int8 if as_class else torch.int32)
+            assert torch.equal(tk, tp), (as_class, check, int((tk != tp).sum()))
+            assert kernels.LAUNCHES[name] == before[name] + 1
+            assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+            if check is None:
+                assert fk is None and fp is None
+            else:
+                assert bool(fk.any()) == bool(fp)
+                flags.add(bool(fp))
+    assert len(flags) == 1
+    return flags.pop()
+
+
+def _random_field(Rp, Cp, Bp, device, seed=0):
+    """A field with +inf (20%) and zero (5%) elements and weight planes with
+    +inf (10%) entries."""
+    gen = torch.Generator().manual_seed(seed)
+    d = torch.rand((Rp, Cp, Bp), generator=gen) * 100
+    u = torch.rand(d.shape, generator=gen)
+    d[u < 0.2] = torch.inf
+    d[u > 0.95] = 0.0
+    w8 = torch.rand((Rp, 8, Cp), generator=gen) * 3
+    w8[torch.rand(w8.shape, generator=gen) < 0.1] = torch.inf
+    return d.to(device), w8.to(device)
+
+
+@pytest.mark.parametrize("Rp,Cp,Bp", [
+    (1, 1, 4), (1, 37, 8), (2, 1, 128), (2, 300, 1024), (45, 1, 8), (45, 37, 4),
+    (45, 3000, 8), (70, 33, 128), (33, 300, 1024), (9, 3000, 128), (3, 3000, 1024),
+    (65, 17, 32), (129, 40, 36), (130, 70, 1024),
+])
+def test_class_pred_kernel_matches_plain_on_ragged_tiles(cuda, Rp, Cp, Bp):
+    """Rows of 1, 2 and lengths that are not a multiple of the 64-row run
+    (an odd last run leaves its last step one row), columns of 1, widths
+    that are not a multiple of the strip (16 or 32 columns) and 3,000
+    columns, 4 to 1,024 lanes (lane groups of 32 and 64 lanes, ragged at 36
+    lanes); the trim drops the last rows and columns and a few vertices."""
+    d, w8 = _random_field(Rp, Cp, Bp, cuda, seed=Rp * Cp + Bp)
+    R, C = max(Rp - 1, 1), max(Cp - 1, 1)
+    kw = dict(R=R, C=C, V=R * C - (1 if R * C > 1 else 0), tol=6e-3)
+    _pred_pair(d, w8, kw)
+
+
+def test_class_pred_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    d, w8 = _random_field(4, 8, 16, cuda)
+    kw = dict(R=4, C=8, V=32, tol=6e-3)
+    with pytest.raises(ValueError, match="lanes"):
+        bg.class_pred(d[..., :6].contiguous(), w8, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        bg.class_pred(d.view(-1)[1:1 + 4 * 8 * 12].view(4, 8, 12), w8, **kw)
+    with pytest.raises(ValueError, match="w8"):
+        bg.class_pred(d, w8[:, :7].contiguous(), **kw)
+    with pytest.raises(ValueError, match="exceed"):
+        bg.class_pred(d, w8, R=5, C=8, V=40, tol=6e-3)
+
+
+def test_class_pred_flag_from_one_element_on_a_tile_edge(cuda):
+    """A converged field with 128 lanes (lane groups of 32 lanes, strips of
+    32 columns, runs of 32 rows) and one raised element on a run's last row,
+    on a run's first row, on a strip's first and last column, and on a
+    corner: the flag turns on in kernel and plain version alike, and the
+    tables stay identical."""
+    _, plan = _plan(70, 80, cuda)
+    rng = np.random.default_rng(3)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, 128)).to(cuda)
+    conv = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL).d_pad
+    w8 = bg._w8_planes(plan, conv.shape[0])
+    kw = dict(R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices, tol=max(ATOL, 3 * RTOL))
+    assert not _pred_pair(conv, w8, kw)
+    for r, c, b0 in ((31, 40, 33), (32, 40, 64), (40, 31, 127), (40, 32, 0), (63, 63, 96)):
+        ok = torch.nonzero(torch.isfinite(conv[r, c]) & (conv[r, c] > 0)).flatten()
+        b = int(ok[torch.argmin((ok - b0).abs())])       # the finite lane nearest b0
+        old = conv[r, c, b].clone()
+        conv[r, c, b] = old * 1.5 + 1.0
+        assert _pred_pair(conv, w8, kw), (r, c, b)
+        conv[r, c, b] = old
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -265,6 +350,52 @@ def test_pass_wrapper_and_kernel_agree_on_the_column_limit(cuda):
         bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL)
 
 
+def test_full_banded_plan_on_the_card_matches_the_cpu(cuda):
+    """DijkstraPlanner.plan_batch_banded(light=False) on the card against the
+    same call on the CPU (the plain versions): outcomes equal, potentials
+    within the stopping tolerance, path costs within 1e-4; the id-mode
+    kernel launched once and its table equal to the plain version's on the
+    card's own field."""
+    from mesh_navigation_torch.config import PlannerConfig
+    from mesh_navigation_torch.planners import DijkstraPlanner
+
+    v, f = synthetic.terrain_mesh(40, 56, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, len(v), (2, 24))
+    s, g = torch.from_numpy(v[ids[0]]), torch.from_numpy(v[ids[1]])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = build_mesh(v, f, device=dev)
+        nz = np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0)
+        W = sweeps.slot_weights_np(mesh, np.arccos(nz).astype(np.float32), cost_limit=2.0,
+                                   edge_cost_factor=1.0)
+        pl = DijkstraPlanner(mesh, PlannerConfig(cost_limit=2.0), max_path_len=256, device=dev)
+        plan = pl.prepare_banded_plan(W)
+        before = kernels.LAUNCHES["class_pred_ids"]
+        out[dev.type] = pl.plan_batch_banded(plan, s, g, light=False, atol=ATOL, rtol=RTOL)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert kernels.LAUNCHES["class_pred_ids"] == before + 1
+            goal_v = torch.from_numpy(ids[1]).to(dev)
+            d = bg.banded_solve_padded(plan, goal_v, atol=ATOL, rtol=RTOL).d_pad
+            w8 = bg._w8_planes(plan, d.shape[0])
+            tol = max(ATOL, 1e-6)
+            kw = dict(R=plan.n_rows, C=plan.n_cols, V=plan.num_vertices, tol=tol)
+            table = bg.predecessors_banded_ids(plan, d, tol=tol)
+            assert torch.equal(table, bg.class_pred_plain(d, w8, **kw, as_class=False)[0])
+            assert torch.equal(table[:, :24].T, out["cuda"].pred)
+    k, c = out["cuda"], out["cpu"]
+    assert k.converged and c.converged
+    assert torch.equal(k.outcome.cpu(), c.outcome)
+    pk, pc = k.potential.cpu(), c.potential
+    fin = torch.isfinite(pc)
+    assert torch.equal(fin, torch.isfinite(pk))
+    assert bool(((pk - pc).abs()[fin] <= ATOL + RTOL * pc.abs()[fin]).all())
+    ok = c.outcome == 0
+    assert bool(ok.all())
+    torch.testing.assert_close(k.cost.cpu()[ok], c.cost[ok], rtol=1e-4, atol=0.0)
+
+
 def test_server_solves_wide_banded_plans_and_routes_wider_ones_to_the_structured_tier(cuda):
     """Through the server on the card: a 1,600-column terrain keeps its
     banded plan (past the old 1,024-column limit), a terrain wider than
@@ -295,19 +426,22 @@ def test_server_solves_wide_banded_plans_and_routes_wider_ones_to_the_structured
 
 def test_class_pred_kernel_past_65535_rows(cuda):
     """A narrow field of 70,000 rows: the grid folds rows into its x
-    dimension. Tables and flags identical to the plain version's."""
+    dimension. Tables and flags identical to the plain version's in both
+    modes, and the id table the class table decoded."""
     Rp, Cp, Bp = 70_000, 8, 4
     gen = torch.Generator().manual_seed(7)
     d = torch.rand((Rp, Cp, Bp), generator=gen) * 100
     d[torch.rand(d.shape, generator=gen) < 0.2] = torch.inf
     w8 = torch.rand((Rp, 8, Cp), generator=gen)
     d, w8 = d.to(cuda), w8.to(cuda)
-    kw = dict(R=Rp - 3, C=Cp - 2, V=(Rp - 3) * (Cp - 2) - 5, tol=6e-3, atol=ATOL, rtol=RTOL)
-    cls_k, viol_k = bg.class_pred(d, w8, **kw)
-    cls_p, viol_p = bg.class_pred_plain(d, w8, **kw)
-    assert torch.equal(cls_k, cls_p)
-    assert bool(viol_k.any()) == bool(viol_p.any())
+    kw = dict(R=Rp - 3, C=Cp - 2, V=(Rp - 3) * (Cp - 2) - 5, tol=6e-3)
+    _pred_pair(d, w8, kw)
+    cls_k, _ = bg.class_pred(d, w8, **kw)
+    ids_k, _ = bg.class_pred(d, w8, **kw, as_class=False)
     assert int((cls_k[-1000:] != 8).sum()) > 0        # the last rows were computed
+    vid = torch.arange(kw["V"], device=cuda)[:, None]
+    delta = torch.tensor(bg._class_offsets(kw["C"]) + [0], device=cuda)
+    assert torch.equal(ids_k.long(), vid + delta[cls_k.long()])
 
 
 def _eik_field(nx, ny, B, device):
