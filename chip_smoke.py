@@ -102,13 +102,34 @@ Phases, each printed as one JSON line on standard output:
    against the native predecessor chain's, both below 1%.
 16. kernels at the structured shapes: the fused sweep on the path's own
    field after 64 sweeps, one launch against the plain version bit for bit,
-   its time against its bound and the plain version's time; then the
+   its time against its bound and the plain version's time.
+17. irregular: the irregular-mesh stage at full width (bench.py:559-614) —
+   a jittered-Delaunay 1024x1024 terrain (seed 1), band-reordered, steepness
+   costs, the banded plan with residual edges and extended lanes (its
+   n_cols, coverage, residual edges, residual destinations and lanes
+   printed), 512 lanes, atol 1e-3 / rtol 2e-3, one warm-up, then ITERS
+   timed DijkstraPlanner.plan_batch_banded calls (light: a quiet-round
+   solve with the residual scatter-min, the residual class table, the
+   class-9 walk), each followed by one compute_velocity_banded cycle:
+   solves/s, rounds and `converged` per solve (gated), per-stage device
+   times, launches, peak memory, one traced iteration for the idle share.
+18. irregular_oracle: eight lanes of the warm-up solve against the native
+   heap Dijkstra: the larger of the start vertex's relative error and the
+   field's 99.9th-percentile one, below 1%.
+19. kernels at the irregular shapes: one more solve of the warm-up draw,
+   each pass launch timed against its bound with the rows its blocks
+   walked, each residual scatter-min timed; its first forced down pass and
+   first label-changing dirty-driven up pass held against the plain
+   version on a 48-row slab of their own input (bit for bit, dirty tables,
+   flags and rows walked equal); the class-pred kernel on the solve's field
+   against its plain version (both modes), its time and bound. Then the
    `{"kernels": [...]}` line with all five kernels (`class_pred` with its
-   id mode's time, bound and launches beside the main mode's).
+   id mode's time, bound and launches beside the main mode's; `banded_pass`
+   and `class_pred` with their irregular-path launches, time and bound).
 
 Kernel launches are counted per path: the counts are set to 0 just before
-the main path, the banded_full path, the replan path, the CVP path and the
-structured path, and read just after each;
+the main path, the banded_full path, the replan path, the CVP path, the
+structured path and the irregular path, and read just after each;
 launches made to hold a kernel against its plain version are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
@@ -162,6 +183,12 @@ FULL_BATCH = 128            # lanes per banded_full solve
 WIDE_PASS_COLS = (1500, 3000)   # row widths past 1,024 held against the plain pass
 STRUCTURED_BATCH = 128      # lanes per structured solve
 STRUCTURED_WAVE_SWEEPS = 64  # sweeps of the path's own solve before the full-shape check
+IRREGULAR_BATCH = 512       # lanes per irregular solve (bench.py:580-582)
+IRREGULAR_ATOL, IRREGULAR_RTOL = 1e-3, 2e-3   # the irregular stage's tolerance (bench.py:583-584)
+IRREGULAR_KERNELS = ("banded_pass", "banded_pass_dirty", "class_pred")
+IRREGULAR_ORACLE_LANES = 8  # lanes held against the native heap Dijkstra (bench.py:588-594)
+IRREGULAR_SLAB_ROWS = 48    # rows of an irregular-path pass's own input held against the plain pass
+XLANE_OPS = 2               # an extended lane: one add and one min an element
 
 
 def emit(obj) -> None:
@@ -241,23 +268,31 @@ def device_busy(fn, device) -> dict:
             "top_kernels_ms": {k[:60]: v for k, v in top}}
 
 
-def steepness_setup(mesh_n, device, cost_limit: float = 2.0):
-    """Terrain (mesh_n x mesh_n, or the (nx, ny) of a pair) -> mesh ->
-    steepness costs (the steepness layer) -> slot weights for the banded
-    plan."""
+def steepness_weights(mesh, cost_limit: float = 2.0):
+    """Steepness costs of a mesh (the steepness layer) and their slot
+    weights for the banded plan: (costs_np, costs, W)."""
     from mesh_navigation_torch.config import LayerConfig
     from mesh_navigation_torch.layers.local import make_steepness
-    from mesh_navigation_torch.mesh import synthetic
-    from mesh_navigation_torch.mesh.arrays import build_mesh
     from mesh_navigation_torch.ops import sweeps
 
-    nx, ny = mesh_n if isinstance(mesh_n, tuple) else (mesh_n, mesh_n)
-    v, f = synthetic.terrain_mesh(nx, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
-    mesh = build_mesh(v, f, device=device)
     steep = make_steepness(LayerConfig(name="steep", kind="steepness", params=(("threshold", 2.0),)))
     costs = steep(mesh, {}, {}).costs
     costs_np = costs.cpu().numpy()
     W = sweeps.slot_weights_np(mesh, costs_np, cost_limit=cost_limit, edge_cost_factor=1.0)
+    return costs_np, costs, W
+
+
+def steepness_setup(mesh_n, device, cost_limit: float = 2.0):
+    """Terrain (mesh_n x mesh_n, or the (nx, ny) of a pair) -> mesh ->
+    steepness costs (the steepness layer) -> slot weights for the banded
+    plan."""
+    from mesh_navigation_torch.mesh import synthetic
+    from mesh_navigation_torch.mesh.arrays import build_mesh
+
+    nx, ny = mesh_n if isinstance(mesh_n, tuple) else (mesh_n, mesh_n)
+    v, f = synthetic.terrain_mesh(nx, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+    mesh = build_mesh(v, f, device=device)
+    costs_np, costs, W = steepness_weights(mesh, cost_limit)
     return v, f, mesh, costs_np, costs, W
 
 
@@ -621,9 +656,11 @@ def percentile_rel_err(got, ref) -> float:
     return float(np.percentile(np.abs(got[fin] - ref[fin]) / np.maximum(ref[fin], 1e-3), 99.9))
 
 
-def oracle_gate(ctx, n_lanes: int = 2) -> dict:
+def oracle_gate(ctx, n_lanes: int = 2, phase: str = "oracle") -> dict:
     """Phase 4: path-cost parity against the native heap Dijkstra
-    (bench.py:169-204), gated at 1%."""
+    (bench.py:169-204), gated at 1%: the larger of the start vertex's
+    relative error and the field's 99.9th-percentile one, over the first
+    n_lanes lanes of the warm-up draw."""
     import torch
     from mesh_navigation_torch.mesh import query
     from mesh_navigation_torch.planners.dijkstra import potential_lanes
@@ -644,8 +681,8 @@ def oracle_gate(ctx, n_lanes: int = 2) -> dict:
         errs.append(percentile_rel_err(pot[b], od))
     err = float(np.max(errs))
     if not err < 0.01:
-        raise AssertionError(f"oracle parity {err:.3e} exceeds the 1% budget")
-    return {"phase": "oracle", "lanes": n_lanes, "max_rel_err": err, "budget": 0.01}
+        raise AssertionError(f"{phase} parity {err:.3e} exceeds the 1% budget")
+    return {"phase": phase, "lanes": n_lanes, "max_rel_err": err, "budget": 0.01}
 
 
 def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
@@ -1789,10 +1826,265 @@ def kernels_at_structured_shapes(sctx, device) -> tuple[dict, dict]:
                     "max_abs_err": pair["max_abs_err"]}
 
 
+def irregular(device, mesh_n: int, iters: int, batch: int = IRREGULAR_BATCH) -> tuple[dict, dict]:
+    """Phase 17: the irregular-mesh stage (bench.py:559-614) at full width: a
+    jittered-Delaunay terrain of mesh_n x mesh_n vertices, band-reordered
+    (mesh/reorder.build_reordered_mesh), steepness costs, slot weights, the
+    banded plan with its residual edges and extended lanes, then one warm-up
+    and `iters` timed DijkstraPlanner.plan_batch_banded(light=True) calls
+    with `batch` lanes at atol 1e-3 / rtol 2e-3 (a quiet-round solve with
+    the residual scatter-min, the residual class table, the class-9 walk),
+    each followed by one MeshController.compute_velocity_banded cycle.
+    Gates: converged on every solve, the pass kernel launched in its dirty
+    mode and the class-pred kernel launched, sane outputs."""
+    import torch
+    from mesh_navigation_torch.config import ControllerConfig, PlannerConfig
+    from mesh_navigation_torch.control import MeshController
+    from mesh_navigation_torch.control.controller import initial_state
+    from mesh_navigation_torch.mesh import reorder, synthetic
+    from mesh_navigation_torch.mesh.arrays import host_array
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.planners import DijkstraPlanner
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vi, fi = synthetic.irregular_terrain_mesh(mesh_n, mesh_n, spacing=0.5, jitter=0.45,
+                                              hills=2.0, roughness=0.01, seed=1)
+    t_delaunay = time.perf_counter() - t0
+    mesh = reorder.build_reordered_mesh(vi, fi, device=device)
+    del vi, fi
+    t_mesh = time.perf_counter() - t0
+    costs_np, costs, W = steepness_weights(mesh)
+    planner = DijkstraPlanner(mesh, PlannerConfig(cost_limit=2.0),
+                              max_path_len=max(2048, 3 * mesh_n), device=device)
+    ctrl = MeshController(mesh, ControllerConfig(), grid=planner.grid, device=device)
+    tp = time.perf_counter()
+    kplan = planner.prepare_banded_plan(W)
+    if kplan is None or not kplan.n_residual:
+        raise RuntimeError("no banded plan with residual edges for the irregular mesh")
+    sync(device)
+    plan_s = time.perf_counter() - tp
+    t_setup = time.perf_counter() - t0
+    plan_info = {"n_rows": kplan.n_rows, "n_cols": kplan.n_cols,
+                 "n_cols_pad": kplan.n_cols_pad, "coverage": kplan.coverage,
+                 "n_residual": kplan.n_residual, "n_res_dst": kplan.n_res_dst,
+                 "xlanes_down": [list(x) for x in kplan.xlanes_down],
+                 "xlanes_up": [list(x) for x in kplan.xlanes_up]}
+    log(f"# irregular set-up {t_setup:.1f} s (Delaunay {t_delaunay:.1f} s, mesh "
+        f"{t_mesh:.1f} s, plan {plan_s:.1f} s): {plan_info}")
+    rng = np.random.default_rng(SEED + 8)
+
+    def step(s, g, q, timer=None):
+        st = initial_state(torch.from_numpy(g).to(device), torch.tensor([1.0, 0.0, 0.0]))
+        res = planner.plan_batch_banded(kplan, torch.from_numpy(s), torch.from_numpy(g),
+                                        atol=IRREGULAR_ATOL, rtol=IRREGULAR_RTOL, timer=timer)
+        cmds, _ = ctrl.compute_velocity_banded(
+            kplan, res.d_pad.reshape(-1, res.d_pad.shape[-1]), costs, torch.from_numpy(s),
+            torch.from_numpy(q), st, tol=1e-5, lane_map=res.lane_map, timer=timer)
+        return res, cmds
+
+    kernels.reset_launches()
+    warm = sample_scenarios(rng, mesh_n, batch)
+    tw = time.perf_counter()
+    warm_res, cmds = step(*warm)
+    sync(device)
+    t_warm = time.perf_counter() - tw
+    solves = [{"rounds": warm_res.rounds, "converged": bool(warm_res.converged)}]
+    timer = StageTimer(device)
+    res = None
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        res = cmds = None
+        res, cmds = step(*sample_scenarios(rng, mesh_n, batch), timer=timer)
+        solves.append({"rounds": res.rounds, "converged": bool(res.converged)})
+    sync(device)
+    dt = time.perf_counter() - t1
+    launches = {name: kernels.LAUNCHES[name] for name in IRREGULAR_KERNELS}
+    for name, n in launches.items():
+        if n <= 0 and cuda:
+            raise AssertionError(f"kernel {name} was not launched on the irregular path")
+    if not all(x["converged"] for x in solves):
+        raise AssertionError(f"an irregular solve did not converge: {solves}")
+    ok_lanes = res.outcome == 0
+    checks = {
+        "shapes": list(res.path_positions.shape) == [batch, planner.max_path_len, 3]
+        and list(cmds.linear.shape) == [batch],
+        "reach_rate": float(ok_lanes.float().mean()),
+        "costs_finite_where_reached": bool(torch.isfinite(res.cost[ok_lanes]).all()),
+        "commands_finite": bool(torch.isfinite(cmds.linear).all()
+                                and torch.isfinite(cmds.angular).all()),
+        "control_success_rate": float((cmds.outcome == 0).float().mean()),
+    }
+    if not (checks["shapes"] and checks["costs_finite_where_reached"]
+            and checks["commands_finite"] and checks["reach_rate"] > 0.5):
+        raise AssertionError(f"irregular output check failed: {checks}")
+    stages = {k: val / iters for k, val in timer.totals().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    res = cmds = None
+    trace = device_busy(lambda: step(*sample_scenarios(rng, mesh_n, batch)), device)
+    out = {
+        "phase": "irregular", "mesh": f"{mesh_n}x{mesh_n}", "V": mesh.num_vertices,
+        "lanes": batch, "dtype": "float32", "atol": IRREGULAR_ATOL, "rtol": IRREGULAR_RTOL,
+        "plan": plan_info, "setup_s": t_setup, "delaunay_s": t_delaunay, "plan_s": plan_s,
+        "warmup_s": t_warm, "iters": iters, "solves_per_s": batch * iters / dt,
+        "ms_per_iter": dt * 1e3 / iters, "solves": solves, "stage_ms_per_iter": stages,
+        "launches": launches, "launches_per_solve": {k: n / (iters + 1) for k, n in launches.items()},
+        "checks": checks, "trace": trace, "peak_mem_gb": peak,
+    }
+    ctx = dict(v=host_array(mesh, "vertices"), f=host_array(mesh, "faces"), mesh=mesh,
+               costs_np=costs_np, kplan=kplan, planner=planner, warm=warm, warm_res=warm_res,
+               launches=launches)
+    return out, ctx
+
+
+def xl_slab_check(pass_fn, d, cross, a_fwd, a_bwd, kw: dict, r0: int, device) -> dict:
+    """The extended-lane pass kernel (`pass_fn`) against its plain version on rows r0 ..
+    r0 + IRREGULAR_SLAB_ROWS of one irregular-path launch's own input, at
+    the path's full width and lanes with its lanes, dirty table and flags;
+    rows outside the slab read as +inf to both. Fields bit for bit, dirty
+    tables, flags and rows walked equal; also the plain version's time."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    r1 = min(r0 + IRREGULAR_SLAB_ROWS, d.shape[0])
+    sl = lambda t: t[r0:r1].contiguous()   # noqa: E731
+    d_k = d[r0:r1].clone()
+    d_p = d_k.clone()
+    kw_s = dict(kw, xcross=sl(kw["xcross"]))
+    dirty = kw["dirty"]
+    dirty_k = dirty[:, r0:r1].clone()
+    dirty_p = dirty_k.clone()
+    wk = torch.zeros(1, dtype=torch.int32, device=d.device)
+    wp = torch.zeros(1, dtype=torch.int64, device=d.device)
+    chg_k = pass_fn(d_k, sl(cross), sl(a_fwd), sl(a_bwd),
+                    **dict(kw_s, dirty=dirty_k, rows_walked=wk))
+    got = []
+    plain_ms = time_ms(lambda: got.append(bg.directional_pass_plain(
+        d_p, sl(cross), sl(a_fwd), sl(a_bwd), bb=bg.PASS_LANES,
+        **dict(kw_s, dirty=dirty_p, rows_walked=wp))), device)
+    cmp = compare_fields(d_k, d_p, kw["atol"], kw["rtol"])
+    cmp.update(rows=[r0, r1], shape=list(d_k.shape), force=bool(kw.get("force")),
+               reverse=bool(kw["reverse"]), flags_equal=bool(chg_k.item()) == bool(got[0].item()),
+               dirty_equal=bool(torch.equal(dirty_k, dirty_p)),
+               dirty_rows_in=int(dirty[:, r0:r1].sum()), rows_walked=int(wk.item()),
+               rows_walked_equal=int(wk.item()) == int(wp.item()),
+               elements_changed=int((d_p != sl(d)).sum()), plain_ms=plain_ms)
+    if not (cmp["bitwise"] and cmp["flags_equal"] and cmp["dirty_equal"]
+            and cmp["rows_walked_equal"] and cmp["elements_changed"] > 0):
+        raise AssertionError(f"the extended-lane pass kernel disagrees with its plain version "
+                             f"on the irregular path's input: {cmp}")
+    return cmp
+
+
+def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
+    """Phase 19: the solve of one more plan_batch_banded call on the warm-up
+    draw, pass by pass: each pass launch timed by its own event pair, with
+    the rows its blocks walked and its bound from what that launch's data
+    needs (one read of the field, the cross and extended-lane planes and
+    level 0 of the chain weights, the dirty table read and written, one
+    write of each element it changed; against PASS_OPS + XLANE_OPS per
+    lane and element); each residual scatter-min timed the same way. The
+    first forced down pass and the first dirty-driven up pass that changes
+    labels are held against the plain version on a slab of their own input
+    (xl_slab_check). Then the class-pred kernel on the solve's field against
+    its plain version, its time and bound. Not counted for the path."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    planner, kplan = ictx["planner"], ictx["kplan"]
+    s, g, _ = ictx["warm"]
+    times, bounds_b, walked, slabs, scatter_ms = [], [], [], {}, []
+    orig_pass, orig_res = bg.directional_pass, bg._residual_round
+    L = {False: len(kplan.xlanes_down), True: len(kplan.xlanes_up)}
+
+    def timed_pass(d, cross, a_fwd, a_bwd, **kw):
+        Rp, Cp, Bp = d.shape
+        nb = Bp // bg.PASS_LANES
+        key = "forced" if kw.get("force") else "dirty"
+        want_slab = key not in slabs and (key == "forced" or kw["reverse"])
+        if want_slab:
+            d_in, dirty_in = d.clone(), kw["dirty"].clone()
+        before = d.clone()
+        nw = torch.zeros(1, dtype=torch.int32, device=d.device)
+        got = []
+        times.append(time_ms(lambda: got.append(orig_pass(d, cross, a_fwd, a_bwd,
+                                                          rows_walked=nw, **kw)), device))
+        diff = d != before
+        del before
+        n_written = int(diff.sum())
+        walked.append(int(nw.item()) / (Rp * nb))
+        planes = (5 + L[bool(kw["reverse"])]) * Rp * Cp
+        bounds_b.append((Rp * Cp * Bp + planes + 2 * nb * Rp + n_written) * 4 / HBM_BYTES_PER_S)
+        if want_slab and n_written:
+            rows = diff.any(dim=2).any(dim=1).nonzero()[:, 0]
+            r = int(rows[len(rows) // 2])
+            r0 = max(0, min(r - IRREGULAR_SLAB_ROWS // 2, Rp - IRREGULAR_SLAB_ROWS))
+            slabs[key] = xl_slab_check(orig_pass, d_in, cross, a_fwd, a_bwd,
+                                       dict(kw, dirty=dirty_in), r0, device)
+        if want_slab:
+            del d_in, dirty_in
+        return got[0]
+
+    def timed_res(*a, **kw):
+        got = []
+        scatter_ms.append(time_ms(lambda: got.append(orig_res(*a, **kw)), device))
+        return got[0]
+
+    bg.directional_pass, bg._residual_round = timed_pass, timed_res
+    try:
+        with uncounted():
+            goal_v = query.nearest_vertex_batch(planner.mesh, planner.grid,
+                                                torch.from_numpy(g).to(device))[0]
+            order, _ = bg.group_lanes(goal_v, kplan.num_vertices)
+            res = bg.banded_solve_padded(kplan, goal_v[order], max_rounds=256,
+                                         atol=IRREGULAR_ATOL, rtol=IRREGULAR_RTOL)
+    finally:
+        bg.directional_pass, bg._residual_round = orig_pass, orig_res
+    if set(slabs) != {"forced", "dirty"}:
+        raise AssertionError(f"the irregular solve gave no forced or no dirty-driven pass "
+                             f"to check: {sorted(slabs)}")
+    d = res.d_pad
+    Rp, Cp, Bp = d.shape
+    N = Rp * Cp * Bp
+    Lm = max(L.values())
+    ops_s = (PASS_OPS + XLANE_OPS * Lm) * N / F32_OPS_PER_S
+    bounds = [max(b, ops_s) * 1e3 for b in bounds_b]
+    tol = max(1e-5, 3.0 * IRREGULAR_RTOL)
+    with uncounted():
+        pred = check_pred_pair(kplan, d, IRREGULAR_ATOL, IRREGULAR_RTOL, tol=tol)
+        w8 = bg._w8_planes(kplan, Rp)
+        kw = dict(R=kplan.n_rows, C=kplan.n_cols, V=kplan.num_vertices, tol=tol)
+        time_ms(lambda: bg.class_pred(d, w8, **kw), device)                   # warm
+        pred_ms = time_ms(lambda: bg.class_pred(d, w8, **kw), device, reps=5)
+        recon_ms = time_ms(lambda: bg.predecessors_banded_classes_residual(kplan, d, tol=tol),
+                           device)
+    pred_bytes = N * 4 + kplan.num_vertices * Bp + 8 * Rp * Cp * 4
+    pred_bound = max(pred_bytes / HBM_BYTES_PER_S, PRED_OPS * N / F32_OPS_PER_S) * 1e3
+    detail = {"phase": "kernels_at_irregular_shapes", "field": [Rp, Cp, Bp],
+              "rounds": res.rounds, "converged": res.converged,
+              "xlanes": [len(kplan.xlanes_down), len(kplan.xlanes_up)],
+              "pass_launch_ms": times, "pass_bound_ms": bounds,
+              "pass_rows_walked_share": walked, "residual_scatter_ms": scatter_ms,
+              "path_slab_checks": slabs, "pred": pred, "pred_ms": pred_ms,
+              "pred_with_reconcile_ms": recon_ms, "pred_bound_ms": pred_bound}
+    for i, (t, b, w) in enumerate(zip(times, bounds, walked)):
+        log(f"# irregular pass {i}: {t:.3f} ms (bound {b:.3f} ms), rows walked share {w:.4f}")
+    return detail, {"ms": float(np.mean(times)), "bound_ms": float(np.mean(bounds)),
+                    "rows_walked_share": float(np.mean(walked)),
+                    "max_abs_err": max(c["max_abs_err"] for c in slabs.values()),
+                    "pred_ms": pred_ms, "pred_bound_ms": pred_bound,
+                    "pred_max_abs_err": float(pred["max_abs_err"])}
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
-        structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH) -> list:
-    """Phases 2-16 on `device`; returns the kernels line."""
+        structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
+        irregular_batch=IRREGULAR_BATCH) -> list:
+    """Phases 2-19 on `device`; returns the kernels line."""
     import torch
 
     kc = kernel_check(device, *small)
@@ -1871,6 +2163,22 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
                  **sk, "max_abs_err": max(sweep_err, sk["max_abs_err"]),
                  "library_ms": None,
                  "library_note": "no single PyTorch call computes a fused K-offset min-plus sweep"})
+    del sctx
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    ip, ictx = irregular(device, mesh_n, iters, irregular_batch)
+    emit(ip)
+    emit(oracle_gate(ictx, IRREGULAR_ORACLE_LANES, phase="irregular_oracle"))
+    ictx.pop("warm_res")
+    idetail, ik = kernels_at_irregular_shapes(ictx, device)
+    emit(idetail)
+    line[0].update(irregular_launches=ictx["launches"]["banded_pass"],
+                   irregular_ms=ik["ms"], irregular_bound_ms=ik["bound_ms"],
+                   irregular_rows_walked_share=ik["rows_walked_share"])
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"], ik["max_abs_err"])
+    line[1].update(irregular_launches=ictx["launches"]["class_pred"],
+                   irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])
+    line[1]["max_abs_err"] = max(line[1]["max_abs_err"], ik["pred_max_abs_err"])
     return line
 
 

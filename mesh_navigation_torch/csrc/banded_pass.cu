@@ -7,7 +7,9 @@
 // - DIRTY (use_dirty, :1003-1036): the per-(8-lane block, row) table of rows
 //   whose last scan still improved, used by the warm resolve;
 // - CUT (warm_cut, :864-878), only with DIRTY: the first down pass of a warm
-//   resolve applies the raise-invalidation cut and the seed re-insertion.
+//   resolve applies the raise-invalidation cut and the seed re-insertion;
+// - XL, with or without DIRTY: the extended lanes of irregular plans
+//   (xlanes, :887-896).
 //
 // What it computes. One pass over every row of the field d[Rp, Cp, Bp] (f32,
 // lanes contiguous), down (r = 0..Rp-1) or up (reverse). For each row:
@@ -32,6 +34,11 @@
 // CUT: each label is cut at load, cur = cur >= cutlb[row, c] + cutth[lane]
 // ? inf : cur, then cur = 0 where (seedrc[0, lane], seedrc[1, lane]) ==
 // (row, c); a row that is not needed keeps the cut labels.
+// XL: lane i = (sel, dc) adds src[c + dc] + xcross[r, i, c] to cand (+inf off
+// the row) before row0 and imp, src the carried row (sel 1), the row before
+// it as the pass left it (sel 2: a second carried row) or the row's own
+// values as loaded (sel 0). With a sel-2 lane and DIRTY the walk goes on for
+// two rows after a needed row (see Jumping).
 //
 // What bounds it on this card. The field is read once and the rows the pass
 // changes written once: at the main path's 1024 x 1024 x 1024 f32 field that
@@ -54,7 +61,17 @@
 //   the next row whose bit is set, loading its carry from memory; from a
 //   needed row it walks on row by row. Skipped rows were clean (their dirty
 //   entry is 0 already), keep what memory holds, and leave `changed` alone:
-//   what the plain pass leaves, bit for bit.
+//   what the plain pass leaves, bit for bit. With a sel-2 lane a row's need
+//   also depends on the row two before it, so the walker walks on for the
+//   two rows after a needed row, and jumps only where both rows before the
+//   target are as memory holds them; the prescan's need then counts both
+//   rows and the row's own shifts, as the walker's does.
+// - Extended lanes: the second carried row takes a second Cp*LANES floats of
+//   shared memory (two rows of the same ring, swapped a row), so plans with
+//   a sel-2 lane take rows of at most MAX_COLS_X2 columns. The lanes'
+//   weights are read from device memory (shared by all blocks through L2);
+//   own-row sources come from the staged row or from device memory, read
+//   before the barrier after which the row is written.
 // - Columns: a thread holds CPT consecutive columns of the row, each
 //   column's 8 lanes in registers: 1 column up to 32 (one warp), 4 up to
 //   1,024 (8 warps at 1,024 columns), then 8 (at most 512 threads, so
@@ -106,10 +123,20 @@
 #define MAX_THREADS 512
 #define MAX_WARPS (MAX_THREADS / 32)
 #define MAX_COLS 4096
+#define MAX_COLS_X2 3584   // with a second carried row (checked below)
 #define MAX_SMEM 232448
 #define PRESCAN_THREADS 256
+#define MAX_XLANES 24      // extended lanes a pass (the plan finds at most 21)
+#define MAX_XDC 4          // |dc| of an extended lane: the prescan's halo
 
 namespace {
+
+// the extended lanes of a pass: (sel, dc) each, and their weights [Rp, n, Cp]
+struct XLanes {
+  const float* w;
+  int n;
+  signed char sel[MAX_XLANES], dc[MAX_XLANES];
+};
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[LANES]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -205,21 +232,27 @@ __device__ __forceinline__ bool cut8(float (&v)[LANES], float lb, const float* t
 
 // One block: PRESCAN_THREADS columns of one lane block and one 32-row word
 // of the bit table, walked in pass order with the row before in shared
-// memory (float4 halves, columns shifted by one for the halo), so the field
-// is read about once.
-template <bool CUT>
+// memory (float4 halves, columns shifted by the halo), so the field is read
+// about once. XL keeps four rows in a ring (the row, the two before it, and
+// the next row's slot, so one barrier a row suffices) with MAX_XDC halo
+// columns each side.
+template <bool CUT, bool XL>
 __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
     float* __restrict__ d, const float* __restrict__ cross, const int* __restrict__ dirty,
     unsigned* __restrict__ need_bits, const float* __restrict__ cutlb,
     const float* __restrict__ cutth, const int* __restrict__ seedrc,
+    const __grid_constant__ XLanes xl,
     int Rp, int Cp, int Bp, int reverse, int force, float k_rtol, float atol) {
-  constexpr int W = PRESCAN_THREADS + 2;
-  __shared__ float4 rowbuf[2][2][W];
+  constexpr int T = PRESCAN_THREADS;
+  constexpr int H = XL ? MAX_XDC : 1;   // halo columns each side
+  constexpr int NBUF = XL ? 4 : 2;
+  constexpr int W = T + 2 * H;
+  __shared__ float4 rowbuf[NBUF][2][W];
   __shared__ float s_th[LANES];
   __shared__ int s_sr[LANES], s_sc[LANES];
   __shared__ unsigned s_word;
   const int nb = Bp / LANES;
-  const int nq = (Cp + PRESCAN_THREADS - 1) / PRESCAN_THREADS;
+  const int nq = (Cp + T - 1) / T;
   const int nwords = (Rp + 31) >> 5;
   long long bid = blockIdx.x;
   const int q = (int)(bid % nq);
@@ -227,12 +260,12 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
   const int j = (int)(bid % nb);
   const int w = (int)(bid / nb);
   const int tid = threadIdx.x;
-  const int c = q * PRESCAN_THREADS + tid;
+  const int c = q * T + tid;
+  const int k = tid + H;   // this thread's column in a row buffer
   const long long b0 = (long long)j * LANES;
   const long long rs = (long long)Cp * Bp;
   const int step = reverse ? -1 : 1;
   const int lo_row = w * 32, hi_row = min(w * 32 + 32, Rp);
-  const float4 inf4 = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
   if (tid < LANES) {
     s_th[tid] = CUT ? cutth[b0 + tid] : 0.f;
     s_sr[tid] = CUT ? seedrc[b0 + tid] : -1;
@@ -250,55 +283,110 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
     load8(d + rr * rs + (long long)cc * Bp + b0, v);
     return CUT && cut8(v, cutlb[(long long)rr * Cp + cc], s_th, s_sr, s_sc, rr, cc);
   };
-  auto put = [&](int buf, int k, const float (&v)[LANES]) {
-    rowbuf[buf][0][k] = make_float4(v[0], v[1], v[2], v[3]);
-    rowbuf[buf][1][k] = make_float4(v[4], v[5], v[6], v[7]);
+  auto put = [&](int buf, int kk, const float (&v)[LANES]) {
+    rowbuf[buf][0][kk] = make_float4(v[0], v[1], v[2], v[3]);
+    rowbuf[buf][1][kk] = make_float4(v[4], v[5], v[6], v[7]);
   };
   // the halo columns of row rr: the chunk's neighbours left and right
   auto halo = [&](int buf, int rr) {
-    if (tid == 0 || tid == PRESCAN_THREADS - 1) {
-      float v[LANES];
-      const int k = tid == 0 ? 0 : W - 1;
-      col(rr, tid == 0 ? q * PRESCAN_THREADS - 1 : q * PRESCAN_THREADS + PRESCAN_THREADS, v);
-      put(buf, k, v);
+    float v[LANES];
+    if (tid < H) {
+      col(rr, q * T - H + tid, v);
+      put(buf, tid, v);
+    } else if (tid >= T - H) {
+      const int e = tid - (T - H);
+      col(rr, q * T + T + e, v);
+      put(buf, T + H + e, v);
     }
   };
-  int r = reverse ? hi_row - 1 : lo_row;
-  {
-    float v[LANES];
-    col(r - step, c, v);
-    put(0, tid + 1, v);
-    halo(0, r - step);
-  }
-  __syncthreads();
-  int buf = 0;
-  for (int n = 0; n < hi_row - lo_row; ++n, r += step) {
-    float cur[LANES];
-    if (col(r, c, cur)) store8(d + r * rs + (long long)c * Bp + b0, cur);
-    int flag = 0;
-    if (c < Cp) {
-      const float* cr = cross + (long long)r * 3 * Cp + c;
-      const float x0 = cr[0], x1 = cr[Cp], x2 = cr[2 * Cp];
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 L = rowbuf[buf][h][tid], S = rowbuf[buf][h][tid + 1],
-                     R = rowbuf[buf][h][tid + 2];
-        const float cd[4] = {fminf(fminf(L.x + x0, S.x + x1), R.x + x2),
-                             fminf(fminf(L.y + x0, S.y + x1), R.y + x2),
-                             fminf(fminf(L.z + x0, S.z + x1), R.z + x2),
-                             fminf(fminf(L.w + x0, S.w + x1), R.w + x2)};
-        #pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          flag |= below(cd[l], cur[4 * h + l], k_rtol, atol);
-          if (force) flag |= fminf(cur[4 * h + l], cd[l]) < CUDART_INF_F;
-        }
-      }
+  // cand from the carried row in buffer b1 (columns k-1, k, k+1)
+  auto cand_cross = [&](int b1, int r, float (&cd)[LANES]) {
+    const float* cr = cross + (long long)r * 3 * Cp + c;
+    const float x0 = cr[0], x1 = cr[Cp], x2 = cr[2 * Cp];
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 L = rowbuf[b1][h][k - 1], S = rowbuf[b1][h][k], R = rowbuf[b1][h][k + 1];
+      cd[4 * h + 0] = fminf(fminf(L.x + x0, S.x + x1), R.x + x2);
+      cd[4 * h + 1] = fminf(fminf(L.y + x0, S.y + x1), R.y + x2);
+      cd[4 * h + 2] = fminf(fminf(L.z + x0, S.z + x1), R.z + x2);
+      cd[4 * h + 3] = fminf(fminf(L.w + x0, S.w + x1), R.w + x2);
     }
-    put(buf ^ 1, tid + 1, cur);
-    halo(buf ^ 1, r);
-    if (__any_sync(FULL_MASK, flag) && (tid & 31) == 0) atomicOr(&s_word, 1u << (r & 31));
+  };
+  auto flag_of = [&](const float (&cd)[LANES], const float (&cur)[LANES]) -> int {
+    int flag = 0;
+    #pragma unroll
+    for (int l = 0; l < LANES; ++l) {
+      flag |= below(cd[l], cur[l], k_rtol, atol);
+      if (force) flag |= fminf(cur[l], cd[l]) < CUDART_INF_F;
+    }
+    return flag;
+  };
+  int r = reverse ? hi_row - 1 : lo_row;
+  if constexpr (!XL) {
+    {
+      float v[LANES];
+      col(r - step, c, v);
+      put(0, k, v);
+      halo(0, r - step);
+    }
     __syncthreads();
-    buf ^= 1;
+    int buf = 0;
+    for (int n = 0; n < hi_row - lo_row; ++n, r += step) {
+      float cur[LANES];
+      if (col(r, c, cur)) store8(d + r * rs + (long long)c * Bp + b0, cur);
+      int flag = 0;
+      if (c < Cp) {
+        float cd[LANES];
+        cand_cross(buf, r, cd);
+        flag = flag_of(cd, cur);
+      }
+      put(buf ^ 1, k, cur);
+      halo(buf ^ 1, r);
+      if (__any_sync(FULL_MASK, flag) && (tid & 31) == 0) atomicOr(&s_word, 1u << (r & 31));
+      __syncthreads();
+      buf ^= 1;
+    }
+  } else {
+    // slot n & 3 holds the row of step n; the two rows before the word's
+    // first row go to slots 2 and 3
+    {
+      float v[LANES];
+      col(r - 2 * step, c, v);
+      put(2, k, v);
+      halo(2, r - 2 * step);
+      col(r - step, c, v);
+      put(3, k, v);
+      halo(3, r - step);
+    }
+    for (int n = 0; n < hi_row - lo_row; ++n, r += step) {
+      const int s0 = n & 3, s1 = (n + 3) & 3, s2 = (n + 2) & 3;
+      float cur[LANES];
+      if (col(r, c, cur)) store8(d + r * rs + (long long)c * Bp + b0, cur);
+      put(s0, k, cur);
+      halo(s0, r);
+      __syncthreads();
+      int flag = 0;
+      if (c < Cp) {
+        float cd[LANES];
+        cand_cross(s1, r, cd);
+        for (int li = 0; li < xl.n; ++li) {
+          const int dc = xl.dc[li], sel = xl.sel[li];
+          const int sb = sel == 0 ? s0 : (sel == 1 ? s1 : s2);
+          const float wx = __ldg(xl.w + ((long long)r * xl.n + li) * Cp + c);
+          #pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 X = rowbuf[sb][h][k + dc];
+            cd[4 * h + 0] = fminf(cd[4 * h + 0], X.x + wx);
+            cd[4 * h + 1] = fminf(cd[4 * h + 1], X.y + wx);
+            cd[4 * h + 2] = fminf(cd[4 * h + 2], X.z + wx);
+            cd[4 * h + 3] = fminf(cd[4 * h + 3], X.w + wx);
+          }
+        }
+        flag = flag_of(cd, cur);
+      }
+      if (__any_sync(FULL_MASK, flag) && (tid & 31) == 0) atomicOr(&s_word, 1u << (r & 31));
+    }
+    __syncthreads();
   }
   if (tid == 0) {
     unsigned word = s_word;
@@ -351,6 +439,8 @@ struct Args {
   int Rp, Cp, Bp, reverse, force, staged;
   int boxc, n_boxes;   // staged: columns of a TMA box, boxes a row
   float k_rtol, atol;
+  XLanes xl;
+  int x2;              // a sel-2 lane: two carried rows
 };
 
 #define N_SLOTS 3   // row stages: being read, being loaded, being stored
@@ -358,12 +448,18 @@ struct Args {
 // shared-memory layout (floats) beside the carried row
 #define TOT_FLOATS (2 * MAX_WARPS * (1 + LANES))
 
-// floats before the stage: the carried row of `cols` (threads x CPT) columns,
-// the warp totals and flags, the slots' barriers; then up to 1,024 bytes to
-// align the stage
-__host__ __device__ __forceinline__ long long stage_offset(int cols) {
-  return ((long long)cols * LANES + TOT_FLOATS + MAX_WARPS + 4 + 2 * N_SLOTS + 2 + 3) & ~3LL;
+// floats before the stage: the `ncarry` carried rows of `cols` (threads x
+// CPT) columns, the warp totals and flags, the slots' barriers; then up to
+// 1,024 bytes to align the stage
+__host__ __device__ constexpr long long stage_offset(int cols, int ncarry) {
+  return ((long long)cols * LANES * ncarry + TOT_FLOATS + MAX_WARPS + 4 + 2 * N_SLOTS + 2 + 3) &
+         ~3LL;
 }
+// two carried rows of MAX_COLS_X2 columns fit (8 columns a thread, so a
+// multiple of 256), one more step of 256 does not
+static_assert(stage_offset(MAX_COLS_X2, 2) * 4 <= MAX_SMEM &&
+                  stage_offset(MAX_COLS_X2 + 256, 2) * 4 > MAX_SMEM,
+              "MAX_COLS_X2 is the widest row whose two carried rows fit");
 
 // per slot: the field's row as its TMA boxes land ([n_boxes * boxc][LANES],
 // swizzled), then the tables as they lie in memory (cross [3][Cp], a_fwd,
@@ -373,9 +469,9 @@ __host__ __device__ __forceinline__ long long slot_floats(int Cp, int n_boxes, i
   return ((long long)n_boxes * boxc * LANES + 5LL * Cp + 255) & ~255LL;
 }
 
-template <bool DIRTY, int CPT>
+template <bool DIRTY, int CPT, bool XL>
 __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
-    Args g, const __grid_constant__ CUtensorMap tmap) {
+    const __grid_constant__ Args g, const __grid_constant__ CUtensorMap tmap) {
   constexpr int TV = CPT >= 4 ? 4 : CPT;   // floats a thread reads of a table row
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -393,15 +489,22 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   // carried row, [2 CPT][NT] float4: thread t's column t*CPT + i, lanes
-  // 4h..4h+3 at (2i + h) NT + t, so a warp's accesses are consecutive
+  // 4h..4h+3 at (2i + h) NT + t, so a warp's accesses are consecutive. With a
+  // sel-2 lane a second one follows: the two are a ring, prev4 the row
+  // before, prev2_4 the one before it; a row is written over prev2_4 and the
+  // two swap at the row's end.
+  const bool two_rows = XL && g.x2 != 0;
+  const int ncarry = two_rows ? 2 : 1;
   float4* prev4 = smem4;
-  float* tot = smem + (long long)NT * CPT * LANES;      // [2][MAX_WARPS][1 + LANES]
+  float4* prev2_4 = smem4 + 2 * CPT * NT;
+  float* tot = smem + (long long)NT * CPT * LANES * ncarry;   // [2][MAX_WARPS][1 + LANES]
   int* wflag = reinterpret_cast<int*>(tot + TOT_FLOATS);   // [MAX_WARPS]
   int* sflag = wflag + MAX_WARPS;                          // [N_SLOTS] staged dirty flags
   uint64_t* mbar = reinterpret_cast<uint64_t*>(
       (reinterpret_cast<uintptr_t>(sflag + 4) + 7) & ~uintptr_t(7));   // [N_SLOTS]
   float* stage = reinterpret_cast<float*>(
-      (reinterpret_cast<uintptr_t>(smem + stage_offset(NT * CPT)) + 1023) & ~uintptr_t(1023));
+      (reinterpret_cast<uintptr_t>(smem + stage_offset(NT * CPT, ncarry)) + 1023) &
+      ~uintptr_t(1023));
   const int boxc = g.boxc, n_boxes = g.n_boxes;
   const long long slot_f = slot_floats(Cp, n_boxes, boxc);
   const long long d_floats = (long long)n_boxes * boxc * LANES;   // the d part of a slot
@@ -479,9 +582,63 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       cd[4 * h + 3] = fminf(fminf(L.w + x0, S.w + x1), R.w + x2);
     }
   };
+  // the extended lanes of column i into cd: the carried rows' columns from
+  // shared memory, own-row columns from the staged row `srow` or from row r
+  // in device memory
+  auto cand_xl = [&](int i, int r, const float* srow, float (&cd)[LANES]) {
+    const int c = c0 + i;
+    for (int li = 0; li < g.xl.n; ++li) {
+      const int cs = c + g.xl.dc[li];
+      if (cs < 0 || cs >= Cp) continue;
+      const int sel = g.xl.sel[li];
+      const float wx = __ldg(g.xl.w + ((long long)r * g.xl.n + li) * Cp + c);
+      const float4* p4 = sel == 1 ? prev4 : prev2_4;
+      const int t = cs / CPT, ii = cs - t * CPT;
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 X;
+        if (sel != 0)
+          X = p4[(2 * ii + h) * NT + t];
+        else if (staged)
+          X = *reinterpret_cast<const float4*>(reinterpret_cast<const char*>(srow) +
+                                               swz(cs * 32 + 16 * h));
+        else
+          X = reinterpret_cast<const float4*>(d + r * rs + (long long)cs * Bp + b0)[h];
+        cd[4 * h + 0] = fminf(cd[4 * h + 0], X.x + wx);
+        cd[4 * h + 1] = fminf(cd[4 * h + 1], X.y + wx);
+        cd[4 * h + 2] = fminf(cd[4 * h + 2], X.z + wx);
+        cd[4 * h + 3] = fminf(cd[4 * h + 3], X.w + wx);
+      }
+    }
+  };
+  // cand of column i with the extended lanes (XL)
+  auto cand_all = [&](int i, int r, const float* srow, float x0, float x1, float x2w,
+                      float (&cd)[LANES]) {
+    cand_col(i, x0, x1, x2w, cd);
+    if constexpr (XL) cand_xl(i, r, srow, cd);
+  };
+  // the written row into the carry: over the row before (one carried row)
+  // or over the second carried row, which then becomes the row before
   auto put_prev = [&](int i, const float (&v)[LANES]) {
-    prev4[(2 * i) * NT + tid] = make_float4(v[0], v[1], v[2], v[3]);
-    prev4[(2 * i + 1) * NT + tid] = make_float4(v[4], v[5], v[6], v[7]);
+    float4* nx4 = two_rows ? prev2_4 : prev4;
+    nx4[(2 * i) * NT + tid] = make_float4(v[0], v[1], v[2], v[3]);
+    nx4[(2 * i + 1) * NT + tid] = make_float4(v[4], v[5], v[6], v[7]);
+  };
+  // column i of row rr as memory holds it into carry p4 (+inf off the field)
+  auto load_carry = [&](float4* p4, int rr) {
+    if (!thr_ok) return;
+    #pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      float v[LANES];
+      if (rr >= 0 && rr < Rp) {
+        load8(d + rr * rs + (long long)(c0 + i) * Bp + b0, v);
+      } else {
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) v[l] = CUDART_INF_F;
+      }
+      p4[(2 * i) * NT + tid] = make_float4(v[0], v[1], v[2], v[3]);
+      p4[(2 * i + 1) * NT + tid] = make_float4(v[4], v[5], v[6], v[7]);
+    }
   };
 
   // staged: a written row goes back through its stage slot and leaves by
@@ -501,8 +658,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
     bulk_commit();
   };
 
-  #pragma unroll
-  for (int q = 0; q < 2 * CPT; ++q) prev4[q * NT + tid] = inf4;
+  for (int q = 0; q < 2 * CPT * ncarry; ++q) smem4[q * NT + tid] = inf4;
   if (staged && tid == 0) {
     for (int k = 0; k < N_SLOTS; ++k) mbar_init(mbar + k);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -511,7 +667,8 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
 
   int r = rev ? Rp - 1 : 0;
   int slot = 0, staged_row = -1;
-  bool carried = false;   // the carry is a row this pass wrote (DIRTY: walk on)
+  bool carried = false;   // DIRTY: walk on (a carried row this pass wrote)
+  bool last_need = false; // the row before was needed (two_rows: walk on)
   int changed = 0, n_walked = 0;
   float* tf = tot;                         // forward totals
   float* tb = tot + MAX_WARPS * (1 + LANES);   // backward totals
@@ -526,16 +683,12 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       const int r2 = next_needed(bits, r, Rp, rev);
       if (r2 < 0) break;
       if (r2 != r) {
-        const int rc = r2 - step;   // a skipped row: memory holds it
-        if (thr_ok) {
-          #pragma unroll
-          for (int i = 0; i < CPT; ++i) {
-            float v[LANES];
-            load8(d + rc * rs + (long long)(c0 + i) * Bp + b0, v);
-            put_prev(i, v);
-          }
-        }
+        // the carried rows: skipped rows or rows walked and not needed,
+        // which memory holds
+        load_carry(prev4, r2 - step);
+        if (two_rows) load_carry(prev2_4, r2 - 2 * step);
         r = r2;
+        last_need = false;
         __syncthreads();
       }
     }
@@ -563,6 +716,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       wait_slot(slot);
     }
     const float* cp = cur_ptr(r, slot);
+    const float* srow = stage + slot * slot_f;
     ++n_walked;
 
     // cand, row0 and the flags
@@ -582,7 +736,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
         const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
         float cd[LANES];
-        cand_col(i, x0[i], x1[i], x2[i], cd);
+        cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
         #pragma unroll
         for (int l = 0; l < LANES; ++l) {
           v[i][l] = fminf(cur[l], cd[l]);
@@ -734,7 +888,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
             const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
             const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
             float cd[LANES];
-            cand_col(i, x0[i], x1[i], x2[i], cd);
+            cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
             #pragma unroll
             for (int l = 0; l < LANES; ++l)
               simp |= below(v[i][l], fminf(cur[l], cd[l]), k_rtol, atol);
@@ -748,7 +902,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
               const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
               const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
               float cd[LANES];
-              cand_col(i, x0[i], x1[i], x2[i], cd);
+              cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
               #pragma unroll
               for (int l = 0; l < LANES; ++l) v[i][l] = fminf(cur[l], cd[l]);
             }
@@ -781,16 +935,23 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
     } else {
       if (DIRTY && tid == 0) drow[r] = 0;
       if (thr_ok) {
+        float4* nx4 = two_rows ? prev2_4 : prev4;
         #pragma unroll
         for (int i = 0; i < CPT; ++i) {
-          prev4[(2 * i) * NT + tid] = ld_cur(cp, i, 0);
-          prev4[(2 * i + 1) * NT + tid] = ld_cur(cp, i, 1);
+          nx4[(2 * i) * NT + tid] = ld_cur(cp, i, 0);
+          nx4[(2 * i + 1) * NT + tid] = ld_cur(cp, i, 1);
         }
       }
     }
+    if (two_rows) {
+      float4* t4 = prev4;
+      prev4 = prev2_4;
+      prev2_4 = t4;
+    }
     if (staged) staged_row = pre ? rn : -1;
     if (DIRTY && pre && tid == 0) sflag[nslot] = next_flag;
-    carried = need;
+    carried = need || (two_rows && last_need);
+    last_need = need;
     slot = nslot;
     r += step;
     __syncthreads();
@@ -813,10 +974,11 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
 int cols_per_thread(int Cp) { return Cp <= 32 ? 1 : (Cp <= 1024 ? 4 : 8); }
 
 size_t walker_smem(int NT, int CPT, const Args& g) {
-  if (!g.staged) return (size_t)stage_offset(NT * CPT) * sizeof(float);
+  const int ncarry = g.x2 ? 2 : 1;
+  if (!g.staged) return (size_t)stage_offset(NT * CPT, ncarry) * sizeof(float);
   // slot_floats, and 1,024 bytes to align the stage
   const long long slot = slot_floats(g.Cp, g.n_boxes, g.boxc);
-  return (size_t)(stage_offset(NT * CPT) + 256 + N_SLOTS * slot) * sizeof(float);
+  return (size_t)(stage_offset(NT * CPT, ncarry) + 256 + N_SLOTS * slot) * sizeof(float);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -849,9 +1011,9 @@ int field_map(CUtensorMap* m, float* d, int Rp, int Cp, int Bp, int boxc) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <bool DIRTY, int CPT>
+template <bool DIRTY, int CPT, bool XL>
 int launch_walker(const Args& g, const CUtensorMap& m, int NT, size_t smem, cudaStream_t s) {
-  auto kern = banded_pass_kernel<DIRTY, CPT>;
+  auto kern = banded_pass_kernel<DIRTY, CPT, XL>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -861,18 +1023,22 @@ int launch_walker(const Args& g, const CUtensorMap& m, int NT, size_t smem, cuda
 
 }  // namespace
 
-// The kernel's limits, for the wrapper: the widest row, and the columns a
-// thread holds at a row width (the plain version's scan follows it).
+// The kernel's limits, for the wrapper: the widest row, with one and with
+// two carried rows.
 extern "C" int banded_pass_max_cols() { return MAX_COLS; }
+extern "C" int banded_pass_max_cols_x2() { return MAX_COLS_X2; }
 
 // `dirty` null: no dirty table (then `need_bits` null too); with it,
 // `need_bits` is a zeroed [Bp / 8][ceil(Rp / 32)] uint32 table the prescan
 // fills. `cutlb`, `cutth`, `seedrc` all null: no cut. A cut needs the dirty
-// table. `walked` (nullable) gains the rows the blocks walked.
+// table. `walked` (nullable) gains the rows the blocks walked. `n_x` extended
+// lanes: `xl` holds (sel, dc) for each (host memory), `xcross` their
+// [Rp, n_x, Cp] weights.
 extern "C" int banded_pass_launch(
     float* d, const float* cross, const float* af, long long af_rs,
     const float* ab, long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
     const float* cutlb, const float* cutth, const int* seedrc,
+    const float* xcross, int n_x, const int* xl,
     int Rp, int Cp, int Bp, int reverse, int force, float k_rtol, float atol,
     void* stream) {
   if (Cp < 1 || Cp > MAX_COLS || Bp < LANES || Bp % LANES != 0 || Rp < 1)
@@ -886,25 +1052,42 @@ extern "C" int banded_pass_launch(
   const unsigned long long al = (unsigned long long)d | (unsigned long long)cross |
                                 (unsigned long long)af | (unsigned long long)ab;
   if (al % 16 != 0 || af_rs % 4 != 0 || ab_rs % 4 != 0) return (int)cudaErrorInvalidValue;
+  XLanes xs = {};
+  xs.w = xcross;
+  xs.n = n_x;
+  int x2 = 0;
+  if (n_x < 0 || n_x > MAX_XLANES || (n_x > 0 && (xcross == nullptr || xl == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_x; ++i) {
+    const int sel = xl[2 * i], dc = xl[2 * i + 1];
+    if (sel < 0 || sel > 2 || dc < -MAX_XDC || dc > MAX_XDC) return (int)cudaErrorInvalidValue;
+    xs.sel[i] = (signed char)sel;
+    xs.dc[i] = (signed char)dc;
+    x2 |= sel == 2;
+  }
+  if (x2 && Cp > MAX_COLS_X2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dirty != nullptr) {
     const long long nq = (Cp + PRESCAN_THREADS - 1) / PRESCAN_THREADS;
     const long long n = (long long)((Rp + 31) / 32) * (Bp / LANES) * nq;
     if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-#define PRESCAN_ARGS d, cross, dirty, need_bits, cutlb, cutth, seedrc, Rp, Cp, Bp, reverse, \
-    force, k_rtol, atol
-    if (cut)
-      banded_prescan_kernel<true><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(PRESCAN_ARGS);
-    else
-      banded_prescan_kernel<false><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(PRESCAN_ARGS);
-#undef PRESCAN_ARGS
+#define PRESCAN(CT, XT)                                                                      \
+  banded_prescan_kernel<CT, XT><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(                     \
+      d, cross, dirty, need_bits, cutlb, cutth, seedrc, xs, Rp, Cp, Bp, reverse, force, k_rtol, \
+      atol)
+    if (cut) {
+      if (n_x) PRESCAN(true, true); else PRESCAN(true, false);
+    } else {
+      if (n_x) PRESCAN(false, true); else PRESCAN(false, false);
+    }
+#undef PRESCAN
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int NT = ((Cp / CPT) + 31) / 32 * 32;
   const int boxc = Cp < 256 ? (Cp + 31) / 32 * 32 : 256;
   Args g = {d, cross, af, af_rs, ab, ab_rs, chg, dirty, need_bits, walked,
-            Rp, Cp, Bp, reverse, force, 1, boxc, (Cp + boxc - 1) / boxc, k_rtol, atol};
+            Rp, Cp, Bp, reverse, force, 1, boxc, (Cp + boxc - 1) / boxc, k_rtol, atol, xs, x2};
   // staged: rows by TMA, at most 4 columns a thread (the tables' own layout)
   // and rows of whole 16-byte pieces; else rows read and written in place
   g.staged = CPT <= 4 && Cp % 4 == 0;
@@ -919,17 +1102,25 @@ extern "C" int banded_pass_launch(
     const int err = field_map(&m, d, Rp, Cp, Bp, boxc);
     if (err != 0) return err;
   }
-#define WALK(DT)                                                        \
+#define WALK(DT, XT)                                                    \
   switch (CPT) {                                                        \
-    case 1: return launch_walker<DT, 1>(g, m, NT, smem, s);             \
-    case 2: return launch_walker<DT, 2>(g, m, NT, smem, s);             \
-    case 4: return launch_walker<DT, 4>(g, m, NT, smem, s);             \
-    case 8: return launch_walker<DT, 8>(g, m, NT, smem, s);             \
+    case 1: return launch_walker<DT, 1, XT>(g, m, NT, smem, s);         \
+    case 2: return launch_walker<DT, 2, XT>(g, m, NT, smem, s);         \
+    case 4: return launch_walker<DT, 4, XT>(g, m, NT, smem, s);         \
+    case 8: return launch_walker<DT, 8, XT>(g, m, NT, smem, s);         \
   }
   if (dirty != nullptr) {
-    WALK(true)
+    if (n_x) {
+      WALK(true, true)
+    } else {
+      WALK(true, false)
+    }
   } else {
-    WALK(false)
+    if (n_x) {
+      WALK(false, true)
+    } else {
+      WALK(false, false)
+    }
   }
 #undef WALK
   return (int)cudaErrorInvalidValue;

@@ -87,6 +87,12 @@ def host_array(mesh: MeshArrays, name: str) -> np.ndarray:
     return mesh.host[name]
 
 
+def host_array_opt(mesh: MeshArrays, name: str):
+    """A registered host table that is not a mesh field (the `band_hint` of
+    mesh/reorder.build_reordered_mesh), or None where it is absent."""
+    return mesh.host.get(name)
+
+
 def from_host_tables(tables: dict[str, np.ndarray], device) -> MeshArrays:
     """Upload host tables to `device`, keeping the numpy originals."""
     dev = resolve_device(device)

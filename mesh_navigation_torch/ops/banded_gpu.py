@@ -4,17 +4,20 @@ Counterpart of mesh_navigation_tpu/ops/pallas_banded.py: the host plan
 builder (BandedKernelPlan / build_banded_kernel_plan, :56-511), the padded
 problem (prepare_padded, :1332), the solve loop (banded_solve_padded,
 :1413, converge="pred", "round" and "check", and the warm incremental
-resolve), lane grouping (:2041), the int8 class predecessor table (:2531)
-and the int32 real-id table (predecessors_banded_pallas, :2463), the
-class-decoding path walk (:2644), the on-the-fly predecessor lookup
-(:2834), and the live-replan plane refresh and changed-region planes
+resolve; on irregular plans the extended lanes and the residual
+scatter-min, :1530-1678), lane grouping (:2041), the int8 class
+predecessor table (:2531) with its residual reconcile (:2588) and the int32
+real-id table with its residual post-pass (predecessors_banded_pallas,
+:2463), the class-decoding path walk with the class-9 decode (:2644), the
+on-the-fly predecessor lookup with the residual probe (:2834), and the
+live-replan plane refresh, residual weights and changed-region planes
 (:580-807, :2069-2143).
 
 Three kernels carry the solve; each has a plain PyTorch version beside it
 with the same semantics (row order, carry, gated writes, class order):
 
 - `directional_pass` — csrc/banded_pass.cu, replacing `_pass_kernel`, with
-  its dirty-table and warm-cut modes;
+  its dirty-table, warm-cut and extended-lane modes;
 - `class_pred` — csrc/class_pred.cu, replacing `_pred_kernel` in both of its
   modes (int8 classes with the certificate; int32 real ids);
 - `check` — csrc/check.cu, replacing `_check_kernel`.
@@ -25,6 +28,7 @@ tensor it launches the kernel or raises; there is no fallback.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -44,6 +48,14 @@ PASS_LANES = 8   # batch lanes per CUDA block of the pass kernel
 # Wider banded plans take the structured tier.
 PASS_WIDE_COLS = 8
 PASS_MAX_COLS = 512 * PASS_WIDE_COLS
+# with a second carried row (a plan with extended lanes two rows away, sel 2)
+# two rows of Cp * 8 lanes * 4 B must fit beside the block's scan scratch:
+# the widest such row by the launcher's reckoning (csrc/banded_pass.cu
+# MAX_COLS_X2, 14 x 256 columns). Wider plans with such lanes take the
+# structured tier.
+PASS_MAX_COLS_X2 = 3584
+# the widest column shift of an extended lane (the prescan's halo)
+PASS_MAX_XDC = 4
 
 
 def pass_cols_per_thread(Cp: int) -> int:
@@ -423,6 +435,8 @@ class PaddedProblem:
     a_bwd: torch.Tensor   # [Rp, S, Cp]
     rb: int
     bb: int
+    xdown: torch.Tensor | None = None   # [Rp, L, Cp] extended lanes of the down pass
+    xup: torch.Tensor | None = None     # [Rp, L, Cp] of the up pass (None: no lanes)
 
 
 def _pad_rows(p: torch.Tensor, Rp: int, fill=INF) -> torch.Tensor:
@@ -440,7 +454,9 @@ def prepare_padded(
     """Pad the planes to a multiple of `rb` rows and seed the padded field
     (lanes padded to a multiple of `bb`). The CUDA pass has no row blocks
     (rb=1) and runs 8-lane blocks; the reference's interpreter runs rb=2.
-    seeded=False leaves d0 None (a warm resolve starts from its own field)."""
+    seeded=False leaves d0 None (a warm resolve starts from its own field).
+    The extended-lane planes are padded where the plan has lanes
+    (pallas_banded.py:1385-1386), else left None."""
     B = seeds.shape[0]
     R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
     Rp = _round_up(R, rb)
@@ -460,6 +476,8 @@ def prepare_padded(
         a_bwd=_pad_rows(plan.a_bwd, Rp),
         rb=rb,
         bb=bb,
+        xdown=_pad_rows(plan.xdown, Rp).contiguous() if plan.xlanes_down else None,
+        xup=_pad_rows(plan.xup, Rp).contiguous() if plan.xlanes_up else None,
     )
 
 
@@ -562,17 +580,44 @@ def _require_dirty_for_cut(dirty, warm_cut) -> None:
         raise ValueError("directional_pass: warm_cut needs the dirty table")
 
 
+def _check_xlanes(xcross, xlanes, shape) -> None:
+    """Extended lanes: (sel, dc) pairs, sel 0 the row's own loaded values,
+    1 the carried row, 2 the second carried row, |dc| <= PASS_MAX_XDC, one
+    [Rp, L, Cp] plane each in xcross."""
+    if not xlanes:
+        return
+    Rp, Cp = shape
+    if xcross is None or tuple(xcross.shape) != (Rp, len(xlanes), Cp):
+        raise ValueError(f"directional_pass: xcross must be [{Rp}, {len(xlanes)}, {Cp}]")
+    for sel, dc in xlanes:
+        if sel not in (0, 1, 2) or abs(dc) > PASS_MAX_XDC or (sel == 0 and dc == 0):
+            raise ValueError(f"directional_pass: bad extended lane {(sel, dc)}")
+
+
+def pass_needs_two_rows(xlanes) -> bool:
+    """A lane two rows away (sel 2) makes the pass carry a second row, and
+    makes a dirty-table walk go on for two rows after a needed row."""
+    return any(sel == 2 for sel, _ in xlanes)
+
+
 def directional_pass_plain(
     d: torch.Tensor, cross: torch.Tensor, a_fwd: torch.Tensor, a_bwd: torch.Tensor,
     *, reverse: bool, bb: int, atol: float, rtol: float, force: bool = False,
     dirty: torch.Tensor | None = None, warm_cut: tuple | None = None,
-    rows_walked: torch.Tensor | None = None,
+    rows_walked: torch.Tensor | None = None, xcross: torch.Tensor | None = None,
+    xlanes: tuple = (),
 ) -> torch.Tensor:
     """Plain PyTorch version of the pass, in place on d [Rp, Cp, Bp]: the
-    full-depth, residual-free configurations of _pass_kernel (skip=True).
+    full-depth configurations of _pass_kernel (skip=True).
     Rows run in order, the carried row is the row as written, `imp` is an
     any over each block of `bb` lanes and writes gate on
     need = imp | (force & any finite).
+    With `xlanes` ((sel, dc) pairs) and `xcross` ([Rp, L, Cp]), the
+    extended lanes of irregular plans (pallas_banded.py:887-896) add to the
+    cross candidate, before row0 and imp: lane i relaxes
+    src[c + dc] + xcross[r, i, c] (+inf off the row), src the carried row
+    (sel 1), the row before it as written (sel 2) or the row's own values
+    as loaded (sel 0).
     With `dirty` ([Bp // bb, Rp] int32, updated in place; use_dirty,
     pallas_banded.py:1003-1036) need |= dirty[j, row], a needed row scans
     base = row0 and keeps the scan only where it still improved by more than
@@ -586,14 +631,17 @@ def directional_pass_plain(
     becomes 0.
     `rows_walked` (int [1], optional) gains the rows the kernel's blocks
     walk, summed over the blocks: every row without `dirty`; with it the
-    rows that are needed or follow a needed row (the kernel jumps over the
-    others, whose need its prescan reads from memory).
+    rows that are needed or follow a needed row, or one of the two rows
+    after it where a lane has sel 2 (the kernel jumps over the others, whose
+    need its prescan reads from memory).
     Returns the changed flag (any imp, and with `dirty` any simp), int32 [1]."""
     _require_dirty_for_cut(dirty, warm_cut)
     Rp, Cp, Bp = d.shape
+    _check_xlanes(xcross, xlanes, (Rp, Cp))
+    two = pass_needs_two_rows(xlanes)
     nb = Bp // bb
     k = 1.0 + rtol
-    prev = torch.full((Cp, Bp), INF, dtype=d.dtype, device=d.device)
+    prev = prev2 = torch.full((Cp, Bp), INF, dtype=d.dtype, device=d.device)
     changed = torch.zeros((), dtype=torch.bool, device=d.device)
 
     def block_any(x):      # [Cp, Bp] -> [nb]
@@ -606,7 +654,7 @@ def directional_pass_plain(
         cutlb, cutth, seedrc = warm_cut
         cols = torch.arange(Cp, device=d.device)[:, None]
     walked = torch.zeros((), dtype=torch.int64, device=d.device)
-    prev_need = torch.zeros(nb, dtype=torch.bool, device=d.device)
+    prev_need = prev2_need = torch.zeros(nb, dtype=torch.bool, device=d.device)
     for r in (range(Rp - 1, -1, -1) if reverse else range(Rp)):
         cur = orig = d[r]
         if warm_cut is not None:
@@ -620,6 +668,11 @@ def directional_pass_plain(
             ),
             _shift_cols(prev, -1) + x[2][:, None],
         )
+        for li, (sel, dc) in enumerate(xlanes):
+            src = prev if sel == 1 else (prev2 if sel == 2 else cur)
+            if dc:
+                src = _shift_cols(src, -dc)
+            cand = torch.minimum(cand, src + xcross[r, li][:, None])
         row0 = torch.minimum(cur, cand)
         imp = block_any(cand * k + atol < cur)
         need = imp
@@ -641,9 +694,12 @@ def directional_pass_plain(
             new = torch.where(lanes(need), _scan_row(row0, a_fwd[r], a_bwd[r]), cur)
         if new is not orig:
             d[r] = new
-        prev = new
-        walked += int(nb) if dirty is None else (need | prev_need).sum()
-        prev_need = need
+        prev2, prev = prev, new
+        if dirty is None:
+            walked += int(nb)
+        else:
+            walked += (need | prev_need | (prev2_need & two)).sum()
+        prev2_need, prev_need = prev_need, need
     if rows_walked is not None:
         rows_walked += walked.to(rows_walked.dtype)
     return changed.to(torch.int32).reshape(1)
@@ -654,27 +710,34 @@ def directional_pass(
     *, reverse: bool, bb: int = PASS_LANES, atol: float, rtol: float,
     force: bool = False, dirty: torch.Tensor | None = None,
     warm_cut: tuple | None = None, rows_walked: torch.Tensor | None = None,
+    xcross: torch.Tensor | None = None, xlanes: tuple = (),
 ) -> torch.Tensor:
     """One directional Gauss-Seidel pass over every row of d, in place, with
-    the optional dirty table and warm cut of directional_pass_plain.
-    CPU tensors run directional_pass_plain; CUDA tensors launch the
-    csrc/banded_pass.cu kernel (8-lane blocks, with the dirty table after
-    its prescan) or raise. `rows_walked` (int32 [1] on d's device, optional)
-    gains the rows the kernel's blocks walked. Returns the changed flag as
-    an int32 [1] tensor on d's device."""
+    the optional dirty table, warm cut and extended lanes of
+    directional_pass_plain. CPU tensors run directional_pass_plain; CUDA
+    tensors launch the csrc/banded_pass.cu kernel (8-lane blocks, with the
+    dirty table after its prescan) or raise. Rows take at most
+    PASS_MAX_COLS columns, PASS_MAX_COLS_X2 with a lane of sel 2.
+    `rows_walked` (int32 [1] on d's device, optional) gains the rows the
+    kernel's blocks walked. Returns the changed flag as an int32 [1] tensor
+    on d's device."""
+    xlanes = tuple((int(sel), int(dc)) for sel, dc in xlanes)
     if d.device.type == "cpu":
         return directional_pass_plain(
             d, cross, a_fwd, a_bwd, reverse=reverse, bb=bb, atol=atol,
             rtol=rtol, force=force, dirty=dirty, warm_cut=warm_cut, rows_walked=rows_walked,
+            xcross=xcross, xlanes=xlanes,
         )
     if d.device.type != "cuda":
         raise ValueError(f"directional_pass: unsupported device {d.device}")
     _require_dirty_for_cut(dirty, warm_cut)
     Rp, Cp, Bp = d.shape
+    _check_xlanes(xcross, xlanes, (Rp, Cp))
     if bb != PASS_LANES or Bp % PASS_LANES:
         raise ValueError(f"the CUDA pass runs {PASS_LANES}-lane blocks (bb={bb}, Bp={Bp})")
-    if Cp > PASS_MAX_COLS or Cp % pass_cols_per_thread(Cp):
-        raise ValueError(f"the CUDA pass takes rows of at most {PASS_MAX_COLS} columns, a "
+    max_cols = PASS_MAX_COLS_X2 if pass_needs_two_rows(xlanes) else PASS_MAX_COLS
+    if Cp > max_cols or Cp % pass_cols_per_thread(Cp):
+        raise ValueError(f"the CUDA pass takes rows of at most {max_cols} columns, a "
                          f"multiple of pass_cols_per_thread past 32; got {Cp}")
     checks = [
         ("d", d, (Rp, Cp, Bp), torch.float32), ("cross", cross, (Rp, 3, Cp), torch.float32),
@@ -688,6 +751,8 @@ def directional_pass(
         checks += [("cutlb", cutlb, (Rp, Cp), torch.float32),
                    ("cutth", cutth, (Bp,), torch.float32),
                    ("seedrc", seedrc, (2, Bp), torch.int32)]
+    if xlanes:
+        checks.append(("xcross", xcross, (Rp, len(xlanes), Cp), torch.float32))
     for name, t, shape, dtype in checks:
         if t.device != d.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"directional_pass: bad {name} {tuple(t.shape)} {t.dtype} {t.device}")
@@ -705,11 +770,13 @@ def directional_pass(
     chg = torch.zeros(1, dtype=torch.int32, device=d.device)
     need_bits = (None if dirty is None else
                  torch.zeros((Bp // PASS_LANES, -(-Rp // 32)), dtype=torch.int32, device=d.device))
+    xl = (ctypes.c_int * max(1, 2 * len(xlanes)))(*(v for lane in xlanes for v in lane))
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = kernels.launcher("banded_pass")(
         d.data_ptr(), cross.data_ptr(), a_fwd.data_ptr(), a_fwd.stride(0),
         a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(dirty), ptr(need_bits),
-        ptr(rows_walked), ptr(cutlb), ptr(cutth), ptr(seedrc), Rp, Cp, Bp,
+        ptr(rows_walked), ptr(cutlb), ptr(cutth), ptr(seedrc),
+        ptr(xcross) if xlanes else None, len(xlanes), xl, Rp, Cp, Bp,
         int(reverse), int(force), 1.0 + rtol, atol, stream,
     )
     kernels.check("banded_pass", err)
@@ -849,21 +916,92 @@ def predecessors_banded_classes(
     return cls, not bool(viol.any())
 
 
+def _residual_edges(plan: BandedKernelPlan):
+    """The real residual edges (the padding dropped): (dst, src) padded-flat
+    ids as int64, and their weights."""
+    n = plan.n_residual
+    return plan.res_dst[:n].long(), plan.res_src[:n].long(), plan.res_w[:n]
+
+
+def _residual_explains(plan: BandedKernelPlan, d_pad: torch.Tensor, tol: float):
+    """[n_residual, Bp] bool: the residual in-edge explains its destination's
+    label within tol (pallas_banded.py:2509-2514), and its candidate."""
+    Rp, Cp, Bp = d_pad.shape
+    dst, src, w = _residual_edges(plan)
+    flat = d_pad.view(Rp * Cp, Bp)
+    cand = flat.index_select(0, src) + w[:, None]
+    dv = flat.index_select(0, dst)
+    return (cand <= dv * (1.0 + tol) + tol) & (dv > 0) & torch.isfinite(cand)
+
+
+def _residual_dst_vertices(plan: BandedKernelPlan) -> torch.Tensor:
+    """Real ids of the residual destinations in res_row_map's row order."""
+    return torch.nonzero(plan.res_row_map >= 0).flatten()
+
+
+def predecessors_banded_classes_residual(
+    plan: BandedKernelPlan, d_pad: torch.Tensor, *, tol: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 class table of an irregular (residual) plan
+    (pallas_banded.py:2588-2641): one launch of the class-pred kernel in its
+    int8 mode with no certificate, then the residual reconcile. Each
+    explaining residual in-edge scatter-maxes its slot in its destination's
+    row of the jump table into res_choice ([NDp, Bp] int8, -1 none: the
+    highest slot wins), and class 9 replaces 8 (self) where a residual edge
+    explains the label. extract_paths_cls decodes 9 through plan.res_jump.
+    Returns (cls [V, Bp] int8, res_choice [NDp, Bp] int8)."""
+    cls, _ = class_pred(
+        d_pad, _w8_planes(plan, d_pad.shape[0]), R=plan.n_rows, C=plan.n_cols,
+        V=plan.num_vertices, tol=tol,
+    )
+    Bp = d_pad.shape[2]
+    n = plan.n_residual
+    choice = torch.full((plan.res_jump.shape[0], Bp), -1, dtype=torch.int8, device=d_pad.device)
+    if not n:
+        return cls, choice
+    entry = plan.res_entry_row[:n]
+    explains = _residual_explains(plan, d_pad, tol) & (entry >= 0)[:, None]
+    slot = plan.res_entry_slot[:n].to(torch.int8)[:, None]
+    choice.index_reduce_(0, entry.clamp(min=0).long(),
+                         torch.where(explains, slot, torch.tensor(-1, dtype=torch.int8,
+                                                                  device=d_pad.device)), "amax")
+    dst_v = _residual_dst_vertices(plan)
+    sub = cls.index_select(0, dst_v)
+    rows = plan.res_row_map.index_select(0, dst_v).long()
+    cls[dst_v] = torch.where((sub == 8) & (choice.index_select(0, rows) >= 0),
+                             torch.tensor(9, dtype=torch.int8, device=d_pad.device), sub)
+    return cls, choice
+
+
 def predecessors_banded_ids(
     plan: BandedKernelPlan, d_pad: torch.Tensor, *, tol: float = 1e-5,
 ) -> torch.Tensor:
     """[V, Bp] int32 real-id predecessor table of a padded field, self where
     no in-edge explains the label: the counterpart of
     predecessors_banded_pallas (pallas_banded.py:2463), one launch of the
-    class-pred kernel in its id mode. Lanes stay padded; callers slice
-    [:, :B]. The residual post-pass (:2511-2527) is not ported: plans with
-    residual edges raise."""
-    if plan.n_residual:
-        raise NotImplementedError("the residual predecessor post-pass (irregular plans)")
+    class-pred kernel in its id mode. On an irregular plan the residual
+    post-pass (:2508-2527) follows: where the kernel left self and a
+    residual in-edge explains the label, its source wins (the highest real
+    id of those that explain it). Lanes stay padded; callers slice [:, :B]."""
     ids, _ = class_pred(
         d_pad, _w8_planes(plan, d_pad.shape[0]), R=plan.n_rows, C=plan.n_cols,
         V=plan.num_vertices, tol=tol, as_class=False,
     )
+    n = plan.n_residual
+    if not n:
+        return ids
+    C, Cp = plan.n_cols, plan.n_cols_pad
+    dst, src, _ = _residual_edges(plan)
+    explains = _residual_explains(plan, d_pad, tol)
+    src_real = ((src // Cp) * C + src % Cp).to(torch.int32)
+    dst_row = plan.res_row_map.index_select(0, (dst // Cp) * C + dst % Cp).long()
+    res_pred = torch.full((plan.res_jump.shape[0], ids.shape[1]), -1, dtype=torch.int32,
+                          device=ids.device)
+    res_pred.index_reduce_(0, dst_row, torch.where(explains, src_real[:, None], -1), "amax")
+    dst_v = _residual_dst_vertices(plan)
+    sub = ids.index_select(0, dst_v)
+    rp = res_pred.index_select(0, plan.res_row_map.index_select(0, dst_v).long())
+    ids[dst_v] = torch.where((sub == dst_v.to(torch.int32)[:, None]) & (rp >= 0), rp, sub)
     return ids
 
 
@@ -923,13 +1061,20 @@ def check_converged_banded(
     rtol: float = 1e-5, w8: torch.Tensor | None = None,
 ) -> bool:
     """READ-ONLY fixed-point certificate (pallas_banded.py:2429): True iff
-    every banded in-edge relaxation is satisfied within tolerance. One host
-    read of the flag. `w8` may pass the plan's [Rp, 8, Cp] planes in."""
-    if plan.n_residual:
-        raise NotImplementedError("the residual-edge certificate (irregular plans)")
+    every in-edge relaxation is satisfied within tolerance: the eight banded
+    classes by the check kernel, the residual edges of an irregular plan
+    beside it (:2454-2459). One host read of the flag. `w8` may pass the
+    plan's [Rp, 8, Cp] planes in."""
     if w8 is None:
         w8 = _w8_planes(plan, d_pad.shape[0])
-    return not bool(check(d_pad, w8, atol=atol, rtol=rtol).any())
+    viol = check(d_pad, w8, atol=atol, rtol=rtol).any()
+    if plan.n_residual:
+        Rp, Cp, Bp = d_pad.shape
+        dst, src, w = _residual_edges(plan)
+        flat = d_pad.view(Rp * Cp, Bp)
+        cand = flat.index_select(0, src) + w[:, None]
+        viol = viol | (cand * (1.0 + rtol) + atol < flat.index_select(0, dst)).any()
+    return not bool(viol)
 
 
 # --------------------------------------------------------------------------
@@ -977,13 +1122,16 @@ def banded_solve_padded(
     through a raised edge and re-inserts the seeds (see _warm_start). It
     needs converge="check". The solve works on a copy: warm_d is unchanged.
 
-    Only full-depth, residual-free plans (the main path and the replan
-    step); the windowed warm resolve (`warm_window`) and other
-    configurations of the reference raise NotImplementedError."""
+    On an irregular plan (residual edges; pallas_banded.py:1530-1678) the
+    passes keep the dirty table and relax the plan's extended lanes, and
+    each round ends with the residual scatter-min (_residual_round):
+    converge="round" and "check" work there, "pred" does not (class tables
+    cannot hold residual predecessors).
+
+    Only full-depth plans; the windowed warm resolve (`warm_window`),
+    four_dir, scan_steps and bfloat16 of the reference are not ported."""
     if converge not in ("pred", "round", "check"):
         raise NotImplementedError(f"converge={converge!r}")
-    if plan.n_residual:
-        raise NotImplementedError("residual (irregular) plans")
     full = max(1, int(math.ceil(math.log2(max(plan.n_cols, 2)))))
     if plan.n_scan < full:
         raise NotImplementedError("partial scan depth")
@@ -1002,18 +1150,24 @@ def banded_solve_padded(
             )
     else:
         d = prob.d0
+    if plan.n_residual and dirty is None:
+        dirty = torch.zeros((d.shape[2] // prob.bb, Rp), dtype=torch.int32, device=d.device)
 
     def one_round(force: bool = False, cut=None) -> torch.Tensor:
         with _stage(timer, "solve"):
             c_dn = directional_pass(
                 d, prob.down, prob.a_fwd, prob.a_bwd, reverse=False,
                 atol=atol, rtol=rtol, force=force, dirty=dirty, warm_cut=cut,
+                xcross=prob.xdown, xlanes=plan.xlanes_down,
             )
             c_up = directional_pass(
                 d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True,
-                atol=atol, rtol=rtol, dirty=dirty,
+                atol=atol, rtol=rtol, dirty=dirty, xcross=prob.xup, xlanes=plan.xlanes_up,
             )
-        return c_dn | c_up
+            changed = c_dn | c_up
+            if plan.n_residual:
+                changed = changed | _residual_round(plan, d, dirty, prob.bb, atol, rtol)
+        return changed
 
     if converge == "pred":
         # at zero tolerance a 1-ulp difference between a chain-weight write
@@ -1067,6 +1221,25 @@ def banded_solve_padded(
         changed = bool(one_round(False).any())
         rounds += 1
     return BandedPaddedResult(d_pad=d, rounds=rounds, converged=not changed)
+
+
+def _residual_round(plan, d, dirty, bb: int, atol: float, rtol: float) -> torch.Tensor:
+    """The residual scatter-min that ends a round on an irregular plan
+    (pallas_banded.py:1655-1676), in place on d: cand = d[src] + w, the
+    ungated write d[dst] = min(d[dst], cand) (sub-tolerance gains are kept,
+    unlike the passes), and where a candidate improved by more than the
+    tolerance, its destination row is marked dirty for its 8-lane block.
+    Plain torch, as the reference's is XLA code outside any Pallas kernel.
+    Returns the improved flag (bool [1] tensor)."""
+    Rp, Cp, Bp = d.shape
+    dst, src, w = _residual_edges(plan)
+    flat = d.view(Rp * Cp, Bp)
+    cand = flat.index_select(0, src) + w[:, None]
+    imp = cand * (1.0 + rtol) + atol < flat.index_select(0, dst)
+    flat.index_reduce_(0, dst, cand, "amin")
+    impj = imp.view(-1, Bp // bb, bb).any(dim=2).T.to(torch.int32)     # [nb, n]
+    dirty.index_reduce_(1, dst // Cp, impj, "amax")
+    return imp.any().reshape(1)
 
 
 def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
@@ -1146,10 +1319,16 @@ def extract_paths_cls(
     C: int,
     *,
     chunk: int = 256,
+    res_row_map: torch.Tensor | None = None,   # [V] int32 (residual decode)
+    res_jump: torch.Tensor | None = None,      # [NDp, 8] int32
+    res_choice: torch.Tensor | None = None,    # [NDp, >= B] int8
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Walk each lane's predecessor chain from start to goal, decoding
-    next = v + delta[class] (class 8 = self ends the walk). Chunks of
-    `chunk` steps, with one host check of any(alive) before each chunk.
+    next = v + delta[class] (class 8 = self ends the walk). With the
+    residual tables (predecessors_banded_classes_residual), class 9 decodes
+    through the jump table: next = res_jump[res_row_map[v],
+    res_choice[row, lane]] (pallas_banded.py:2674-2698). Chunks of `chunk`
+    steps, with one host check of any(alive) before each chunk.
     Returns (path [B, max_len] i64, valid [B, max_len] bool); dead steps
     repeat the terminal vertex with valid False."""
     dev = start_v.device
@@ -1157,6 +1336,9 @@ def extract_paths_cls(
     lane = torch.arange(B, device=dev)
     delta = torch.tensor([-1, 1, -C - 1, -C, -C + 1, C - 1, C, C + 1, 0, 0],
                          dtype=torch.int64, device=dev)
+    residual = res_row_map is not None
+    if residual:
+        n_rows = res_jump.shape[0] - 1
     n_chunks = -(-max_len // chunk)
     L1 = n_chunks * chunk
     v = start_v.long().clone()
@@ -1172,6 +1354,10 @@ def extract_paths_cls(
             valid[i] = alive
             k = cls_vb[v, lane].long()
             nxt = v + delta[k]
+            if residual:
+                row = res_row_map[v].long().clamp(0, n_rows)
+                slot = res_choice[row, lane].long().clamp(0, 7)
+                nxt = torch.where(k == 9, res_jump[row, slot].long(), nxt)
             alive = alive & (v != goal) & (k != 8)
             v = torch.where(alive, nxt, v)
     fill = torch.where(valid, path, v[None, :])
@@ -1205,7 +1391,11 @@ def pred_at_vertices(
 ) -> torch.Tensor:
     """Predecessor of a few vertices per lane straight from the padded
     field: argmin over the eight class in-edges of d[u] + w(u, v), self when
-    no neighbour explains the label. Returns real vertex ids [B, K]."""
+    no neighbour explains the label. On an irregular plan up to 8 residual
+    in-edges of each vertex are probed too, through a dst-sorted copy of
+    the residual list (pallas_banded.py:2884-2917); without them a vertex
+    reached only by a residual edge reads pred = self. Returns real vertex
+    ids [B, K]."""
     B = vids.shape[0]
     V = plan.num_vertices
     W8, offs = _inbound_tables(plan)
@@ -1218,6 +1408,23 @@ def pred_at_vertices(
     cand = du + W8[:, _to_padded_flat(plan, vids)]
     best, arg = torch.min(cand, dim=0)
     u_best = torch.gather(u_cl, 0, arg[None])[0]
+    if plan.n_residual:
+        C, Cp, P = plan.n_cols, plan.n_cols_pad, 8
+        order = plan.res_order[:plan.n_residual].long()   # stable sort by dst
+        rd = plan.res_dst.index_select(0, order).long()
+        rs = plan.res_src.index_select(0, order).long()
+        rw = plan.res_w.index_select(0, order)
+        vp = _to_padded_flat(plan, vids)                                  # [B, K]
+        idx = torch.searchsorted(rd, vp)[..., None] + torch.arange(P, device=vids.device)
+        idx_cl = idx.clamp(max=rd.shape[0] - 1)                           # [B, K, P]
+        ok = (idx < rd.shape[0]) & (rd[idx_cl] == vp[..., None])
+        srcp = rs[idx_cl]
+        src_real = ((srcp // Cp) * C + srcp % Cp).clamp(0, V - 1)
+        cand_r = torch.where(ok, d_flat[srcp, lane[..., None]] + rw[idx_cl], INF)
+        best_r, arg_r = torch.min(cand_r, dim=-1)
+        u_r = torch.gather(src_real, -1, arg_r[..., None])[..., 0]
+        u_best = torch.where(best_r < best, u_r, u_best)
+        best = torch.minimum(best, best_r)
     has = (best <= dv * (1.0 + tol) + tol) & (dv > 0) & torch.isfinite(dv)
     return torch.where(has, u_best, vids)
 
@@ -1285,22 +1492,34 @@ def _planes_from_cost_plane(
                 wback_fwd=wbf, wback_bwd=wbb)
 
 
+def _residual_weights_from_costs(plan: BandedKernelPlan, cost_pad: torch.Tensor,
+                                 f: float, cost_limit: float) -> torch.Tensor:
+    """The residual edges' weights from a full cost plane [R, Cp]
+    (pallas_banded.py:686-701), by the rule of _planes_from_cost_plane."""
+    cflat = cost_pad.reshape(-1)
+    c_dst = cflat[plan.res_dst.long()]
+    c_src = cflat[plan.res_src.long()]
+    w = plan.res_dist * (1.0 + f * 0.5 * (c_dst + c_src))
+    ok = (torch.isfinite(plan.res_dist) & torch.isfinite(c_dst) & torch.isfinite(c_src)
+          & (c_src <= cost_limit))
+    return torch.where(ok, w, INF).to(torch.float32)
+
+
 def refresh_banded_planes_from_costs(
     plan: BandedKernelPlan, vertex_costs: torch.Tensor, *,
     edge_cost_factor: float = 0.0, cost_limit: float = 1.0,
 ) -> BandedKernelPlan:
     """Gather-free live-replan refresh (pallas_banded.py:580-620): every
     weight plane straight from the [V] cost field and the plan's static
-    distance planes. Residual edge weights are not ported yet: plans with
-    residual edges raise NotImplementedError."""
-    if plan.n_residual:
-        raise NotImplementedError("residual edge weights (irregular plans)")
+    distance planes, and the residual edges' weights (a gather of the
+    residual list)."""
     cost_pad = _grid_plane(plan, vertex_costs.to(torch.float32), INF)
     planes = _planes_from_cost_plane(
         plan, cost_pad, plan.dist_lat_fwd, plan.dist_lat_bwd, plan.dist_down,
         plan.dist_up, plan.xdist_down, plan.xdist_up, edge_cost_factor, cost_limit,
     )
-    return dataclasses.replace(plan, **planes)
+    res_w = _residual_weights_from_costs(plan, cost_pad, edge_cost_factor, cost_limit)
+    return dataclasses.replace(plan, res_w=res_w, **planes)
 
 
 def _row_slab(x: torch.Tensor, start: int, size: int, fill=INF) -> torch.Tensor:
@@ -1326,16 +1545,16 @@ def refresh_banded_planes_rows(
     `base_plan`'s planes were refreshed at. The changed rows plus a 3-row
     halo are recomputed on a `row_window`-row slab and written over copies
     of the base planes; when they do not fit the slab, all planes are
-    recomputed. Exact either way. The branch is chosen by one host read."""
+    recomputed. Exact either way. The branch is chosen by one host read.
+    The residual weights are refreshed from the whole cost plane."""
     R = base_plan.n_rows
     PR, H = row_window, _REFRESH_HALO
     if R < PR + 2 * H:
         return refresh_banded_planes_from_costs(
             base_plan, vertex_costs, edge_cost_factor=edge_cost_factor, cost_limit=cost_limit,
         )
-    if base_plan.n_residual:
-        raise NotImplementedError("residual edge weights (irregular plans)")
     cost_pad = _grid_plane(base_plan, vertex_costs.to(torch.float32), INF)
+    res_w = _residual_weights_from_costs(base_plan, cost_pad, edge_cost_factor, cost_limit)
     base_pad = _grid_plane(base_plan, base_costs.to(torch.float32), INF)
     row_changed = torch.any(cost_pad != base_pad, dim=1)
     idx = torch.arange(R, device=cost_pad.device)
@@ -1350,7 +1569,7 @@ def refresh_banded_planes_rows(
             bp, cost_pad, bp.dist_lat_fwd, bp.dist_lat_bwd, bp.dist_down, bp.dist_up,
             bp.xdist_down, bp.xdist_up, edge_cost_factor, cost_limit,
         )
-        return dataclasses.replace(bp, **planes)
+        return dataclasses.replace(bp, res_w=res_w, **planes)
 
     def slab(x):
         return _row_slab(x, p0 - H, PR + 2 * H)
@@ -1371,7 +1590,7 @@ def refresh_banded_planes_rows(
         return out
 
     return dataclasses.replace(
-        bp, **{k: write(getattr(bp, k), planes[k]) for k in _PLANE_KEYS}
+        bp, res_w=res_w, **{k: write(getattr(bp, k), planes[k]) for k in _PLANE_KEYS}
     )
 
 
@@ -1399,10 +1618,8 @@ def raised_plane_from_costs(plan: BandedKernelPlan, old_costs, new_costs) -> tor
 def _dilate_changed(plan: BandedKernelPlan, changed_rc: torch.Tensor) -> torch.Tensor:
     """Dilate the changed-vertex plane to every endpoint of every weight-
     changed edge: dense classes and extended lanes reach |dr| <= 2,
-    |dc| <= 4 (pallas_banded.py:2116). Residual endpoints wait for the
-    irregular slice."""
-    if plan.n_residual:
-        raise NotImplementedError("residual edge endpoints (irregular plans)")
+    |dc| <= 4; both endpoints of a residual edge with a changed endpoint
+    are added exactly (pallas_banded.py:2116-2143)."""
     m = changed_rc
     acc = m
     for dr in (-2, -1, 1, 2):
@@ -1410,4 +1627,12 @@ def _dilate_changed(plan: BandedKernelPlan, changed_rc: torch.Tensor) -> torch.T
     m = acc
     for dc in (-4, -3, -2, -1, 1, 2, 3, 4):
         acc = acc | _shift2(m, 0, dc, False)
+    if plan.n_residual:
+        dst, src, _ = _residual_edges(plan)
+        ch = changed_rc.reshape(-1)
+        touched = (ch.index_select(0, src) | ch.index_select(0, dst)).to(torch.uint8)
+        flat = acc.reshape(-1).to(torch.uint8)
+        flat.index_reduce_(0, src, touched, "amax")
+        flat.index_reduce_(0, dst, touched, "amax")
+        acc = flat.view(changed_rc.shape).bool()
     return acc

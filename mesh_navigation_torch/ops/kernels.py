@@ -50,7 +50,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "banded_pass": ("banded_pass_launch",
-                    [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                    [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                      _I, _I, _I, _I, _I, _F, _F, _P]),
     "class_pred": ("class_pred_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
@@ -60,9 +60,10 @@ _SIGNATURES = {
                   _F, _F, _P]),
     "fused_sweep": ("fused_sweep_launch", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
 }
-# launch-shape queries a kernel's library also exports
-_QUERIES = {"eik_pass": ("eik_pass_grid", [_I, _I, _I, _I, _P]),
-            "banded_pass": ("banded_pass_max_cols", [])}
+# launch-shape queries a kernel's library also exports (the first is the
+# kernel's default query)
+_QUERIES = {"eik_pass": (("eik_pass_grid", [_I, _I, _I, _I, _P]),),
+            "banded_pass": (("banded_pass_max_cols", []), ("banded_pass_max_cols_x2", []))}
 
 
 def reset_launches() -> None:
@@ -103,9 +104,7 @@ def build_all(timeout: float = 900.0) -> dict[str, str]:
             )
         for name in SOURCES:
             lib = ctypes.CDLL(_lib_path(name))
-            specs = [_SIGNATURES[name]]
-            if name in _QUERIES:
-                specs.append(_QUERIES[name])
+            specs = [_SIGNATURES[name], *_QUERIES.get(name, ())]
             for fn_name, argtypes in specs:
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
@@ -121,11 +120,12 @@ def launcher(name: str):
     return getattr(_libs[name], _SIGNATURES[name][0])
 
 
-def query(name: str):
-    """The C launch-shape query of kernel `name`, building on first use."""
+def query(name: str, fn_name: str | None = None):
+    """A C launch-shape query of kernel `name` (`fn_name`, default its
+    first), building on first use."""
     if name not in _libs:
         build_all()
-    return getattr(_libs[name], _QUERIES[name][0])
+    return getattr(_libs[name], fn_name or _QUERIES[name][0][0])
 
 
 def check(name: str, err: int) -> None:

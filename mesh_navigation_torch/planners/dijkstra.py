@@ -4,8 +4,9 @@ mesh_navigation_tpu/planners/dijkstra.py:137-156 and 158-341).
 Three batch paths. The banded light path snaps starts and goals to
 vertices, groups lanes by goal, solves the goal-seeded fields with the
 banded kernels (converge="pred": the last certificate pass emits the int8
-class table), walks each lane's predecessor chain from its start and builds
-the pose chain; it gives no potential, predecessor map or vector field. The
+class table; on irregular plans a quiet-round solve and the residual class
+table), walks each lane's predecessor chain from its start and builds the
+pose chain; it gives no potential, predecessor map or vector field. The
 banded full path (light=False) solves the same fields to a quiet round and
 gives the full result: potential, the int32 predecessor map of the
 class-pred kernel's id mode and the [B, V, 3] vector field the controller
@@ -56,14 +57,17 @@ class DijkstraPlanner:
 
     def prepare_banded_plan(self, weights_vd, *, min_coverage: float = 0.9):
         """Banded kernel plan when the vertex order has band structure
-        (x-major terrain grids) and its padded rows fit the pass kernel
-        (banded_gpu.PASS_MAX_COLS columns), else None: the server then takes
-        the structured tier. Rebuild when costs change."""
+        (x-major terrain grids, band-reordered irregular meshes) and its
+        padded rows fit the pass kernel (banded_gpu.PASS_MAX_COLS columns,
+        PASS_MAX_COLS_X2 where an extended lane reaches two rows), else
+        None: the server then takes the structured tier. Rebuild when costs
+        change."""
         try:
             plan = _bg.build_banded_kernel_plan(self.mesh, weights_vd, device=self.device)
         except ValueError:
             return None
-        if plan.n_cols_pad > _bg.PASS_MAX_COLS:
+        two_rows = _bg.pass_needs_two_rows(plan.xlanes_down + plan.xlanes_up)
+        if plan.n_cols_pad > (_bg.PASS_MAX_COLS_X2 if two_rows else _bg.PASS_MAX_COLS):
             return None
         return plan if plan.coverage >= min_coverage else None
 
@@ -81,7 +85,11 @@ class DijkstraPlanner:
         """Batch planning via banded GS fast sweeping.
 
         light=True: the result has no vector map, predecessor map or [B, V]
-        potential; predecessors come from the solve's int8 class table.
+        potential; predecessors come from an int8 class table: the solve's
+        own certificate table (converge="pred"), or on an irregular plan,
+        after a quiet-round solve, predecessors_banded_classes_residual at
+        tol max(1e-5, 3 rtol), whose class 9 the walk decodes through the
+        residual jump table (reference dijkstra.py:239-277).
         `timer` (utils.timing.StageTimer) records the snap, solve, pred,
         extract and pose stages.
 
@@ -90,7 +98,8 @@ class DijkstraPlanner:
         with no supra-tolerance gain (no lane grouping), unpadded to [B, V],
         the int32 predecessor table of the class-pred kernel's id mode at
         tol max(atol, 1e-6), then _finish_batch (vector map, walk, pose
-        chain). The reference recovers predecessors with its roll-based
+        chain); on an irregular plan the id table's residual post-pass
+        follows. The reference recovers predecessors with its roll-based
         predecessors_banded, whose class order differs from the kernel's:
         ids differ only where two in-edges tie (ROADMAP queue C). `timer`
         records the snap, solve, pred, vector_map, extract and pose
@@ -99,8 +108,6 @@ class DijkstraPlanner:
             return self._plan_batch_banded_full(kernel_plan, starts, goals, atol=atol,
                                                 rtol=rtol, timer=timer)
         plan = kernel_plan
-        if plan.n_residual:
-            raise NotImplementedError("residual (irregular) plans")
         if not (atol > 0 or rtol > 0):
             raise ValueError("the banded light path needs a positive tolerance")
         starts = starts.to(self.device, torch.float32)
@@ -114,14 +121,23 @@ class DijkstraPlanner:
         max_rounds = max(self.config.max_sweeps // 2, 64)
         res = _bg.banded_solve_padded(
             plan, goal_s, max_rounds=max_rounds, atol=atol, rtol=rtol,
-            converge="pred", timer=timer,
+            converge="round" if plan.n_residual else "pred", timer=timer,
         )
         C, Cp = plan.n_cols, plan.n_cols_pad
         B = start_v.shape[0]
+        cls, decode = res.cls, {}
+        if plan.n_residual:
+            with _stage(timer, "pred"):
+                cls, choice = _bg.predecessors_banded_classes_residual(
+                    plan, res.d_pad, tol=max(1e-5, 3.0 * rtol)
+                )
+            decode = dict(res_row_map=plan.res_row_map, res_jump=plan.res_jump,
+                          res_choice=choice)
         with _stage(timer, "extract"):
             path, valid = _bg.extract_paths_cls(
-                res.cls, start_s, goal_s, self.max_path_len, C
+                cls, start_s, goal_s, self.max_path_len, C, **decode
             )                                                   # [B, L] grouped
+            del cls, decode
         with _stage(timer, "pose"):
             pn = self._pos_normals[path]
             positions = pn[..., :3]
@@ -149,8 +165,6 @@ class DijkstraPlanner:
         return result
 
     def _plan_batch_banded_full(self, plan, starts, goals, *, atol, rtol, timer):
-        if plan.n_residual:
-            raise NotImplementedError("residual (irregular) plans")
         starts = starts.to(self.device, torch.float32)
         goals = goals.to(self.device, torch.float32)
         with _stage(timer, "snap"):

@@ -255,14 +255,16 @@ def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
     assert bool((err <= 2 * (ATOL + RTOL * cold[fin].abs())).all()), float(err.max())
 
 
-def _pass_pair(d_k, d_p, cross, prob, *, reverse, force=False, dirty=None, cut=None):
+def _pass_pair(d_k, d_p, cross, prob, *, reverse, force=False, dirty=None, cut=None,
+               xcross=None, xlanes=()):
     """One pass through the kernel on (d_k, dirty) and through the plain
     version on (d_p, a copy of dirty): fields, dirty tables, flags and rows
     walked equal. Returns (the plain side's dirty table, rows walked)."""
     dirty_p = None if dirty is None else dirty.clone()
     wk = torch.zeros(1, dtype=torch.int32, device=d_k.device)
     wp = torch.zeros(1, dtype=torch.int64, device=d_k.device)
-    kw = dict(reverse=reverse, atol=ATOL, rtol=RTOL, force=force, warm_cut=cut)
+    kw = dict(reverse=reverse, atol=ATOL, rtol=RTOL, force=force, warm_cut=cut,
+              xcross=xcross, xlanes=xlanes)
     ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, dirty=dirty, rows_walked=wk, **kw)
     cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, bb=8, dirty=dirty_p,
                                    rows_walked=wp, **kw)
@@ -348,6 +350,174 @@ def test_pass_wrapper_and_kernel_agree_on_the_column_limit(cuda):
     a = torch.zeros((2, 1, Cp), device=cuda)
     with pytest.raises(ValueError, match="at most"):
         bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL)
+
+
+# extended lanes of all three kinds: the second carried row (sel 2), the
+# carried row (sel 1) and the row's own values (sel 0), shifts up to 4
+XLANES = ((2, 0), (2, -1), (1, 2), (1, -2), (0, -3), (0, 2), (0, 4), (0, -4))
+
+
+def _xl_problem(Rp, Cp, Bp, xlanes, device, seed=0):
+    """Random pass inputs with extended lanes: weights in [0.5, 1.5] (the
+    lanes' in [1, 3]) with some +inf, chain weights from random laterals,
+    and a field of +inf with a few zero seeds a lane and some loose upper
+    bounds. Returns (d, down, up, a_fwd, a_bwd, xdown, xup)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(shape, lo, hi, p_inf):
+        x = torch.rand(shape, generator=gen) * (hi - lo) + lo
+        return torch.where(torch.rand(shape, generator=gen) < p_inf, torch.inf, x)
+
+    lat_f, lat_b = w((Rp, Cp), 0.5, 1.5, 0.05), w((Rp, Cp), 0.5, 1.5, 0.05)
+    S = max(1, int(np.ceil(np.log2(max(Cp, 2)))))
+    a_fwd, a_bwd = bg._chain_weights(lat_f, lat_b, S)
+    d = torch.full((Rp, Cp, Bp), torch.inf)
+    for b in range(Bp):
+        r = torch.randint(0, Rp, (2,), generator=gen)
+        c = torch.randint(0, Cp, (2,), generator=gen)
+        d[r, c, b] = 0.0
+    far = torch.rand(d.shape, generator=gen) * 50 + 30
+    d = torch.where(torch.rand(d.shape, generator=gen) < 0.1, far, d)
+    L = len(xlanes)
+    out = (d, w((Rp, 3, Cp), 0.5, 1.5, 0.1), w((Rp, 3, Cp), 0.5, 1.5, 0.1), a_fwd, a_bwd,
+           w((Rp, L, Cp), 1.0, 3.0, 0.3), w((Rp, L, Cp), 1.0, 3.0, 0.3))
+    return tuple(t.contiguous().to(device) for t in out)
+
+
+class _XLProb:
+    def __init__(self, a_fwd, a_bwd):
+        self.a_fwd, self.a_bwd = a_fwd, a_bwd
+
+
+# 16 and 32 columns: one column a thread; 1,000 and 1,024: staged rows with
+# two carried rows; 2,048: eight columns a thread, rows from device memory
+@pytest.mark.parametrize("Cp", [16, 32, 1000, 1024, 2048])
+def test_extended_lane_pass_kernel_matches_plain_bit_for_bit(cuda, Cp):
+    """The extended-lane pass against its plain version: a forced down pass
+    and an up pass without the dirty table, then with it a forced down
+    pass, a dirty-driven up pass and a warm-cut down pass: fields bit for
+    bit, dirty tables, flags and rows walked equal. Then the lanes without
+    sel 2 (one carried row) on the same field."""
+    Rp, Bp = 40, 16
+    d, down, up, a_fwd, a_bwd, xdown, xup = _xl_problem(Rp, Cp, Bp, XLANES, cuda, seed=Cp)
+    prob = _XLProb(a_fwd, a_bwd)
+    d_k, d_p = d.clone(), d.clone()
+    for reverse, force, cross, xc in ((False, True, down, xdown), (True, False, up, xup)):
+        _, walked = _pass_pair(d_k, d_p, cross, prob, reverse=reverse, force=force,
+                               xcross=xc, xlanes=XLANES)
+        assert walked == Rp * Bp // 8
+    d_k, d_p = d.clone(), d.clone()
+    dirty = torch.zeros((Bp // 8, Rp), dtype=torch.int32, device=cuda)
+    dirty, _ = _pass_pair(d_k, d_p, down, prob, reverse=False, force=True, dirty=dirty,
+                          xcross=xdown, xlanes=XLANES)
+    dirty, _ = _pass_pair(d_k, d_p, up, prob, reverse=True, dirty=dirty, xcross=xup,
+                          xlanes=XLANES)
+    cutlb = torch.zeros((Rp, Cp), device=cuda)
+    cutth = torch.full((Bp,), 40.0, device=cuda)
+    seedrc = torch.stack([torch.arange(Bp) % Rp, torch.arange(Bp) % Cp]).to(cuda, torch.int32)
+    dirty, _ = _pass_pair(d_k, d_p, down, prob, reverse=False, dirty=dirty,
+                          cut=(cutlb, cutth, seedrc), xcross=xdown, xlanes=XLANES)
+    one_row = tuple(lane for lane in XLANES if lane[0] != 2)
+    keep = [i for i, lane in enumerate(XLANES) if lane[0] != 2]
+    _pass_pair(d_k, d_p, up, prob, reverse=True, dirty=dirty,
+               xcross=xup[:, keep].contiguous(), xlanes=one_row)
+
+
+def test_extended_lane_walk_goes_on_two_rows_after_a_needed_row(cuda):
+    """Labels of 100 everywhere but a 0 at row 10, column 20, and row 10
+    dirty. The dirty pass scans row 10, which lowers column 40 to 20; that
+    reaches row 12 only through a sel-2 lane at column 40, where the prescan
+    saw 100, and row 11 has no in-edges (it stays clean). The walker must
+    walk row 12 after the clean row 11: kernel and plain agree bit for bit,
+    rows walked included, rows 0-9 are jumped over and row 12 changed."""
+    Rp, Cp, Bp = 24, 64, 8
+    xl = ((2, 0),)
+    d = torch.full((Rp, Cp, Bp), 100.0, device=cuda)
+    d[10, 20] = 0.0
+    down = torch.ones((Rp, 3, Cp), device=cuda)
+    down[11] = torch.inf                    # no cross edges from row 10 into row 11
+    ones = torch.ones((Rp, 1, Cp), device=cuda)
+    xdown = torch.full((Rp, 1, Cp), torch.inf, device=cuda)
+    xdown[12, 0, 40] = 0.25                 # row 10 -> row 12 at column 40 only
+    dirty = torch.zeros((1, Rp), dtype=torch.int32, device=cuda)
+    dirty[0, 10] = 1
+    d_k, d_p = d.clone(), d.clone()
+    _, walked = _pass_pair(d_k, d_p, down, _XLProb(ones, ones), reverse=False, dirty=dirty,
+                           xcross=xdown, xlanes=xl)
+    assert float(d_p[12, 40, 0]) == 20.25
+    assert torch.equal(d_p[11], d[11])
+    assert walked == Rp - 10
+
+
+def test_pass_refuses_a_second_carried_row_past_its_column_limit(cuda):
+    """PASS_MAX_COLS_X2 is the kernel's own limit for lanes of sel 2: past
+    it the wrapper raises; lanes without sel 2 take the width."""
+    assert kernels.query("banded_pass", "banded_pass_max_cols_x2")() == bg.PASS_MAX_COLS_X2
+    Cp, Bp = bg.PASS_MAX_COLS_X2 + 8, 8
+    d, down, up, a_fwd, a_bwd, xdown, _ = _xl_problem(4, Cp, Bp, XLANES, cuda)
+    with pytest.raises(ValueError, match="at most"):
+        bg.directional_pass(d, down, a_fwd, a_bwd, reverse=False, atol=ATOL, rtol=RTOL,
+                            xcross=xdown, xlanes=XLANES)
+    keep = [i for i, lane in enumerate(XLANES) if lane[0] != 2]
+    one_row = tuple(XLANES[i] for i in keep)
+    d_p = d.clone()
+    _pass_pair(d, d_p, down, _XLProb(a_fwd, a_bwd), reverse=False, force=True,
+               xcross=xdown[:, keep].contiguous(), xlanes=one_row)
+
+
+def _irregular_setup(device, n=32, seed=4):
+    from mesh_navigation_torch.mesh import reorder
+
+    v, f = synthetic.irregular_terrain_mesh(n, n, spacing=0.5, hills=1.0, seed=seed)
+    mesh = reorder.build_reordered_mesh(v, f, device=device)
+    nz = np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0)
+    costs = np.arccos(nz).astype(np.float32)
+    W = sweeps.slot_weights_np(mesh, costs, cost_limit=2.0, edge_cost_factor=1.0)
+    return v, mesh, costs, W
+
+
+def test_residual_solve_and_classes_on_the_card_match_the_cpu(cuda):
+    """An irregular 32 x 32 plan (residual edges, lanes of sel 0 and 2)
+    solved on the card (converge "round" and "check") and on the CPU: both
+    converged, fields within the stopping tolerance; the residual class
+    table and res_choice of the card's field equal the CPU's on the same
+    field; the light planner's outcomes equal and its costs within 1e-3."""
+    from mesh_navigation_torch.config import PlannerConfig
+    from mesh_navigation_torch.planners import DijkstraPlanner
+
+    atol, rtol = 1e-3, 2e-3
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        v, mesh, costs, W = _irregular_setup(dev)
+        plan = bg.build_banded_kernel_plan(mesh, W, device=dev)
+        assert plan.n_residual and bg.pass_needs_two_rows(plan.xlanes_down)
+        seeds = torch.from_numpy(np.random.default_rng(1).integers(0, len(v), 24)).to(dev)
+        for conv in ("round", "check"):
+            res = bg.banded_solve_padded(plan, seeds, atol=atol, rtol=rtol, converge=conv)
+            assert res.converged
+            out[dev.type, conv] = res.d_pad.cpu()
+        if dev.type == "cuda":
+            before = kernels.LAUNCHES["class_pred"]
+            cls_k, ch_k = bg.predecessors_banded_classes_residual(plan, res.d_pad, tol=6e-3)
+            assert kernels.LAUNCHES["class_pred"] == before + 1
+            plan_c = bg.build_banded_kernel_plan(mesh, W, device="cpu")
+            cls_c, ch_c = bg.predecessors_banded_classes_residual(plan_c, res.d_pad.cpu(),
+                                                                   tol=6e-3)
+            assert torch.equal(cls_k.cpu(), cls_c) and torch.equal(ch_k.cpu(), ch_c)
+            assert int((cls_c == 9).sum()) > 0
+        pl = DijkstraPlanner(mesh, PlannerConfig(cost_limit=2.0), max_path_len=256, device=dev)
+        ids = np.random.default_rng(2).integers(0, len(v), (2, 16))
+        out[dev.type] = pl.plan_batch_banded(plan, torch.from_numpy(v[ids[0]]),
+                                             torch.from_numpy(v[ids[1]]), atol=atol, rtol=rtol)
+    for conv in ("round", "check"):
+        k, c = out["cuda", conv], out["cpu", conv]
+        fin = torch.isfinite(c)
+        assert torch.equal(fin, torch.isfinite(k))
+        assert bool(((k - c).abs()[fin] <= 2 * (atol + rtol * c.abs()[fin])).all())
+    k, c = out["cuda"], out["cpu"]
+    assert torch.equal(k.outcome.cpu(), c.outcome)
+    ok = c.outcome == 0
+    torch.testing.assert_close(k.cost.cpu()[ok], c.cost[ok], rtol=1e-3, atol=0.0)
 
 
 def test_full_banded_plan_on_the_card_matches_the_cpu(cuda):
