@@ -125,12 +125,37 @@ Phases, each printed as one JSON line on standard output:
    against its plain version (both modes), its time and bound. Then the
    `{"kernels": [...]}` line with all five kernels (`class_pred` with its
    id mode's time, bound and launches beside the main mode's; `banded_pass`
-   and `class_pred` with their irregular-path launches, time and bound).
+   and `class_pred` with their irregular-path launches, time and bound;
+   `banded_pass` and `eik_pass` with their `server_launches`).
+20. server_cvp: the navigation server's CVP kind (the reference's default)
+   at full width on the main path's terrain with the replan phase's
+   layers: set-up, one warm-up and ITERS timed get_path_batch calls of 128
+   lanes (solves/s, rounds, stages, launches, idle share, peak memory),
+   then the replan phase's first jump cloud through update_point_cloud and
+   one more get_path_batch, which rebuilds the plan the update marked
+   stale (its seconds printed). Gates: converged everywhere, `eik_pass` and
+   `banded_pass` launched, two lanes against the native fast marching on
+   the server's current costs before and after the update, the
+   post-update result bit for bit equal to plan_batch_banded on a plan
+   built afresh from the server's edge weights and costs (and its field
+   unlike the pre-update one near the obstacle), and the post-update
+   solve's first forced `eik_pass` held against the plain pass on a 4-row
+   slab.
+21. server_single: one robot on the same map through both server kinds
+   (the CVP server of phase 20, the replan phase's Dijkstra server): the
+   single GetPath of each (gather sweeps; sweeps and ms printed) against
+   its native oracle at the start vertex and the 99.9th percentile (<1%),
+   one setPlan / ExePath / goal check, and navigate from a start 25 m from
+   the goal (drawn from the seed) under the card's trace: outcome, cycles,
+   recoveries, wall s and the host's share; gated on SUCCESS within the
+   goal tolerance of the plan's goal pose.
+Then a line with the script's total wall time.
 
 Kernel launches are counted per path: the counts are set to 0 just before
 the main path, the banded_full path, the replan path, the CVP path, the
-structured path and the irregular path, and read just after each;
-launches made to hold a kernel against its plain version are not counted.
+structured path, the irregular path, the server_cvp path and the
+server_single path, and read just after each; launches made to hold a
+kernel against its plain version are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`; the last is
@@ -979,7 +1004,8 @@ def replan(device, ctx, iters: int) -> tuple[dict, dict]:
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    srv = MeshNavServer(mesh, replan_config(), grid=ctx["planner"].grid, device=device)
+    srv = MeshNavServer(mesh, replan_config(), planner_kind="dijkstra", grid=ctx["planner"].grid,
+                        device=device)
     step = srv.make_replan_step("obst")
     sync(device)
     t_setup = time.perf_counter() - t0
@@ -1369,14 +1395,21 @@ def cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
                      warm_res=warm_res, launches=launches, costs=costs)
 
 
-def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2) -> dict:
+def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2, costs_np=None, phase="cvp_oracle",
+                    same_finite_set: bool = True) -> dict:
     """Phase 12: two lanes of the warm-up solve against the native CVP fast
     marching (bench.py:520-550): the 99.9th-percentile relative error of the
     field below 1%, and the walked cost of each lane's descent no more than
     1% + 1e-2 above the walked cost of the same descent on the oracle's own
     field. Also read, not gated: the walked cost over the oracle's distance
     at the start vertex (the vertex descent walks along edges, so on an
-    exact field it already walks up to a third more than the geodesic)."""
+    exact field it already walks up to a third more than the geodesic).
+    `costs_np` (default: the main path's) are the vertex costs of the
+    solve; cctx["ew_np"] its side lengths. The finite sets must be equal,
+    or with same_finite_set=False the oracle's must lie within the field's:
+    next to blocked vertices the Dijkstra warm start gives graph-distance
+    labels to vertices that no triangle update reaches and the fast
+    marching leaves at inf (ROADMAP queue C); they are counted."""
     import torch
     from mesh_navigation_torch.mesh import query
     from mesh_navigation_torch.native import NativeMesh
@@ -1398,29 +1431,33 @@ def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2) -> dict:
         for b in range(n_lanes):
             gv = g_vids[b].cpu().numpy()
             sd = np.linalg.norm(v[gv] - g[b][None], axis=1).astype(np.float32)
-            od = nm.cvp(cctx["ew_np"], ctx["costs_np"], gv, sd, 2.0)[0]
+            od = nm.cvp(cctx["ew_np"], ctx["costs_np"] if costs_np is None else costs_np,
+                        gv, sd, 2.0)[0]
             d_or = eg.padded_flat_from_vb(kplan, torch.from_numpy(od)[None].to(dev))
             path, valid = eg.cvp_descend_paths(kplan, mesh, cctx["ew"], d_or, s_v[b:b + 1],
                                                g_vids[b:b + 1], planner.max_path_len, tol=5e-3)
             walk_or = float(pose_chain(mesh.vertices[path], valid, mesh.vertex_normals[path])[1][0])
             walked = float(res.cost[b])
             od_start = float(od[int(s_v[b])])
+            fin_f, fin_o = np.isfinite(pot[b]), np.isfinite(od)
             lanes.append({"p999_rel_err": percentile_rel_err(pot[b], od),
-                          "same_finite_set": bool(np.array_equal(np.isfinite(pot[b]),
-                                                                 np.isfinite(od))),
+                          "same_finite_set": bool(np.array_equal(fin_f, fin_o)),
+                          "oracle_set_within": bool(not (fin_o & ~fin_f).any()),
+                          "warm_only_vertices": int((fin_f & ~fin_o).sum()),
                           "walked_cost": walked, "oracle_field_walked_cost": walk_or,
                           "oracle_at_start": od_start,
                           "walked_over_oracle_at_start": walked / od_start if od_start > 0 else None,
                           "path_steps": int(res.path_valid[b].sum())})
     finally:
         nm.close()
-    out = {"phase": "cvp_oracle", "lanes": lanes, "budget": 0.01,
+    out = {"phase": phase, "lanes": lanes, "budget": 0.01,
            "max_rel_err": max(x["p999_rel_err"] for x in lanes)}
+    set_key = "same_finite_set" if same_finite_set else "oracle_set_within"
     bad = [x for x in lanes
-           if not (x["p999_rel_err"] < 0.01 and x["same_finite_set"]
+           if not (x["p999_rel_err"] < 0.01 and x[set_key]
                    and x["walked_cost"] <= x["oracle_field_walked_cost"] * 1.01 + 1e-2)]
     if bad:
-        raise AssertionError(f"CVP oracle gate failed: {out}")
+        raise AssertionError(f"{phase} gate failed: {out}")
     return out
 
 
@@ -2080,11 +2117,290 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
                     "pred_max_abs_err": float(pred["max_abs_err"])}
 
 
+def device_busy_cuda(fn, device) -> dict:
+    """Run fn() once under torch.profiler tracing the card alone, and read
+    the kernels' intervals from the raw trace events (no event tree is
+    built, so a run of some 10^5 launches stays cheap to read): the
+    device's busy time is the union of the intervals, and the host's share
+    of the wall time is the rest (the tracing's own cost included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"   # the CPU rehearsal traces the host
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall_ns = (time.perf_counter() - t0) * 1e9
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"traced_wall_s": wall_ns / 1e9, "device_busy_s": busy / 1e9,
+            "kernels_traced": len(spans),
+            "host_share": 1.0 - busy / wall_ns if spans else None}
+
+
+def server_cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
+    """Phase 20: the navigation server's CVP kind (the reference's default,
+    api/server.py:73) on the main path's terrain with the replan phase's
+    layers: set-up, one warm-up and `iters` timed get_path_batch calls of
+    `batch` lanes on vertices (the eikonal pass and the warm banded pass
+    through the server), then the replan phase's first jump cloud through
+    update_point_cloud and one more get_path_batch on the warm-up lanes,
+    which rebuilds the plan the update marked stale. Gates: converged on
+    every solve, both kernels launched, two lanes against the native fast
+    marching on the server's current costs before and after the update,
+    and the post-update field bit for bit equal to plan_batch_banded on a
+    plan built afresh from the server's edge weights and costs (and unlike
+    the pre-update field near the obstacle); the post-update solve's first
+    forced eik_pass held against the plain pass on a 4-row slab."""
+    import torch
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.planners import CVPPlanner
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    mesh, v = ctx["mesh"], ctx["v"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = MeshNavServer(mesh, replan_config(), grid=ctx["planner"].grid,
+                        max_path_len=max(2048, 3 * mesh_n), device=device)
+    sync(device)
+    t_setup = time.perf_counter() - t0
+    if srv.planner_kind != "cvp" or srv.eikonal_plan is None or srv.planner._dij_plan is None:
+        raise AssertionError("the default server is not a CVP server with an eikonal plan")
+    log(f"# server_cvp set-up {t_setup:.1f} s")
+    rng = np.random.default_rng(SEED + 4)
+
+    def sample():
+        p = v[rng.integers(0, mesh.num_vertices, 2 * batch)].astype(np.float32)
+        return torch.from_numpy(p[:batch]), torch.from_numpy(p[batch:])
+
+    kernels.reset_launches()
+    warm = sample()
+    tw = time.perf_counter()
+    warm_res = srv.get_path_batch(*warm)
+    sync(device)
+    t_warm = time.perf_counter() - tw
+    solves = [{"rounds": warm_res.rounds, "converged": bool(warm_res.converged)}]
+    timer = StageTimer(device)
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        res = srv.get_path_batch(*sample(), timer=timer)
+        solves.append({"rounds": res.rounds, "converged": bool(res.converged)})
+    sync(device)
+    dt = time.perf_counter() - t1
+    res = None
+    stages = {k: val / iters for k, val in timer.totals().items()}
+    before_costs = srv.vertex_costs.cpu().numpy()
+    cctx = dict(planner=srv.planner, kplan=srv.eikonal_plan, warm_res=warm_res,
+                warm=tuple(x.numpy() for x in warm),
+                ew=srv.edge_weights, ew_np=srv.edge_weights.cpu().numpy())
+    with uncounted():
+        oracle_before = cvp_oracle_gate(ctx, cctx, costs_np=before_costs,
+                                        phase="server_cvp_oracle_before")
+
+    # the replan phase's first jump cloud (its rng: the seeds, then the clouds)
+    crng = np.random.default_rng(SEED + 2)
+    crng.integers(0, mesh.num_vertices, REPLAN_BATCH)
+    cloud = update_clouds(crng, v, mesh_n)[0][1]
+    tu = time.perf_counter()
+    srv.update_point_cloud("obst", torch.from_numpy(cloud).to(device))
+    sync(device)
+    t_update = time.perf_counter() - tu
+    if not srv.eikonal_stale:
+        raise AssertionError("update_point_cloud left the CVP plan fresh")
+    first_forced = {}
+    orig = eg.eik_pass
+
+    def keep_first_forced(d, abc, cls, dirty, **kw):
+        if kw.get("force") and not first_forced:
+            first_forced.update(d=d, abc=abc, cls=cls, dirty=dirty, kw=kw)
+        return orig(d, abc, cls, dirty, **kw)
+
+    rtimer = StageTimer(device)
+    eg.eik_pass = keep_first_forced
+    try:
+        tr = time.perf_counter()
+        post = srv.get_path_batch(*warm, timer=rtimer)
+        sync(device)
+        t_post = time.perf_counter() - tr
+    finally:
+        eg.eik_pass = orig
+    launches = {name: kernels.LAUNCHES[name] for name in CVP_KERNELS}
+    solves.append({"rounds": post.rounds, "converged": bool(post.converged), "after_update": True})
+    rebuild_s = rtimer.totals().get("rebuild", 0.0) / 1e3
+    if not all(x["converged"] for x in solves):
+        raise AssertionError(f"a server_cvp solve did not converge: {solves}")
+    for name, n in launches.items():
+        if n <= 0 and cuda:
+            raise AssertionError(f"kernel {name} was not launched on the server_cvp path")
+    costs_np = srv.vertex_costs.cpu().numpy()
+    lethal = int(np.isinf(costs_np).sum() - np.isinf(before_costs).sum())
+    if lethal <= 0:
+        raise AssertionError("the jump cloud made no vertex lethal")
+    cctx.update(kplan=srv.eikonal_plan, warm_res=post, ew=srv.edge_weights,
+                ew_np=srv.edge_weights.cpu().numpy())
+    with uncounted():
+        oracle_after = cvp_oracle_gate(ctx, cctx, costs_np=costs_np,
+                                       phase="server_cvp_oracle_after", same_finite_set=False)
+        fresh = CVPPlanner(mesh, srv.config.planner, grid=srv.grid,
+                           max_path_len=srv.planner.max_path_len, device=device)
+        fplan = fresh.prepare_eikonal_plan(cctx["ew_np"], costs_np)
+        want = fresh.plan_batch_banded(srv.edge_weights, fplan, *warm)
+        fresh_equal = {k: bool(torch.equal(getattr(post, k), getattr(want, k)))
+                       for k in ("d_pad", "outcome", "path_positions", "path_valid", "cost")}
+        del fresh, fplan, want
+        R, C, Cp = srv.eikonal_plan.n_rows, srv.eikonal_plan.n_cols, srv.eikonal_plan.n_cols_pad
+        center = cloud[:, :2].mean(axis=0)
+        near = np.nonzero(np.linalg.norm(v[:, :2] - center, axis=1) < 3.0)[0]
+        rows = torch.from_numpy((near // C) * Cp + near % C).to(device)
+        d_post = post.d_pad.reshape(-1, post.d_pad.shape[-1])[rows, :batch]
+        d_pre = warm_res.d_pad.reshape(-1, warm_res.d_pad.shape[-1])[rows, :batch]
+        near_changed = int((d_post != d_pre).sum())
+        ff = first_forced
+        r0 = max(0, ff["d"].shape[0] // 2 - EIK_SLAB_ROWS // 2)
+        slab = eik_slab_check(orig, ff["d"], ff["abc"], ff["cls"], ff["dirty"], r0, ff["kw"],
+                              device)
+    first_forced.clear()
+    if not all(fresh_equal.values()) or near_changed == 0:
+        raise AssertionError(f"the post-update batch is not the fresh plan's: {fresh_equal}, "
+                             f"{near_changed} field entries changed near the obstacle")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    trace = device_busy(lambda: srv.get_path_batch(*sample()), device)
+    out = {
+        "phase": "server_cvp", "mesh": f"{mesh_n}x{mesh_n}", "V": mesh.num_vertices,
+        "lanes": batch, "setup_s": t_setup, "warmup_s": t_warm, "iters": iters,
+        "solves_per_s": batch * iters / dt, "ms_per_iter": dt * 1e3 / iters,
+        "stage_ms_per_iter": stages, "solves": solves, "launches": launches,
+        "update_s": t_update, "rebuild_s": rebuild_s, "post_update_call_s": t_post,
+        "lethal_vertices_added": lethal, "oracle_before": oracle_before,
+        "oracle_after": oracle_after, "fresh_plan_bitwise": fresh_equal,
+        "near_obstacle_entries_changed": near_changed, "slab_check": slab,
+        "trace": trace, "peak_mem_gb": peak,
+    }
+    return out, dict(srv=srv, launches=launches,
+                     slab_max_abs_err=slab["max_abs_err"])
+
+
+def navigation_pair(v, ny: int, rng, dist: float, spacing: float = 0.5):
+    """A goal drawn from `rng` over the terrain (at least dist + 3 m from its
+    edge) and a start `dist` metres away in a drawn direction, snapped to
+    its nearest grid vertex; both 0.05 above the surface."""
+    nx = len(v) // ny
+    margin = dist + 3.0
+    gx, gy = rng.uniform(margin, [(nx - 1) * spacing - margin, (ny - 1) * spacing - margin])
+    ang = rng.uniform(0.0, 2.0 * np.pi)
+    si, sj = (int(np.rint((gx + dist * np.cos(ang)) / spacing)),
+              int(np.rint((gy + dist * np.sin(ang)) / spacing)))
+    gz = v[int(np.rint(gx / spacing)) * ny + int(np.rint(gy / spacing)), 2]
+    start = v[si * ny + sj] + np.float32([0.0, 0.0, 0.05])
+    return start.astype(np.float32), np.float32([gx, gy, gz + 0.05])
+
+
+def server_single(device, ctx, scctx, dsrv, nav_dist: float = 25.0,
+                  max_cycles: int = 3000) -> dict:
+    """Phase 21: one robot on the same 1M map through both server kinds (the
+    CVP server of phase 20 and the replan phase's Dijkstra server):
+    get_path (the gather solves: Jacobi Dijkstra sweeps, Jacobi eikonal
+    sweeps with the vector field and back-tracking) with its sweeps and
+    ms, each field held against its native oracle (heap Dijkstra, fast
+    marching) on the server's current costs at the start vertex and the
+    99.9th percentile; one set_plan, exe_path_step and is_goal_reached;
+    then navigate (its robot kept on the surface, a repair of the
+    reference's loop) with the reference's defaults but max_cycles from a
+    start `nav_dist` metres from the goal, under the card's trace: its wall
+    time (tracing included) and the host's share of it.
+    Gates: the oracles below 1%, navigate SUCCESS within dist_tolerance of
+    the plan's goal pose."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.native import NativeMesh
+    from mesh_navigation_torch.ops import kernels
+
+    mesh, v, f = ctx["mesh"], ctx["v"], ctx["f"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    start, goal = navigation_pair(v, mesh_n, np.random.default_rng(SEED + 5), nav_dist)
+    s_t, g_t = torch.from_numpy(start), torch.from_numpy(goal)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    out = {"phase": "server_single", "mesh": f"{mesh_n}x{mesh_n}", "V": mesh.num_vertices,
+           "start": start.tolist(), "goal": goal.tolist(),
+           "start_goal_m": float(np.linalg.norm(start - goal)), "kinds": {}}
+    kernels.reset_launches()
+    for kind, srv in (("dijkstra", dsrv), ("cvp", scctx["srv"])):
+        sync(device)
+        t0 = time.perf_counter()
+        plan = srv.get_path(s_t, g_t)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        if int(plan.outcome) != 0 or not plan.converged:
+            raise AssertionError(f"{kind} get_path: outcome {int(plan.outcome)}, "
+                                 f"converged {plan.converged}")
+        costs_np = srv.vertex_costs.cpu().numpy()
+        pot = plan.potential.cpu().numpy()
+        sv = int(query.nearest_vertex(mesh, srv.grid, s_t.to(device))[0])
+        with uncounted():
+            if kind == "dijkstra":
+                gv = int(query.nearest_vertex(mesh, srv.grid, g_t.to(device))[0])
+                od = native_fields(v, f, costs_np, [gv])[0][0]
+            else:
+                g_face = query.containing_face(mesh, srv.grid, g_t.to(device))[0]
+                gv = mesh.faces[int(g_face)].long().cpu().numpy()
+                sd = np.linalg.norm(v[gv] - goal[None], axis=1).astype(np.float32)
+                nm = NativeMesh(v, f)
+                try:
+                    od = nm.cvp(srv.edge_weights.cpu().numpy(), costs_np, gv, sd, 2.0)[0]
+                finally:
+                    nm.close()
+        oracle = {"start_rel_err": float(abs(pot[sv] - od[sv]) / od[sv]),
+                  "p999_rel_err": percentile_rel_err(pot, od),
+                  "same_finite_set": bool(np.array_equal(np.isfinite(pot), np.isfinite(od)))}
+        if not (oracle["start_rel_err"] < 0.01 and oracle["p999_rel_err"] < 0.01):
+            raise AssertionError(f"{kind} get_path oracle gate failed: {oracle}")
+        st = srv.set_plan(plan)
+        cmd, st = srv.exe_path_step(plan, s_t, quat, st)
+        reached = bool(srv.is_goal_reached(s_t, quat, st))
+        if int(cmd.outcome) != 0 or reached:
+            raise AssertionError(f"{kind} ExePath cycle at the start: outcome "
+                                 f"{int(cmd.outcome)}, goal reached {reached}")
+        goal_pos = st.goal_pos.cpu().numpy()
+        runs = []
+        traced = device_busy_cuda(
+            lambda: runs.append(srv.navigate(s_t, quat, g_t, max_cycles=max_cycles)), device)
+        nav = runs[0]
+        final = nav["final_position"].cpu().numpy()
+        miss = float(np.linalg.norm(final - goal_pos))
+        k = {"get_path_ms": ms, "sweeps": plan.rounds, "path_cost": float(plan.cost),
+             "path_steps": int(plan.path_valid.sum()), "oracle": oracle,
+             "first_command": {"linear": float(cmd.linear), "angular": float(cmd.angular)},
+             "navigate": {"outcome": nav["outcome"].name, "cycles": nav["cycles"],
+                          "recoveries": nav["recoveries"], "wall_s": traced["traced_wall_s"],
+                          "host_share": traced["host_share"], "final_to_plan_goal_m": miss,
+                          "path_cost": nav["path_cost"], "trace": traced}}
+        out["kinds"][kind] = k
+        log(f"# server_single {kind}: get_path {ms:.1f} ms, {plan.rounds} sweeps; navigate "
+            f"{nav['outcome'].name} in {nav['cycles']} cycles, {traced['traced_wall_s']:.1f} s")
+        if nav["outcome"] != 0 or miss > 0.3:
+            raise AssertionError(f"{kind} navigate: {k['navigate']}")
+    out["launches"] = {n: c for n, c in kernels.LAUNCHES.items() if c}
+    return out
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
         structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
-        irregular_batch=IRREGULAR_BATCH) -> list:
-    """Phases 2-19 on `device`; returns the kernels line."""
+        irregular_batch=IRREGULAR_BATCH, nav_dist=25.0, max_cycles=3000) -> list:
+    """Phases 2-21 on `device`; returns the kernels line."""
     import torch
 
     kc = kernel_check(device, *small)
@@ -2128,6 +2444,7 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
                  "replaces": "mesh_navigation_tpu/ops/pallas_banded.py:2310",
                  "launches": rctx["launches"]["check"], **rk["check"],
                  "library_ms": None})
+    dsrv = rctx["srv"]          # the Dijkstra server, for server_single
     del rctx
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -2179,10 +2496,21 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     line[1].update(irregular_launches=ictx["launches"]["class_pred"],
                    irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], ik["pred_max_abs_err"])
+    del ictx
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    vp, vctx = server_cvp(device, ctx, iters, cvp_batch)
+    emit(vp)
+    emit(server_single(device, ctx, vctx, dsrv, nav_dist=nav_dist, max_cycles=max_cycles))
+    line[0]["server_launches"] = vctx["launches"]["banded_pass"]
+    eik = next(k for k in line if k["name"] == "eik_pass")
+    eik["server_launches"] = vctx["launches"]["eik_pass"]
+    eik["max_abs_err"] = max(eik["max_abs_err"], vctx["slab_max_abs_err"])
     return line
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2211,6 +2539,7 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "nvcc": pr.nvcc, "kernel_build_s": build_s})
     line = run(torch.device("cuda"))
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_main})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

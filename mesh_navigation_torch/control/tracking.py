@@ -1,9 +1,11 @@
-"""On-surface tracking (port of mesh_navigation_tpu/control/tracking.py:72-170).
+"""On-surface tracking (port of mesh_navigation_tpu/control/tracking.py).
 
 Face re-acquisition in the controller's order (mesh_controller.cpp:98-141):
 project into the tracked face, then a bounded neighbour-face search, then
 the global containing-face search. Batched over lanes; a stage runs only
-when some lane needs it (a Python branch on `.any()`).
+when some lane needs it (a Python branch on `.any()`). The single-pose
+forms (`locate`, `mesh_ahead`) are the batch forms at B = 1, and the
+`meshAhead` surface walk (mesh_map.cpp:1070-1108) steps every lane at once.
 """
 
 from __future__ import annotations
@@ -73,6 +75,78 @@ def locate_batch(
     projected = geometry.bary_interpolate(proj_tri, bary)
     pos_out = torch.where(found[:, None], projected, positions)
     return FaceFix(face=face, bary=bary, position=pos_out, found=found)
+
+
+def locate(
+    mesh: MeshArrays,
+    grid: query.SpatialGrid,
+    position: torch.Tensor,       # [3]
+    current_face,                 # [] (-1 = no tracked face)
+    *,
+    max_dist: float = 0.4,
+    hops: int = 2,
+) -> FaceFix:
+    """locate_batch for one pose (tracking.py:30-69); the leaves are
+    unbatched: face [], bary [3], position [3], found []."""
+    faces = torch.as_tensor(current_face, device=position.device).reshape(1)
+    fix = locate_batch(mesh, grid, position.reshape(1, 3), faces, max_dist=max_dist, hops=hops)
+    return FaceFix(face=fix.face[0], bary=fix.bary[0], position=fix.position[0],
+                   found=fix.found[0])
+
+
+def _blend(mesh: MeshArrays, field: torch.Tensor, face: torch.Tensor,
+           bary: torch.Tensor) -> torch.Tensor:
+    """Barycentric blend of a [V, 3] field shared by the lanes, or of each
+    lane's own [B, V, 3] field, at face [B], bary [B, 3] -> [B, 3]."""
+    if field.dim() == 3:
+        return direction_at(mesh, field, face, bary)
+    vids = mesh.faces[torch.clamp(face, min=0)].long()
+    return geometry.bary_interpolate(field[vids], bary)
+
+
+def mesh_ahead_batch(
+    mesh: MeshArrays,
+    grid: query.SpatialGrid,
+    vector_map: torch.Tensor,      # [B, V, 3] per lane, or [V, 3] shared
+    positions: torch.Tensor,       # [B, 3]
+    faces: torch.Tensor,           # [B]
+    step_size: float,
+    *,
+    layer_vectors: torch.Tensor | None = None,   # [V, 3]
+    max_dist: float = 0.4,
+):
+    """One surface-walk step of every lane along its vector field
+    (MeshMap::meshAhead, mesh_map.cpp:1070-1108; tracking.py:172-196):
+    re-acquire the face, blend the planner field with the layers' repulsive
+    field at the barycentric position, normalize, step. Returns
+    (new_positions [B, 3], new_faces [B], ok [B])."""
+    fix = locate_batch(mesh, grid, positions, faces, max_dist=max_dist)
+    d = geometry.normalize(_blend(mesh, vector_map, fix.face, fix.bary))
+    if layer_vectors is not None:
+        d = d + _blend(mesh, layer_vectors, fix.face, fix.bary)
+    d = geometry.normalize(d)
+    ok = fix.found & (geometry.norm(d) > 1e-6)
+    new_pos = torch.where(ok[:, None], fix.position + d * step_size, positions)
+    return new_pos, fix.face, ok
+
+
+def mesh_ahead(
+    mesh: MeshArrays,
+    grid: query.SpatialGrid,
+    vector_map: torch.Tensor,      # [V, 3]
+    position: torch.Tensor,        # [3]
+    face,                          # []
+    step_size: float,
+    *,
+    layer_vectors: torch.Tensor | None = None,
+    max_dist: float = 0.4,
+):
+    """mesh_ahead_batch for one pose. Returns (new_position [3],
+    new_face [], ok [])."""
+    faces = torch.as_tensor(face, device=position.device).reshape(1)
+    p, f, ok = mesh_ahead_batch(mesh, grid, vector_map, position.reshape(1, 3), faces,
+                                step_size, layer_vectors=layer_vectors, max_dist=max_dist)
+    return p[0], f[0], ok[0]
 
 
 def direction_at(

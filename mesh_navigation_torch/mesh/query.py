@@ -180,3 +180,33 @@ def neighbour_face_search_batch(
     best = torch.argmin(score, dim=1)
     found = torch.isfinite(score[lane, best])
     return torch.where(found, cands[lane, best], -1), bary[lane, best], found
+
+
+# single-point forms (query.py:117-153, 194-248): the batch forms at B = 1,
+# which scan the same candidates in the same order
+
+
+def nearest_vertex(mesh: MeshArrays, grid: SpatialGrid, point: torch.Tensor):
+    """Nearest vertex to one [3] point (getNearestVertexHandle,
+    mesh_map.cpp:1161-1174). Returns (vertex_id [] i64, distance_sq [])."""
+    v, d2 = nearest_vertex_batch(mesh, grid, point.reshape(1, 3))
+    return v[0], d2[0]
+
+
+def containing_face(mesh: MeshArrays, grid: SpatialGrid, point: torch.Tensor,
+                    max_dist: float = 0.4):
+    """Containing face of one [3] point (mesh_map.cpp:1120-1159). Returns
+    (face [] or -1, bary [3], dist [], found [])."""
+    face, bary, dist, found = containing_face_batch(mesh, grid, point.reshape(1, 3), max_dist)
+    return face[0], bary[0], dist[0], found[0]
+
+
+def neighbour_face_search(mesh: MeshArrays, point: torch.Tensor, face: torch.Tensor,
+                          max_dist: float = 0.4, *, hops: int = 2):
+    """Bounded neighbour-face search from one face for one [3] point
+    (mesh_map.cpp:999-1068). Returns (face [] or -1, bary [3], found [])."""
+    f, bary, found = neighbour_face_search_batch(
+        mesh, point.reshape(1, 3), torch.as_tensor(face, device=point.device).reshape(1),
+        max_dist, hops=hops,
+    )
+    return f[0], bary[0], found[0]

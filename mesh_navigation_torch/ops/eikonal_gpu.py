@@ -115,10 +115,9 @@ def unfolding_value(u1, u2, a, b, c, valid):
 # host plan
 # --------------------------------------------------------------------------
 
-EIK_PLAN_ARRAYS = ("abc", "abc_t", "res_v3", "res_v1", "res_v2", "res_abc")
+EIK_PLAN_ARRAYS = ("abc", "res_v3", "res_v1", "res_v2", "res_abc")
 EIK_PLAN_META = (
-    "n_rows", "n_cols", "n_cols_pad", "n_rows_pad_t", "classes", "classes_t",
-    "coverage", "num_vertices", "n_residual",
+    "n_rows", "n_cols", "n_cols_pad", "classes", "coverage", "num_vertices", "n_residual",
 )
 
 
@@ -127,23 +126,20 @@ class EikonalKernelPlan:
     """Offset-pair classification of the (face, corner) update table, on one
     device. Vertex v sits at (v // n_cols, v % n_cols) on the padded
     [R, Cp] grid. `abc` holds per-class side lengths in row layout
-    ([R, 3K, Cp], entries 3k + {0, 1, 2} = a, b, c; inf = absent); `abc_t`
-    the same table transposed ([C, 3K, Rt]), built as the reference builds
-    it and not read by the solve (the reference's solve does not read it
-    either, pallas_eikonal.py:609). Residual pairs (off-class) are COO with
+    ([R, 3K, Cp], entries 3k + {0, 1, 2} = a, b, c; inf = absent). The
+    reference's plan also carries the table transposed (abc_t, classes_t,
+    n_rows_pad_t), which its solve never reads (pallas_eikonal.py:609); the
+    port does not build it. Residual pairs (off-class) are COO with
     padded-flat row-layout ids r * Cp + c. Field meanings are those of
     pallas_eikonal.py:113-137."""
     n_rows: int
     n_cols: int
     n_cols_pad: int
-    n_rows_pad_t: int
     classes: tuple        # ((dr1, dc1, dr2, dc2), ...) row layout
-    classes_t: tuple      # ((dc1, dr1, dc2, dr2), ...)
     coverage: float
     num_vertices: int
     n_residual: int
     abc: torch.Tensor     # [R, 3K, Cp] f32
-    abc_t: torch.Tensor   # [C, 3K, Rt] f32
     res_v3: torch.Tensor  # [Rz] i32 padded-flat
     res_v1: torch.Tensor
     res_v2: torch.Tensor
@@ -176,7 +172,6 @@ def build_eikonal_kernel_plan(
     n = n_cols
     R = -(-V // n)
     Cp = _round_up(n, 8)
-    Rt = _round_up(R, 8)
 
     # per (face, corner k): v3 free, v1 = k+1, v2 = k+2 (cvp argument order);
     # side a = |v2 v3| (edge opposite k+1), b = |v1 v3| (opposite k+2), c = |v1 v2|
@@ -228,10 +223,6 @@ def build_eikonal_kernel_plan(
         abc[rr, 3 * k + 1, cc] = b_s[sel]
         abc[rr, 3 * k + 2, cc] = c[sel]
 
-    classes_t = tuple((q1, p1, q2, p2) for (p1, q1, p2, q2) in classes)
-    abc_t = np.full((n, 3 * K, Rt), np.inf, np.float32)
-    abc_t[:, :, :R] = abc[:, :, :n].transpose(2, 1, 0)
-
     left = np.nonzero(~assigned)[0]
     coverage = 1.0 - len(left) / max(len(v3), 1)
     Rz = max(8, _round_up(len(left), 8))
@@ -247,9 +238,8 @@ def build_eikonal_kernel_plan(
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     return EikonalKernelPlan(
-        n_rows=R, n_cols=n, n_cols_pad=Cp, n_rows_pad_t=Rt, classes=tuple(classes),
-        classes_t=classes_t, coverage=float(coverage), num_vertices=V,
-        n_residual=int(len(left)), abc=t(abc), abc_t=t(abc_t),
+        n_rows=R, n_cols=n, n_cols_pad=Cp, classes=tuple(classes), coverage=float(coverage),
+        num_vertices=V, n_residual=int(len(left)), abc=t(abc),
         res_v3=t(res["res_v3"]), res_v1=t(res["res_v1"]), res_v2=t(res["res_v2"]),
         res_abc=t(res_abc),
     )
@@ -267,14 +257,11 @@ def apply_target_mask(plan: EikonalKernelPlan, target_mask) -> EikonalKernelPlan
     blocked[(vid // C) * Cp + vid % C] = ~tm
     bl_rc = blocked.reshape(R, Cp)
     abc = np.where(bl_rc[:, None, :], np.inf, plan.abc.cpu().numpy()).astype(np.float32)
-    abc_t = plan.abc_t.cpu().numpy()
-    bl_t = np.pad(bl_rc[:, :C].T, ((0, 0), (0, abc_t.shape[2] - R)), constant_values=True)
-    abc_t = np.where(bl_t[:, None, :], np.inf, abc_t).astype(np.float32)
     res_abc = plan.res_abc.cpu().numpy().copy()
     res_abc[blocked[plan.res_v3.cpu().numpy()]] = np.inf
     dev = plan.device
     return dataclasses.replace(
-        plan, abc=torch.from_numpy(abc).to(dev), abc_t=torch.from_numpy(abc_t).to(dev),
+        plan, abc=torch.from_numpy(abc).to(dev),
         res_abc=torch.from_numpy(res_abc).to(dev),
     )
 

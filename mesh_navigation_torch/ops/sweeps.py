@@ -1,9 +1,12 @@
-"""Edge weights and the Dijkstra field's products (port of
-mesh_navigation_tpu/ops/sweeps.py:32-100, 165-231): the slot-weight table,
-the per-vertex direction field of a predecessor map, the predecessor walk
-and its cost."""
+"""Edge weights, the Jacobi shortest-path field and its products (port of
+mesh_navigation_tpu/ops/sweeps.py): the slot-weight table, the goal-seeded
+field of pull-relaxation sweeps (the fixed point of the reference's heap
+Dijkstra, dijkstra_mesh_planner.cpp:287-348), the per-vertex direction
+field of a predecessor map, the predecessor walk and its cost."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,6 +72,53 @@ def slot_weights_np(
     blocked_src = (costs[adj_v] > cost_limit) | invalid[adj_v]
     usable = adj_m & ~blocked_src & ~invalid[:, None]
     return np.where(usable, w, np.inf).astype(np.float32)
+
+
+class FieldResult(NamedTuple):
+    """Potential field + predecessor map of a seeded sweep solve."""
+    dist: torch.Tensor   # [V] f32 geodesic potential (inf = unreached)
+    pred: torch.Tensor   # [V] i32 predecessor vertex (self = none)
+    sweeps: int          # relaxation sweeps run
+    converged: bool
+
+
+def shortest_path_field(
+    mesh: MeshArrays,
+    weights_vd: torch.Tensor,
+    seed_vertex,
+    *,
+    max_sweeps: int = 0,
+    block_sweeps: int = 8,
+) -> FieldResult:
+    """Single-source shortest paths by Jacobi sweeps (sweeps.py:111-162):
+    every vertex takes min(dist[v], min_u dist[u] + w(u, v)) over its [V, D]
+    slot table at once, with the predecessor of the lowest winning slot.
+    `weights_vd` is slot_weights' table; `seed_vertex` the goal vertex (the
+    reference seeds at the goal, dijkstra_mesh_planner.cpp:80-81). Sweeps
+    run in blocks of `block_sweeps`, one host read of the change flag a
+    block, until a block changes nothing or `max_sweeps` (0: 4 V)."""
+    V = weights_vd.shape[0]
+    dev = weights_vd.device
+    if max_sweeps <= 0:
+        max_sweeps = 4 * V
+    cap = -(-max_sweeps // block_sweeps) * block_sweeps
+    vidx = torch.arange(V, device=dev)
+    adj = mesh.adj_vertex.long()
+    w = weights_vd.to(torch.float32)
+    dist = torch.where(vidx == torch.as_tensor(seed_vertex, device=dev), 0.0, torch.inf)
+    pred = vidx
+    sweeps, changed = 0, True
+    while changed and sweeps < cap:
+        before = dist
+        for _ in range(block_sweeps):
+            best, arg = torch.min(dist[adj] + w, dim=1)
+            improved = best < dist
+            dist = torch.where(improved, best, dist)
+            pred = torch.where(improved, adj[vidx, arg], pred)
+        sweeps += block_sweeps
+        changed = bool((dist < before).any())
+    return FieldResult(dist=dist, pred=pred.to(torch.int32), sweeps=sweeps,
+                       converged=not changed)
 
 
 def _unit_toward(vertices: torch.Tensor, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,11 @@ class PlanResult:
     robot b). A [B, V] potential is never built on it (4 GB at 1M x 1024);
     take the lanes you need with planners.dijkstra.potential_lanes. The
     banded full path and the structured path give the full result instead: `potential`, `pred` and
-    the `vector_map` the controller samples, in robot order. `rounds` counts
-    the solve's rounds (sweeps on the structured path)."""
+    the `vector_map` the controller samples, in robot order. The single-goal
+    planners (plan_one) give one plan's result with unbatched leaves
+    (outcome [], path [L, 3], potential [V], vector_map [V, 3], pred [V]).
+    `rounds` counts the solve's rounds (sweeps on the structured path and
+    the gather solves)."""
     outcome: torch.Tensor         # [B] i32 Outcome code
     path_positions: torch.Tensor  # [B, L, 3] f32
     path_quats: torch.Tensor      # [B, L, 4] f32 (x, y, z, w)

@@ -1,7 +1,9 @@
-"""Dijkstra-parity batched planner (port of
-mesh_navigation_tpu/planners/dijkstra.py:137-156 and 158-341).
+"""Dijkstra-parity planner (port of mesh_navigation_tpu/planners/dijkstra.py:
+28-108, 137-156 and 158-341).
 
-Three batch paths. The banded light path snaps starts and goals to
+plan_one answers one GetPath: snap start and goal to vertices, the
+goal-seeded Jacobi field (ops/sweeps.shortest_path_field), its vector map,
+the predecessor walk and the pose chain. Three batch paths. The banded light path snaps starts and goals to
 vertices, groups lanes by goal, solves the goal-seeded fields with the
 banded kernels (converge="pred": the last certificate pass emits the int8
 class table; on irregular plans a quiet-round solve and the residual class
@@ -50,9 +52,56 @@ class DijkstraPlanner:
         self.config = config
         self.grid = grid if grid is not None else query.build_grid(self.mesh)
         self.max_path_len = max_path_len
+        self._cancel = False
         # [V, 6] position + normal rows, gathered once per path step
         self._pos_normals = torch.cat(
             [self.mesh.vertices, self.mesh.vertex_normals], dim=1
+        )
+
+    def cancel(self) -> bool:
+        """MeshPlanner::cancel: raise the planner's cancel flag (planners/
+        dijkstra.py:56-59; as there, no solve reads it)."""
+        self._cancel = True
+        return True
+
+    def prepare_weights(self, vertex_costs: torch.Tensor, edge_cost_factor: float = 0.0):
+        """[V, D] slot weights of a cost field on the planner's device: the
+        MeshMap::computeEdgeWeights product (mesh_map.cpp:517-561) with the
+        planner's cost limit."""
+        costs = vertex_costs.to(self.device, torch.float32)
+        ew = sweeps.compute_edge_weights(self.mesh, costs, edge_cost_factor)
+        return sweeps.slot_weights(self.mesh, ew, costs, self.config.cost_limit)
+
+    def plan_one(self, weights_vd: torch.Tensor, start: torch.Tensor,
+                 goal: torch.Tensor) -> PlanResult:
+        """One GetPath (dijkstra.py:68-108): the field seeded at the goal's
+        nearest vertex, the walk from the start's. The result's leaves are
+        unbatched (outcome [], path [L, 3], potential [V], vector_map
+        [V, 3], pred [V]); `rounds` holds the sweeps."""
+        mesh = self.mesh
+        start_v = query.nearest_vertex(mesh, self.grid, start.to(self.device, torch.float32))[0]
+        goal_v = query.nearest_vertex(mesh, self.grid, goal.to(self.device, torch.float32))[0]
+        field = sweeps.shortest_path_field(
+            mesh, weights_vd.to(self.device), goal_v,
+            max_sweeps=self.config.max_sweeps, block_sweeps=self.config.block_sweeps,
+        )
+        path, valid = sweeps.extract_path(field.pred[None], start_v[None], goal_v[None],
+                                          self.max_path_len)
+        pn = self._pos_normals[path[0]]
+        quats, cost = pose_chain(pn[:, :3], valid[0], pn[:, 3:])
+        reached = torch.isfinite(field.dist[start_v])
+        return PlanResult(
+            outcome=torch.where(reached, int(Outcome.SUCCESS),
+                                int(Outcome.NO_PATH_FOUND)).to(torch.int32),
+            path_positions=pn[:, :3],
+            path_quats=quats,
+            path_valid=valid[0] & reached,
+            cost=torch.where(reached, cost, torch.inf),
+            potential=field.dist,
+            vector_map=sweeps.vector_map_from_predecessors(mesh, field.pred),
+            pred=field.pred,
+            rounds=field.sweeps,
+            converged=field.converged,
         )
 
     def prepare_banded_plan(self, weights_vd, *, min_coverage: float = 0.9):

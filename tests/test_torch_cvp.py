@@ -102,6 +102,17 @@ def test_unfolding_candidates_match_reference():
     assert (np.abs(got.theta.numpy()) > 0).sum() > 20     # interior updates exist
 
 
+def _transposed(plan):
+    """The reference's transposed class table of a port plan
+    (pallas_eikonal.py:236-238): abc_t [C, 3K, Rt], classes_t, Rt."""
+    R, C = plan.n_rows, plan.n_cols
+    Rt = -(-R // 8) * 8
+    abc = plan.abc.numpy()
+    abc_t = np.full((C, abc.shape[1], Rt), np.inf, np.float32)
+    abc_t[:, :, :R] = abc[:, :, :C].transpose(2, 1, 0)
+    return abc_t, tuple((q1, p1, q2, p2) for (p1, q1, p2, q2) in plan.classes), Rt
+
+
 def _plan_arrays(plan):
     return ({k: np.asarray(getattr(plan, k)) for k in teg.EIK_PLAN_ARRAYS},
             {k: getattr(plan, k) for k in teg.EIK_PLAN_META})
@@ -126,6 +137,11 @@ def test_eikonal_plan_and_target_mask_match(kind):
         assert getattr(tp, k) == meta[k], k
     for k in teg.EIK_PLAN_ARRAYS:
         np.testing.assert_array_equal(getattr(tp, k).numpy(), arrays[k], err_msg=k)
+    # the port does not keep the reference's transposed table (its solve
+    # reads none); built here from the port's row table, it is the same
+    abc_t, classes_t, rt = _transposed(tp)
+    np.testing.assert_array_equal(abc_t, np.asarray(jp.abc_t))
+    assert classes_t == jp.classes_t and rt == jp.n_rows_pad_t
     if kind == "irregular12":
         assert tp.n_residual > 0
     else:

@@ -579,8 +579,8 @@ def test_server_solves_wide_banded_plans_and_routes_wider_ones_to_the_structured
                                         params=(("threshold", 2.0),)),))
     for ny, banded in ((1600, True), (bg.PASS_MAX_COLS + 100, False)):
         v, f = synthetic.terrain_mesh(6, ny, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
-        srv = MeshNavServer(build_mesh(v, f, device=cuda), cfg, max_path_len=4 * ny,
-                            device=cuda)
+        srv = MeshNavServer(build_mesh(v, f, device=cuda), cfg, planner_kind="dijkstra",
+                            max_path_len=4 * ny, device=cuda)
         assert (srv.banded_plan is not None) == banded
         assert banded or srv.offset_plan.coverage > 0.5
         rng = np.random.default_rng(ny)
@@ -939,3 +939,89 @@ def test_fused_sweep_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         sg.fused_sweep(*_sweep_inputs(16384, 16384, 1, (16384, -16384), cuda),
                        (16384, -16384), tile=16384)
+
+
+def _server_pair(kind, cuda, n=64, hills=2.0):
+    """The same map served on the card and on the CPU."""
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.config import LayerConfig, MeshMapConfig, NavConfig, PlannerConfig
+
+    cfg = NavConfig(mesh_map=MeshMapConfig(default_layer="steep", edge_cost_factor=1.0),
+                    planner=PlannerConfig(cost_limit=2.0),
+                    layers=(LayerConfig(name="steep", kind="steepness",
+                                        params=(("threshold", 2.0),)),))
+    v, f = synthetic.terrain_mesh(n, n, spacing=0.5, hills=hills, roughness=0.01, seed=0)
+    return v, [MeshNavServer(build_mesh(v, f, device=dev), cfg, planner_kind=kind,
+                             max_path_len=4 * n, device=dev) for dev in (cuda, "cpu")]
+
+
+def test_cvp_server_batch_on_card_matches_cpu(cuda):
+    """The CVP server's get_path_batch (the eikonal pass kernel and the warm
+    banded pass) on the card against the plain versions on the CPU, on the
+    same 64 x 64 map: the same finite set, fields within twice the stopping
+    tolerance (atol 1e-4 + rtol 1e-3 |d|: each side stops within it of the
+    fixed point), the same outcomes."""
+    v, (gpu, cpu) = _server_pair("cvp", cuda)
+    rng = np.random.default_rng(9)
+    p = torch.from_numpy(v[rng.integers(0, len(v), 16)].astype(np.float32))
+    before = dict(kernels.LAUNCHES)
+    got = gpu.get_path_batch(p[:8], p[8:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["eik_pass"] > before["eik_pass"]
+    assert kernels.LAUNCHES["banded_pass"] > before["banded_pass"]
+    ref = cpu.get_path_batch(p[:8], p[8:])
+    assert got.converged and ref.converged
+    dg, dr = got.d_pad.cpu()[..., :8], ref.d_pad[..., :8]
+    assert torch.equal(torch.isfinite(dg), torch.isfinite(dr))
+    fin = torch.isfinite(dr)
+    assert bool(((dg[fin] - dr[fin]).abs() <= 2 * (1e-4 + 1e-3 * dr[fin].abs())).all())
+    assert torch.equal(got.outcome.cpu(), ref.outcome)
+
+
+@pytest.mark.parametrize("update", ["unfolding", "fmm"])
+def test_gather_fields_on_card_match_cpu(cuda, update):
+    """eikonal_field and shortest_path_field on the card against the CPU on
+    a 64 x 64 terrain: dist within rtol 1e-5 (1e-6 for the Dijkstra field),
+    the same sweeps, predecessors equal at 99% of the vertices (a rounding
+    step may flip a near-tie)."""
+    from mesh_navigation_torch.ops import eikonal
+
+    v, f = synthetic.terrain_mesh(64, 64, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+    mg, mc = build_mesh(v, f, device=cuda), build_mesh(v, f, device="cpu")
+    rng = np.random.default_rng(3)
+    costs = rng.uniform(0.0, 1.05, len(v)).astype(np.float32)
+    side = sweeps.compute_edge_weights(mc, torch.from_numpy(costs), 1.0)
+    seed = torch.full((len(v),), torch.inf)
+    seed[mc.faces[2000].long()] = torch.tensor([0.1, 0.2, 0.15])
+    mask = torch.from_numpy(costs < 1.0)
+    a = eikonal.eikonal_field(mg, side.to(cuda), seed.to(cuda), update=update,
+                              target_mask=mask.to(cuda))
+    b = eikonal.eikonal_field(mc, side, seed, update=update, target_mask=mask)
+    W = sweeps.slot_weights(mc, side, torch.from_numpy(costs), 1.0)
+    c = sweeps.shortest_path_field(mg, W.to(cuda), 2000)
+    d = sweeps.shortest_path_field(mc, W, 2000)
+    for x, y, rtol in ((a, b, 1e-5), (c, d, 1e-6)):
+        xd, yd = x.dist.cpu(), y.dist
+        assert torch.equal(torch.isfinite(xd), torch.isfinite(yd))
+        fin = torch.isfinite(yd)
+        assert fin.float().mean() > 0.5
+        assert bool(((xd[fin] - yd[fin]).abs() <= rtol * yd[fin].abs()).all())
+        assert x.sweeps == y.sweeps and x.converged and y.converged
+        assert (x.pred.cpu() == y.pred).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("kind", ["dijkstra", "cvp"])
+def test_navigate_on_card_reaches_the_goal(cuda, kind):
+    """navigate on the card, flat 64 x 64 map, a start 8 m from the goal:
+    SUCCESS without recovery, within the goal tolerance of the plan's goal
+    pose; no kernel is launched (GetPath is the gather solve)."""
+    v, (srv, _) = _server_pair(kind, cuda, hills=0.0)
+    start = torch.from_numpy((v[20 * 64 + 20] + np.float32([0, 0, 0.05])).astype(np.float32))
+    goal = torch.from_numpy((v[34 * 64 + 26] + np.float32([0.12, 0.07, 0.05])).astype(np.float32))
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    before = dict(kernels.LAUNCHES)
+    out = srv.navigate(start, quat, goal)
+    assert out["outcome"] == 0 and out["recoveries"] == 0, out
+    target = srv.set_plan(srv.get_path(start, goal)).goal_pos
+    assert float(torch.linalg.norm(out["final_position"] - target)) <= 0.3
+    assert kernels.LAUNCHES == before

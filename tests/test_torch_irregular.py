@@ -421,7 +421,7 @@ def _server(tm):
             LayerConfig(name="combined", kind="max_combination", inputs=("steep", "obst")),
         ),
     )
-    return MeshNavServer(tm, cfg, max_path_len=256, device="cpu")
+    return MeshNavServer(tm, cfg, planner_kind="dijkstra", max_path_len=256, device="cpu")
 
 
 def test_server_replans_on_an_irregular_mesh():

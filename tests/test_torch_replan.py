@@ -308,7 +308,7 @@ def _replan_mesh():
 def _port_server(v, f):
     return MeshNavServer(build_mesh(v, f, device="cpu"),
                          _replan_config(NavConfig, MeshMapConfig, PlannerConfig, LayerConfig),
-                         device="cpu")
+                         planner_kind="dijkstra", device="cpu")
 
 
 def _replan_servers():

@@ -395,7 +395,7 @@ def test_server_takes_the_structured_branch_like_reference():
     js = JMeshNavServer(jm, _server_config(JNavConfig, JMeshMapConfig, JPlannerConfig,
                                            JLayerConfig), planner_kind="dijkstra", max_path_len=64)
     ts = MeshNavServer(tm, _server_config(NavConfig, MeshMapConfig, PlannerConfig, LayerConfig),
-                       max_path_len=64, device="cpu")
+                       planner_kind="dijkstra", max_path_len=64, device="cpu")
     assert js.banded_plan is None and ts.banded_plan is None
     assert js.offset_plan.coverage > 0.5
     _assert_server_plans_equal(ts.offset_plan, js.offset_plan)
@@ -438,7 +438,7 @@ def test_server_routes_plans_wider_than_the_pass_to_the_structured_tier(monkeypa
     Cp = tbg.build_banded_kernel_plan(tm, W).n_cols_pad
     monkeypatch.setattr(tbg, "PASS_MAX_COLS", Cp - 8 if limit_below_row else Cp)
     ts = MeshNavServer(tm, _server_config(NavConfig, MeshMapConfig, PlannerConfig, LayerConfig),
-                       max_path_len=64, device="cpu")
+                       planner_kind="dijkstra", max_path_len=64, device="cpu")
     s, g = _scenarios(jm, "terrain24", B=4)
     got = ts.get_path_batch(torch.from_numpy(s), torch.from_numpy(g))
     if not limit_below_row:
@@ -457,7 +457,8 @@ def test_server_routes_plans_wider_than_the_pass_to_the_structured_tier(monkeypa
 
 def test_server_without_a_plan_raises():
     v, f = synthetic.terrain_mesh(12, 12, spacing=0.5, hills=1.0, seed=2)
-    ts = MeshNavServer(build_mesh(v, f, device="cpu"), NavConfig(), device="cpu")
+    ts = MeshNavServer(build_mesh(v, f, device="cpu"), NavConfig(), planner_kind="dijkstra",
+                       device="cpu")
     assert ts.banded_plan is not None and ts.offset_plan is None
     # the map forgets its plans: no path is ported for such a mesh
     ts.banded_plan = None
