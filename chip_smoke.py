@@ -170,6 +170,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -264,32 +265,37 @@ def time_ms(fn, device, reps: int = 1, setup=None) -> float:
 
 
 def device_busy(fn, device) -> dict:
-    """Run fn() once under torch.profiler; the device's busy time is the
-    union of the traced kernels' intervals, its idle share the rest of the
-    host's wall time (which the profiler's own host cost lengthens)."""
+    """Run fn() once under torch.profiler tracing the card's activity, and
+    read the kernels' intervals from the raw trace events (no event tree is
+    built, so a run of some 10^6 launches stays cheap to read): the
+    device's busy time is the union of the intervals, its idle share the
+    rest of the host's wall time (which the tracing's own cost lengthens).
+    On the CPU the trace holds no kernel and the share is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.device(device).type == "cuda"
     sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         fn()
         sync(device)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        wall_ns = (time.perf_counter() - t0) * 1e9
+    kern = [(e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    busy, end = 0, float("-inf")
+    for a, b, _ in sorted(kern):
         if b > end:
             busy += b - max(a, end)
             end = b
     by_name: dict[str, float] = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    for a, b, name in kern:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"traced_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {"traced_wall_ms": wall_ns / 1e6, "device_busy_ms": busy / 1e6,
             "kernels_traced": len(kern),
-            "idle_share": 1.0 - busy / wall_us if kern else None,
+            "idle_share": 1.0 - busy / wall_ns if kern else None,
             "top_kernels_ms": {k[:60]: v for k, v in top}}
 
 
@@ -1395,8 +1401,7 @@ def cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
                      warm_res=warm_res, launches=launches, costs=costs)
 
 
-def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2, costs_np=None, phase="cvp_oracle",
-                    same_finite_set: bool = True) -> dict:
+def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2, costs_np=None, phase="cvp_oracle") -> dict:
     """Phase 12: two lanes of the warm-up solve against the native CVP fast
     marching (bench.py:520-550): the 99.9th-percentile relative error of the
     field below 1%, and the walked cost of each lane's descent no more than
@@ -1405,11 +1410,9 @@ def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2, costs_np=None, phase="cvp_oracl
     at the start vertex (the vertex descent walks along edges, so on an
     exact field it already walks up to a third more than the geodesic).
     `costs_np` (default: the main path's) are the vertex costs of the
-    solve; cctx["ew_np"] its side lengths. The finite sets must be equal,
-    or with same_finite_set=False the oracle's must lie within the field's:
-    next to blocked vertices the Dijkstra warm start gives graph-distance
-    labels to vertices that no triangle update reaches and the fast
-    marching leaves at inf (ROADMAP queue C); they are counted."""
+    solve; cctx["ew_np"] its side lengths. The finite sets must be equal
+    (vertices that keep a warm-start label where the fast marching leaves
+    inf, ROADMAP queue C, are counted and fail the gate)."""
     import torch
     from mesh_navigation_torch.mesh import query
     from mesh_navigation_torch.native import NativeMesh
@@ -1442,7 +1445,6 @@ def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2, costs_np=None, phase="cvp_oracl
             fin_f, fin_o = np.isfinite(pot[b]), np.isfinite(od)
             lanes.append({"p999_rel_err": percentile_rel_err(pot[b], od),
                           "same_finite_set": bool(np.array_equal(fin_f, fin_o)),
-                          "oracle_set_within": bool(not (fin_o & ~fin_f).any()),
                           "warm_only_vertices": int((fin_f & ~fin_o).sum()),
                           "walked_cost": walked, "oracle_field_walked_cost": walk_or,
                           "oracle_at_start": od_start,
@@ -1452,9 +1454,8 @@ def cvp_oracle_gate(ctx, cctx, n_lanes: int = 2, costs_np=None, phase="cvp_oracl
         nm.close()
     out = {"phase": phase, "lanes": lanes, "budget": 0.01,
            "max_rel_err": max(x["p999_rel_err"] for x in lanes)}
-    set_key = "same_finite_set" if same_finite_set else "oracle_set_within"
     bad = [x for x in lanes
-           if not (x["p999_rel_err"] < 0.01 and x[set_key]
+           if not (x["p999_rel_err"] < 0.01 and x["same_finite_set"]
                    and x["walked_cost"] <= x["oracle_field_walked_cost"] * 1.01 + 1e-2)]
     if bad:
         raise AssertionError(f"{phase} gate failed: {out}")
@@ -2117,35 +2118,6 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
                     "pred_max_abs_err": float(pred["max_abs_err"])}
 
 
-def device_busy_cuda(fn, device) -> dict:
-    """Run fn() once under torch.profiler tracing the card alone, and read
-    the kernels' intervals from the raw trace events (no event tree is
-    built, so a run of some 10^5 launches stays cheap to read): the
-    device's busy time is the union of the intervals, and the host's share
-    of the wall time is the rest (the tracing's own cost included)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = torch.device(device).type == "cuda"   # the CPU rehearsal traces the host
-    sync(device)
-    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(device)
-        wall_ns = (time.perf_counter() - t0) * 1e9
-    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
-    busy, end = 0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return {"traced_wall_s": wall_ns / 1e9, "device_busy_s": busy / 1e9,
-            "kernels_traced": len(spans),
-            "host_share": 1.0 - busy / wall_ns if spans else None}
-
-
 def server_cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
     """Phase 20: the navigation server's CVP kind (the reference's default,
     api/server.py:73) on the main path's terrain with the replan phase's
@@ -2253,7 +2225,7 @@ def server_cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, d
                 ew_np=srv.edge_weights.cpu().numpy())
     with uncounted():
         oracle_after = cvp_oracle_gate(ctx, cctx, costs_np=costs_np,
-                                       phase="server_cvp_oracle_after", same_finite_set=False)
+                                       phase="server_cvp_oracle_after")
         fresh = CVPPlanner(mesh, srv.config.planner, grid=srv.grid,
                            max_path_len=srv.planner.max_path_len, device=device)
         fplan = fresh.prepare_eikonal_plan(cctx["ew_np"], costs_np)
@@ -2293,6 +2265,23 @@ def server_cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, d
                      slab_max_abs_err=slab["max_abs_err"])
 
 
+# navigate's pairs: seeds SEED + k of navigation_pair
+NAV_PAIRS = (5, 6, 7, 8, 9)
+# the outcome of the reference's navigate loop with the port's surface
+# projection on each pair, by (mesh_n, nav_dist) of the phase:
+# tests/navigate_pairs.py on windows of the terrain. Two faults of the
+# reference's control law (ROADMAP queue C) sink pairs: the Dijkstra robot's
+# staircase stall (pairs 6-8 at 1M), and the CVP robot circling its goal
+# just outside dist_tolerance (pair 5 of the CPU rehearsal's 64 x 64 map).
+REFERENCE_NAV_OUTCOMES = {
+    (1024, 25.0): {"dijkstra": ("SUCCESS", "PAT_EXCEEDED", "PAT_EXCEEDED", "PAT_EXCEEDED",
+                                "SUCCESS"),
+                   "cvp": ("SUCCESS",) * 5},
+    (64, 10.0): {"dijkstra": ("SUCCESS",) * 5,
+                 "cvp": ("PAT_EXCEEDED", "SUCCESS", "SUCCESS", "SUCCESS", "SUCCESS")},
+}
+
+
 def navigation_pair(v, ny: int, rng, dist: float, spacing: float = 0.5):
     """A goal drawn from `rng` over the terrain (at least dist + 3 m from its
     edge) and a start `dist` metres away in a drawn direction, snapped to
@@ -2311,18 +2300,21 @@ def navigation_pair(v, ny: int, rng, dist: float, spacing: float = 0.5):
 def server_single(device, ctx, scctx, dsrv, nav_dist: float = 25.0,
                   max_cycles: int = 3000) -> dict:
     """Phase 21: one robot on the same 1M map through both server kinds (the
-    CVP server of phase 20 and the replan phase's Dijkstra server):
-    get_path (the gather solves: Jacobi Dijkstra sweeps, Jacobi eikonal
-    sweeps with the vector field and back-tracking) with its sweeps and
-    ms, each field held against its native oracle (heap Dijkstra, fast
-    marching) on the server's current costs at the start vertex and the
-    99.9th percentile; one set_plan, exe_path_step and is_goal_reached;
-    then navigate (its robot kept on the surface, a repair of the
-    reference's loop) with the reference's defaults but max_cycles from a
-    start `nav_dist` metres from the goal, under the card's trace: its wall
-    time (tracing included) and the host's share of it.
-    Gates: the oracles below 1%, navigate SUCCESS within dist_tolerance of
-    the plan's goal pose."""
+    CVP server of phase 20 and the replan phase's Dijkstra server). On the
+    first pair of NAV_PAIRS: get_path (the gather solves: Jacobi Dijkstra
+    sweeps, Jacobi eikonal sweeps with the vector field and back-tracking)
+    with its sweeps and ms, each field held against its native oracle (heap
+    Dijkstra, fast marching) on the server's current costs at the start
+    vertex and the 99.9th percentile; one set_plan, exe_path_step and
+    is_goal_reached. Then navigate (its robot kept on the surface, a repair
+    of the reference's loop) with the reference's defaults but max_cycles
+    on every pair, `nav_dist` metres apart: outcome, cycles, recoveries,
+    wall time, and on the first pair the device's idle share under the
+    card's trace (tracing included in its wall).
+    Gates: the oracles below 1%; on the first pair the final position
+    within dist_tolerance of the plan's goal pose; on every pair the
+    outcome that the reference's loop with the same surface projection
+    gives (REFERENCE_NAV_OUTCOMES; at 1M every CVP pair succeeds)."""
     import torch
     from mesh_navigation_torch.mesh import query
     from mesh_navigation_torch.native import NativeMesh
@@ -2330,12 +2322,20 @@ def server_single(device, ctx, scctx, dsrv, nav_dist: float = 25.0,
 
     mesh, v, f = ctx["mesh"], ctx["v"], ctx["f"]
     mesh_n = int(round(np.sqrt(mesh.num_vertices)))
-    start, goal = navigation_pair(v, mesh_n, np.random.default_rng(SEED + 5), nav_dist)
+    expect = REFERENCE_NAV_OUTCOMES.get((mesh_n, nav_dist))
+    if expect is None:
+        raise ValueError(f"no reference navigate outcomes for {mesh_n}x{mesh_n} at {nav_dist} m "
+                         "(tests/navigate_pairs.py makes them)")
+    pairs = [navigation_pair(v, mesh_n, np.random.default_rng(SEED + k), nav_dist)
+             for k in NAV_PAIRS]
+    start, goal = pairs[0]
     s_t, g_t = torch.from_numpy(start), torch.from_numpy(goal)
     quat = torch.tensor([0.0, 0.0, 0.0, 1.0])
     out = {"phase": "server_single", "mesh": f"{mesh_n}x{mesh_n}", "V": mesh.num_vertices,
-           "start": start.tolist(), "goal": goal.tolist(),
-           "start_goal_m": float(np.linalg.norm(start - goal)), "kinds": {}}
+           "pairs": [{"seed": SEED + k, "start": p[0].tolist(), "goal": p[1].tolist(),
+                      "start_goal_m": float(np.linalg.norm(p[0] - p[1]))}
+                     for k, p in zip(NAV_PAIRS, pairs)],
+           "kinds": {}}
     kernels.reset_launches()
     for kind, srv in (("dijkstra", dsrv), ("cvp", scctx["srv"])):
         sync(device)
@@ -2374,24 +2374,47 @@ def server_single(device, ctx, scctx, dsrv, nav_dist: float = 25.0,
             raise AssertionError(f"{kind} ExePath cycle at the start: outcome "
                                  f"{int(cmd.outcome)}, goal reached {reached}")
         goal_pos = st.goal_pos.cpu().numpy()
-        runs = []
-        traced = device_busy_cuda(
-            lambda: runs.append(srv.navigate(s_t, quat, g_t, max_cycles=max_cycles)), device)
-        nav = runs[0]
-        final = nav["final_position"].cpu().numpy()
-        miss = float(np.linalg.norm(final - goal_pos))
+        navs = []
+        for i, (p_s, p_g) in enumerate(pairs):
+            runs = []
+
+            def drive():
+                runs.append(srv.navigate(torch.from_numpy(p_s), quat, torch.from_numpy(p_g),
+                                         max_cycles=max_cycles))
+            if i == 0:
+                traced = device_busy(drive, device)
+                wall_s = traced["traced_wall_ms"] / 1e3
+            else:
+                sync(device)
+                t0 = time.perf_counter()
+                drive()
+                sync(device)
+                wall_s, traced = time.perf_counter() - t0, None
+            nav = runs[0]
+            final = nav["final_position"].cpu().numpy()
+            navs.append({"seed": SEED + NAV_PAIRS[i], "outcome": nav["outcome"].name,
+                         "reference_outcome": expect[kind][i], "cycles": nav["cycles"],
+                         "recoveries": nav["recoveries"], "wall_s": wall_s,
+                         "final_to_goal_m": float(np.linalg.norm(final - p_g)),
+                         "path_cost": nav["path_cost"]})
+            if traced is not None:
+                navs[-1].update(final_to_plan_goal_m=float(np.linalg.norm(final - goal_pos)),
+                                idle_share=traced["idle_share"], trace=traced)
+            log(f"# server_single {kind} pair {i}: navigate {nav['outcome'].name} in "
+                f"{nav['cycles']} cycles, {wall_s:.1f} s")
+        succeeded = sum(n["outcome"] == "SUCCESS" for n in navs)
         k = {"get_path_ms": ms, "sweeps": plan.rounds, "path_cost": float(plan.cost),
              "path_steps": int(plan.path_valid.sum()), "oracle": oracle,
              "first_command": {"linear": float(cmd.linear), "angular": float(cmd.angular)},
-             "navigate": {"outcome": nav["outcome"].name, "cycles": nav["cycles"],
-                          "recoveries": nav["recoveries"], "wall_s": traced["traced_wall_s"],
-                          "host_share": traced["host_share"], "final_to_plan_goal_m": miss,
-                          "path_cost": nav["path_cost"], "trace": traced}}
+             "navigate": navs, "success_rate": succeeded / len(navs),
+             "reference_success_rate": sum(o == "SUCCESS" for o in expect[kind]) / len(navs)}
         out["kinds"][kind] = k
         log(f"# server_single {kind}: get_path {ms:.1f} ms, {plan.rounds} sweeps; navigate "
-            f"{nav['outcome'].name} in {nav['cycles']} cycles, {traced['traced_wall_s']:.1f} s")
-        if nav["outcome"] != 0 or miss > 0.3:
-            raise AssertionError(f"{kind} navigate: {k['navigate']}")
+            f"{succeeded}/{len(navs)} SUCCESS (the reference's loop: "
+            f"{k['reference_success_rate'] * len(navs):.0f})")
+        if (any(n["outcome"] != n["reference_outcome"] for n in navs)
+                or navs[0]["outcome"] == "SUCCESS" and navs[0]["final_to_plan_goal_m"] > 0.3):
+            raise AssertionError(f"{kind} navigate departs from the reference's loop: {navs}")
     out["launches"] = {n: c for n, c in kernels.LAUNCHES.items() if c}
     return out
 
@@ -2538,7 +2561,15 @@ def main() -> int:
     emit({"phase": "device", "name": pr.device_name, "capability": list(pr.capability),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "nvcc": pr.nvcc, "kernel_build_s": build_s})
-    line = run(torch.device("cuda"))
+    try:
+        line = run(torch.device("cuda"))
+    except BaseException:
+        # a failed phase: its traceback, then leave at once, so that the
+        # destructors of a broken CUDA context do not bury it
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
     emit({"phase": "total", "wall_s": time.perf_counter() - t_main})
     emit({"kernels": line})
     print(smi, flush=True)

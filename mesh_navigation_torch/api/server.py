@@ -141,7 +141,7 @@ class MeshNavServer:
                 self._rebuild_eikonal_plan()
             else:
                 self.eikonal_plan = None
-                self.planner._dij_plan = self.planner._target_ok = None
+                self.planner.drop_eikonal_plan()
                 self.eikonal_stale = True
             return
         if structural or (self.banded_plan is None and self.offset_plan is None):

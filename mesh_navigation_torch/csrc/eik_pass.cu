@@ -87,6 +87,8 @@
 // Offsets into the field are 64-bit (Rp*Cp*Bp is 134M at 1024 x 1024 x 128
 // and passes 2^31 at wider batches).
 
+#undef NDEBUG
+#include <assert.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -116,22 +118,19 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // spin until the strip whose progress word is *p has done `rows` rows, and
-// return the word. A wait past WAIT_LIMIT_NS can only be a broken schedule:
-// trap, so that the launch fails instead of holding the card.
-#define WAIT_LIMIT_NS 20000000000ull
+// return the word. A wait past WAIT_LIMIT_CYCLES (~20 s at 1.98 GHz) can
+// only be a broken schedule: fail a device-side assertion (its message names
+// this wait), so that the launch fails instead of holding the card. The
+// limit counts the SM's own cycles: %globaltimer follows the host's wall
+// clock, so a step of that clock would fail a healthy wait.
+#define WAIT_LIMIT_CYCLES 40000000000LL
 __device__ __forceinline__ unsigned wait_rows(const unsigned* p, int rows) {
   unsigned v = ld_acquire(p);
   if ((int)(v >> 2) >= rows) return v;
-  const unsigned long long t0 = global_ns();
+  const long long t0 = clock64();
   while ((int)((v = ld_acquire(p)) >> 2) < rows) {
-    if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
+    assert(clock64() - t0 <= WAIT_LIMIT_CYCLES && "eik_pass: a strip waited past ~20 s");
   }
   return v;
 }

@@ -12,7 +12,8 @@ GetPath (the Pallas eikonal kernel) is not run. Tolerances are those of
 tests/test_torch_gather.py; commands within 1e-5, costs within 1e-5;
 navigate on a flat map: the same outcome, cycles within 1, final positions
 within the goal tolerance; on hills the port keeps the robot on the surface
-where the reference does not (ROADMAP queue C)."""
+where the reference does not, and its Dijkstra robot stalls where the
+reference's loop with the same projection stalls (both ROADMAP queue C)."""
 
 import inspect
 
@@ -232,6 +233,25 @@ def test_navigate_keeps_the_robot_on_the_surface(kind):
     assert abs(float(ref["final_position"][2]) - float(start[2])) < 1e-6     # height kept
     assert got["outcome"] == Outcome.SUCCESS and got["recoveries"] == 0
     assert np.linalg.norm(got["final_position"].numpy() - target) <= 0.3
+
+
+def test_dijkstra_navigate_stalls_where_the_reference_loop_does():
+    """The Dijkstra robot's staircase stall is the reference's control law
+    (ROADMAP queue C): on pair SEED + 7 of chip_smoke.py's 25 m pairs (a
+    window of its 1M terrain) the field's edge-aligned directions turn 90
+    degrees across a face, the heading error settles just under max_angle
+    and the robot creeps. The reference's loop with the same surface
+    projection stops where the port's navigate does, both far from the
+    goal; the stall starts near cycle 1,100."""
+    import navigate_pairs as npairs
+
+    v = npairs.terrain()
+    got, ref = npairs.run_pair(v, 1024, 7, "dijkstra", max_cycles=1400,
+                               runs=("port", "reference_projected"))
+    assert got["outcome"] == ref["outcome"] == "PAT_EXCEEDED"
+    assert got["recoveries"] == ref["recoveries"] == 0
+    assert np.linalg.norm(np.subtract(got["final"], ref["final"])) < 0.01
+    assert got["final_to_goal_m"] > 5.0
 
 
 def test_cvp_batch_getpath_solves_on_the_current_costs():
