@@ -126,7 +126,9 @@ Phases, each printed as one JSON line on standard output:
    `{"kernels": [...]}` line with all five kernels (`class_pred` with its
    id mode's time, bound and launches beside the main mode's; `banded_pass`
    and `class_pred` with their irregular-path launches, time and bound;
-   `banded_pass` and `eik_pass` with their `server_launches`).
+   `banded_pass` and `eik_pass` with their `server_launches`; `banded_pass`,
+   `eik_pass`, `class_pred` and `check` with their
+   `server_layers_launches`, from phase 22).
 20. server_cvp: the navigation server's CVP kind (the reference's default)
    at full width on the main path's terrain with the replan phase's
    layers: set-up, one warm-up and ITERS timed get_path_batch calls of 128
@@ -149,13 +151,41 @@ Phases, each printed as one JSON line on standard output:
    the goal (drawn from the seed) under the card's trace: outcome, cycles,
    recoveries, wall s and the host's share; gated on SUCCESS within the
    goal tolerance of the plan's goal pose.
+22. server_layers: the layered costmap behind the server at full width
+   (configuration full_stack: height_diff, roughness and ridge at radius
+   1.0 m, steepness, border, clearance, obstacle, inflation over obstacle +
+   border + clearance with its repulsive field, their max), on the same
+   terrain: set-up (the radius table's K, the 3-D face grid's dims and
+   largest bucket with their build times, each layer's card time, lethal
+   share and mean cost, the repulsive field's sweeps, the eikonal plan's
+   build time); the five new layers, the radius table and the repulsive
+   field against the same functions on host copies (tables and lethal
+   masks equal, costs and vectors within 1e-5, equal support; the CPU
+   side's seconds printed); raycast_grid against raycast_bruteforce for
+   4,096 seeded rays (faces equal and t within 1e-5 within the grid's
+   reach) and the two clearance routes on 4,096 vertices (equal); one
+   warm-up and ITERS timed get_path_batch calls of 128 lanes (solves/s,
+   rounds, stages, launches, idle share, peak memory; converged, eik_pass
+   and banded_pass launched, two lanes against the native fast marching);
+   the replan phase's first jump cloud through update_point_cloud and one
+   more get_path_batch (bit for bit a fresh plan's, the oracle after it,
+   the repulsive field non-zero around the obstacle); one CVP get_path on
+   server_single's first pair with the layers' field blended in (its
+   oracle gate; its smallest distance to the inflation's lethal set,
+   length and time beside the same plan without the field); a
+   Dijkstra-kind server with the same stack: make_replan_step("obst"), a
+   warm-up, then jump / drift / clear once each (ms per update; warm
+   against cold, converged, check and the warm pass launched), and one
+   get_path_batch (converged, two lanes against the native heap
+   Dijkstra).
 Then a line with the script's total wall time.
 
 Kernel launches are counted per path: the counts are set to 0 just before
 the main path, the banded_full path, the replan path, the CVP path, the
-structured path, the irregular path, the server_cvp path and the
-server_single path, and read just after each; launches made to hold a
-kernel against its plain version are not counted.
+structured path, the irregular path, the server_cvp path, the
+server_single path and the server_layers path (from its first batch
+GetPath), and read just after each; launches made to hold a kernel against
+its plain version, and the gates' own solves, are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`; the last is
@@ -2419,11 +2449,497 @@ def server_single(device, ctx, scctx, dsrv, nav_dist: float = 25.0,
     return out
 
 
+# the server_layers phase: the layered costmap behind the server
+SERVER_LAYERS_KERNELS = ("banded_pass", "banded_pass_dirty", "eik_pass", "class_pred", "check")
+LAYER_RAYS = 4096               # rays and vertices of the raycast gates
+LAYER_RAY_STEPS = 64            # DDA cells each gated grid ray walks
+NEW_LAYERS = ("height_diff", "roughness", "ridge", "border", "clearance")
+
+
+def full_stack_config():
+    """The full layer stack (BASELINE.json configs[2] with configs[1]'s
+    local layers): the five local layers of slice 7 beside steepness, the
+    obstacle layer, the inflation layer with its repulsive field over the
+    obstacle, border and clearance lethal sets, and their max. The radii
+    are 1.0 m, not the reference's 0.3 m default (local.py:91,114,151): on
+    the terrain's 0.5 m grid a 0.3 m radius holds no neighbour, so ridge
+    would read threshold + 0.1 (lethal) everywhere and height_diff and
+    roughness 0. ridge and height_diff stay out of the inflation's inputs:
+    at 1.0 m their lethal sets cover most of the map. The inflation radii
+    are bench_layers.py:58's; the 0.4 m default is shorter than one edge."""
+    from mesh_navigation_torch.config import LayerConfig, MeshMapConfig, NavConfig, PlannerConfig
+
+    LC = LayerConfig
+    return NavConfig(
+        mesh_map=MeshMapConfig(default_layer="combined", edge_cost_factor=1.0),
+        planner=PlannerConfig(cost_limit=2.0),
+        layers=(
+            LC(name="height_diff", kind="height_diff",
+               params=(("radius", 1.0), ("threshold", 0.185))),
+            LC(name="roughness", kind="roughness", params=(("radius", 1.0), ("threshold", 0.3))),
+            LC(name="ridge", kind="ridge", params=(("radius", 1.0), ("threshold", 0.3))),
+            LC(name="steepness", kind="steepness", params=(("threshold", 0.3),)),
+            LC(name="border", kind="border"),
+            LC(name="clearance", kind="clearance"),
+            LC(name="obst", kind="obstacle"),
+            LC(name="infl", kind="inflation", inputs=("obst", "border", "clearance"),
+               params=(("inflation_radius", 2.0), ("inscribed_radius", 0.5))),
+            LC(name="combined", kind="max_combination",
+               inputs=("height_diff", "roughness", "ridge", "steepness", "border", "clearance",
+                       "obst", "infl")),
+        ),
+    )
+
+
+class timed_calls:
+    """Wall seconds of every call of `owner.name` inside the block (the
+    callee synchronises the card where its result is read on the host)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.seconds = owner, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = self.orig(*a, **k)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+        return False
+
+
+def layer_times(srv, device) -> tuple[dict, dict]:
+    """Each layer of the server's stack on the card, in the stack's order,
+    timed by CUDA events (host clock on the CPU): ms, lethal share, mean
+    finite cost. Returns (per-layer dict, outputs)."""
+    import torch
+
+    stack, mesh = srv.stack, srv.mesh
+    state = dict(srv.layer_state)
+    state["__factors__"] = {c.name: c.factor for c in stack.configs}
+    configs = {c.name: c for c in stack.configs}
+    outputs, out = {}, {}
+    for name in stack.order:
+        inputs = {i: outputs[i] for i in configs[name].inputs}
+        res = []
+        ms = time_ms(lambda: res.append(stack.fns[name](mesh, inputs, state)), device)
+        outputs[name] = res[0]
+        costs = res[0].costs
+        fin = torch.isfinite(costs)
+        out[name] = {"kind": configs[name].kind, "ms": ms,
+                     "lethal_share": float(res[0].lethal.float().mean()),
+                     "mean_cost": float(costs[fin].mean()) if bool(fin.any()) else None,
+                     "inf_vertices": int((~fin).sum())}
+    return out, outputs
+
+
+def layers_card_vs_cpu(srv, outputs, device) -> dict:
+    """Gate 2: the radius table, the five new layers and the repulsive field
+    computed by the same port functions on host copies of the mesh and
+    inputs: tables and lethal masks equal, costs within 1e-5, vectors
+    within 1e-5 with an equal support."""
+    import torch
+    from mesh_navigation_torch.layers import inflation, local
+    from mesh_navigation_torch.ops import raycast
+
+    t0 = time.perf_counter()
+    mesh_c = srv.mesh.to("cpu")
+    neigh, mask = local.radius_neighborhood(mesh_c, 1.0)     # built afresh on the host
+    card_neigh, card_mask = srv.layer_state["neigh:1.0"]
+    state_c = {"neigh:1.0": (torch.from_numpy(neigh).long(), torch.from_numpy(mask)),
+               "clearance:grid3d": raycast.build_face_grid3d(mesh_c)}
+    out = {"radius_table_equal": bool(np.array_equal(card_neigh.cpu().numpy(), neigh)
+                                      and np.array_equal(card_mask.cpu().numpy(), mask)),
+           "layers": {}}
+    ok = out["radius_table_equal"]
+    configs = {c.name: c for c in srv.stack.configs}
+    for name in NEW_LAYERS:
+        oc = srv.stack.fns[name](mesh_c, {}, state_c)
+        og = outputs[name]
+        lethal_eq = bool(torch.equal(og.lethal.cpu(), oc.lethal))
+        err = float((og.costs.cpu() - oc.costs).abs().max())
+        out["layers"][name] = {"kind": configs[name].kind, "lethal_equal": lethal_eq,
+                               "max_abs_err": err}
+        ok = ok and lethal_eq and err <= 1e-5
+    dist = srv.layer_state["inflation:infl"][0]
+    rg = inflation.repulsive_field(srv.mesh, dist)
+    rc = inflation.repulsive_field(mesh_c, dist.cpu())
+    sup_g, sup_c = rg.vectors.ne(0).any(dim=1).cpu(), rc.vectors.ne(0).any(dim=1)
+    err = float((rg.vectors.cpu() - rc.vectors).abs().max())
+    out["repulsive"] = {"sweeps_card": rg.sweeps, "sweeps_cpu": rc.sweeps,
+                        "support": int(sup_c.sum()), "support_equal": bool(torch.equal(sup_g, sup_c)),
+                        "max_abs_err": err}
+    ok = ok and out["repulsive"]["support_equal"] and err <= 1e-5
+    out["cpu_side_s"] = time.perf_counter() - t0
+    out["crop"] = None           # the CPU side runs on the phase's whole mesh
+    if not ok:
+        raise AssertionError(f"server_layers card against CPU failed: {out}")
+    return out
+
+
+def raycast_gates(srv, v, device) -> dict:
+    """Gate 3: raycast_grid against raycast_bruteforce on the card for
+    LAYER_RAYS seeded rays from above the terrain with a downward
+    component (face ids equal and t within 1e-5 wherever the brute-force
+    hit lies within the grid's LAYER_RAY_STEPS cells; beyond them a grid
+    hit is no nearer than the brute force's), and vertex_clearance_grid
+    against vertex_clearance
+    on LAYER_RAYS seeded vertices (equal)."""
+    import torch
+    from mesh_navigation_torch.ops import raycast
+
+    mesh, g = srv.mesh, srv.layer_state["clearance:grid3d"]
+    rng = np.random.default_rng(SEED + 7)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    o = np.stack([rng.uniform(lo[0] + 1, hi[0] - 1, LAYER_RAYS),
+                  rng.uniform(lo[1] + 1, hi[1] - 1, LAYER_RAYS),
+                  rng.uniform(hi[2] + 1.0, hi[2] + 3.0, LAYER_RAYS)], axis=1)
+    d = rng.normal(size=(LAYER_RAYS, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 0.3
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = torch.from_numpy(o.astype(np.float32)).to(device)
+    d = torch.from_numpy(d.astype(np.float32)).to(device)
+    grid, brute = [], []
+    grid_ms = time_ms(lambda: grid.append(
+        raycast.raycast_grid(mesh, g, o, d, n_steps=LAYER_RAY_STEPS)), device)
+    brute_ms = time_ms(lambda: brute.append(raycast.raycast_bruteforce(mesh, o, d)), device)
+    (tg, fg, hg), (tb, fb, hb) = grid[0], brute[0]
+    # cells between the origin's and the brute-force hit's: the DDA visits
+    # the hit's cell at that step
+    p = o + d * torch.where(hb, tb, 0.0)[:, None]
+    cells = lambda x: torch.floor((x - g.origin) / g.cell_size).to(torch.int64)
+    reach = hb & ((cells(p) - cells(o)).abs().sum(dim=1) < LAYER_RAY_STEPS)
+    face_ok = bool(torch.equal(fg[reach], fb[reach]) and bool(hg[reach].all()))
+    t_err = float((tg[reach] - tb[reach]).abs().max()) if bool(reach.any()) else 0.0
+    # beyond the reach a grid hit, where there is one, is a real one: no
+    # nearer than the brute force's (and none where the brute force misses)
+    grid_only = int((hg & ~reach & ~(hb & (tg >= tb - 1e-5))).sum())
+    vids = torch.from_numpy(rng.choice(mesh.num_vertices, LAYER_RAYS, replace=False)).to(device)
+    cg = raycast.vertex_clearance_grid(mesh, g, 0.9, vertex_ids=vids)
+    cb = raycast.vertex_clearance(mesh, 0.9, vertex_ids=vids)
+    out = {"rays": LAYER_RAYS, "n_steps": LAYER_RAY_STEPS, "brute_hits": int(hb.sum()),
+           "within_reach": int(reach.sum()), "faces_equal": face_ok, "max_t_err": t_err,
+           "grid_hits_not_brute": grid_only, "grid_ms": grid_ms,
+           "brute_ms": brute_ms, "clearance_vertices": LAYER_RAYS,
+           "clearance_equal": bool(torch.equal(cg, cb)),
+           "clearance_open_sky": int((cg >= 0.9).sum())}
+    if not (face_ok and t_err <= 1e-5 and grid_only == 0 and out["clearance_equal"]
+            and out["within_reach"] > LAYER_RAYS // 4):
+        raise AssertionError(f"server_layers raycast gates failed: {out}")
+    return out
+
+
+def min_dist_to(points, targets, chunk: int = 1 << 16) -> float:
+    """Smallest Euclidean distance from any of points [P, 3] to targets
+    [T, 3], T in chunks."""
+    import torch
+
+    best = float("inf")
+    for s in range(0, targets.shape[0], chunk):
+        best = min(best, float(torch.cdist(points, targets[s:s + chunk]).min()))
+    return best
+
+
+def path_length(plan) -> float:
+    pts = plan.path_positions[plan.path_valid]
+    return float((pts[1:] - pts[:-1]).norm(dim=1).sum())
+
+
+def server_layers(device, ctx, iters: int, batch: int = CVP_BATCH,
+                  nav_dist: float = 25.0) -> tuple[dict, dict]:
+    """Phase 22: the layered costmap behind the server at full width: the
+    CVP server (the default kind) on the main path's terrain with the
+    full_stack layers. Set-up (radius table, 3-D face grid, each layer's
+    card time, lethal share and mean cost, the repulsive field's sweeps,
+    the eikonal plan), then the gates in order: the new layers, the radius
+    table and the repulsive field against the same functions on the CPU;
+    raycast_grid against raycast_bruteforce and the two clearance routes on
+    the card; one warm-up and `iters` timed get_path_batch calls of `batch`
+    lanes (converged, eik_pass and banded_pass launched, two lanes against
+    the native fast marching); the replan phase's first jump cloud through
+    update_point_cloud (the post-update batch bit for bit a fresh plan's,
+    the oracle after it, a non-zero repulsive field around the obstacle);
+    one CVP get_path on server_single's first pair with the layers' field
+    blended in (its oracle at the start vertex and the 99.9th percentile),
+    beside the same plan without the field; then a Dijkstra-kind server
+    with the same stack runs make_replan_step("obst") (a warm-up, then
+    jump / drift / clear once each: warm against cold, converged, check and
+    the warm pass launched) and answers one get_path_batch (converged, two
+    lanes against the native heap Dijkstra). Launches are counted from the
+    first batch GetPath to the end, comparisons excluded."""
+    import torch
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.layers import inflation, local
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.native import NativeMesh
+    from mesh_navigation_torch.ops import banded_gpu as bg
+    from mesh_navigation_torch.ops import kernels, raycast
+    from mesh_navigation_torch.planners import CVPPlanner
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    mesh, v, f = ctx["mesh"], ctx["v"], ctx["f"]
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mesh.host.pop("neigh:1.0", None)          # the table is built and timed here
+    cfg = full_stack_config()
+    t0 = time.perf_counter()
+    with timed_calls(local, "radius_neighborhood") as t_rad, \
+            timed_calls(raycast, "build_face_grid3d") as t_grid, \
+            timed_calls(CVPPlanner, "prepare_eikonal_plan") as t_plan:
+        srv = MeshNavServer(mesh, cfg, grid=ctx["planner"].grid,
+                            max_path_len=max(2048, 3 * mesh_n), device=device)
+        sync(device)
+    t_setup = time.perf_counter() - t0
+    if srv.planner_kind != "cvp" or srv.eikonal_plan is None:
+        raise AssertionError("the full-stack server is not a CVP server with an eikonal plan")
+    g3 = srv.layer_state["clearance:grid3d"]
+    per_layer, outputs = layer_times(srv, device)
+    rep = []
+    rep_ms = time_ms(lambda: rep.append(
+        inflation.repulsive_field(mesh, srv.layer_state["inflation:infl"][0])), device)
+    setup = {"setup_s": t_setup,
+             "radius_table": {"radius": 1.0, "K": int(srv.layer_state["neigh:1.0"][0].shape[1]),
+                              "mean_neighbours": float(srv.layer_state["neigh:1.0"][1].sum(dim=1)
+                                                       .float().mean()),
+                              "build_s": t_rad.seconds},
+             "grid3d": {"dims": g3.dims.tolist(), "cell_size": g3.cell_size_static,
+                        "max_per_cell": g3.max_per_cell, "faces_binned": int(g3.bucket_faces.numel()),
+                        "build_s": t_grid.seconds},
+             "layers": per_layer, "layers_ms_total": sum(x["ms"] for x in per_layer.values()),
+             "repulsive": {"sweeps": rep[0].sweeps, "ms": rep_ms,
+                           "nonzero_vertices": int(rep[0].vectors.ne(0).any(dim=1).sum())},
+             "eikonal_plan_s": t_plan.seconds}
+    del rep
+    log(f"# server_layers set-up {t_setup:.1f} s: K {setup['radius_table']['K']}, grid "
+        f"{setup['grid3d']['dims']} x {setup['grid3d']['max_per_cell']}, layers "
+        f"{setup['layers_ms_total']:.1f} ms, repulsive {setup['repulsive']['sweeps']} sweeps")
+    vs_cpu = layers_card_vs_cpu(srv, outputs, device)
+    del outputs
+    log(f"# server_layers card vs CPU: CPU side {vs_cpu['cpu_side_s']:.1f} s")
+    rays = raycast_gates(srv, v, device)
+
+    # batch GetPath (the path's launches count from here)
+    rng = np.random.default_rng(SEED + 8)
+
+    def sample():
+        p = v[rng.integers(0, mesh.num_vertices, 2 * batch)].astype(np.float32)
+        return torch.from_numpy(p[:batch]), torch.from_numpy(p[batch:])
+
+    kernels.reset_launches()
+    warm = sample()
+    tw = time.perf_counter()
+    warm_res = srv.get_path_batch(*warm)
+    sync(device)
+    t_warm = time.perf_counter() - tw
+    solves = [{"rounds": warm_res.rounds, "converged": bool(warm_res.converged)}]
+    timer = StageTimer(device)
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        res = srv.get_path_batch(*sample(), timer=timer)
+        solves.append({"rounds": res.rounds, "converged": bool(res.converged)})
+    sync(device)
+    dt = time.perf_counter() - t1
+    res = None
+    stages = {k: val / iters for k, val in timer.totals().items()}
+    batch_launches = {name: kernels.LAUNCHES[name] for name in CVP_KERNELS}
+    before_costs = srv.vertex_costs.cpu().numpy()
+    before_vec = srv.layer_vectors.ne(0).any(dim=1)
+    cctx = dict(planner=srv.planner, kplan=srv.eikonal_plan, warm_res=warm_res,
+                warm=tuple(x.numpy() for x in warm),
+                ew=srv.edge_weights, ew_np=srv.edge_weights.cpu().numpy())
+    with uncounted():
+        oracle_before = cvp_oracle_gate(ctx, cctx, costs_np=before_costs,
+                                        phase="server_layers_oracle_before")
+        trace = device_busy(lambda: srv.get_path_batch(*sample()), device)
+    peak_batch = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    # the sensor update: obstacle -> inflation with its field -> max
+    crng = np.random.default_rng(SEED + 2)
+    crng.integers(0, mesh.num_vertices, REPLAN_BATCH)
+    cloud = update_clouds(crng, v, mesh_n)[0][1]
+    tu = time.perf_counter()
+    srv.update_point_cloud("obst", torch.from_numpy(cloud).to(device))
+    sync(device)
+    t_update = time.perf_counter() - tu
+    rtimer = StageTimer(device)
+    tr = time.perf_counter()
+    post = srv.get_path_batch(*warm, timer=rtimer)
+    sync(device)
+    t_post = time.perf_counter() - tr
+    solves.append({"rounds": post.rounds, "converged": bool(post.converged), "after_update": True})
+    if not all(x["converged"] for x in solves):
+        raise AssertionError(f"a server_layers solve did not converge: {solves}")
+    costs_np = srv.vertex_costs.cpu().numpy()
+    lethal_added = int(np.isinf(costs_np).sum() - np.isinf(before_costs).sum())
+    obst_v = torch.from_numpy(np.nonzero(np.isinf(costs_np) & ~np.isinf(before_costs))[0])
+    near = torch.cdist(mesh.vertices, mesh.vertices[obst_v.to(device)]).amin(dim=1) <= 2.0 \
+        if lethal_added > 0 else torch.zeros_like(before_vec)
+    field_near = int((srv.layer_vectors.ne(0).any(dim=1) & near & ~before_vec).sum())
+    cctx.update(kplan=srv.eikonal_plan, warm_res=post, ew=srv.edge_weights,
+                ew_np=srv.edge_weights.cpu().numpy())
+    with uncounted():
+        oracle_after = cvp_oracle_gate(ctx, cctx, costs_np=costs_np,
+                                       phase="server_layers_oracle_after")
+        fresh = CVPPlanner(mesh, srv.config.planner, grid=srv.grid,
+                           max_path_len=srv.planner.max_path_len, device=device)
+        fplan = fresh.prepare_eikonal_plan(cctx["ew_np"], costs_np)
+        want = fresh.plan_batch_banded(srv.edge_weights, fplan, *warm)
+        fresh_equal = {k: bool(torch.equal(getattr(post, k), getattr(want, k)))
+                       for k in ("d_pad", "outcome", "path_positions", "path_valid", "cost")}
+        del fresh, fplan, want
+    if lethal_added <= 0 or field_near <= 0 or not all(fresh_equal.values()):
+        raise AssertionError(f"server_layers update: {lethal_added} lethal vertices added, "
+                             f"{field_near} field vertices near them, fresh plan {fresh_equal}")
+    update = {"update_s": t_update, "post_update_call_s": t_post,
+              "rebuild_s": rtimer.totals().get("rebuild", 0.0) / 1e3,
+              "lethal_vertices_added": lethal_added,
+              "field_vertices_new_near_obstacle": field_near,
+              "field_vertices": int(srv.layer_vectors.ne(0).any(dim=1).sum()),
+              "fresh_plan_bitwise": fresh_equal}
+    del warm_res, post
+    cvp_launches = {name: kernels.LAUNCHES[name] for name in CVP_KERNELS}
+
+    # one robot: the single CVP GetPath with the layers' field blended in
+    start, goal = navigation_pair(v, mesh_n, np.random.default_rng(SEED + NAV_PAIRS[0]), nav_dist)
+    s_t, g_t = torch.from_numpy(start), torch.from_numpy(goal)
+    sync(device)
+    ts0 = time.perf_counter()
+    plan = srv.get_path(s_t, g_t)
+    sync(device)
+    single_ms = (time.perf_counter() - ts0) * 1e3
+    if int(plan.outcome) != 0 or not plan.converged:
+        raise AssertionError(f"server_layers get_path: outcome {int(plan.outcome)}, "
+                             f"converged {plan.converged}")
+    plain = srv.planner.plan_one(srv.edge_weights, srv.vertex_costs, s_t, g_t,
+                                 layer_vectors=None)
+    pot = plan.potential.cpu().numpy()
+    sv = int(query.nearest_vertex(mesh, srv.grid, s_t.to(device))[0])
+    g_face = query.containing_face(mesh, srv.grid, g_t.to(device))[0]
+    gv = mesh.faces[int(g_face)].long().cpu().numpy()
+    sd = np.linalg.norm(v[gv] - goal[None], axis=1).astype(np.float32)
+    nm = NativeMesh(v, f)
+    try:
+        od = nm.cvp(srv.edge_weights.cpu().numpy(), costs_np, gv, sd, 2.0)[0]
+    finally:
+        nm.close()
+    single_oracle = {"start_rel_err": float(abs(pot[sv] - od[sv]) / od[sv]),
+                     "p999_rel_err": percentile_rel_err(pot, od)}
+    if not (single_oracle["start_rel_err"] < 0.01 and single_oracle["p999_rel_err"] < 0.01):
+        raise AssertionError(f"server_layers get_path oracle gate failed: {single_oracle}")
+    lethal_xyz = mesh.vertices[srv.layer_outputs["infl"].lethal]
+    single = {"start": start.tolist(), "goal": goal.tolist(), "get_path_ms": single_ms,
+              "sweeps": plan.rounds, "oracle": single_oracle,
+              "path_length_m": path_length(plan), "path_cost": float(plan.cost),
+              "min_dist_to_lethal_m": min_dist_to(plan.path_positions[plan.path_valid],
+                                                  lethal_xyz),
+              "without_field": {"path_length_m": path_length(plain), "path_cost": float(plain.cost),
+                                "min_dist_to_lethal_m": min_dist_to(
+                                    plain.path_positions[plain.path_valid], lethal_xyz)},
+              "field_at_path_vertices": int(srv.layer_vectors[query.nearest_vertex_batch(
+                  mesh, srv.grid, plan.path_positions[plan.path_valid])[0]].ne(0).any(dim=1)
+                                            .sum())}
+    del plan, plain
+    cvp_srv_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del srv, cctx
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the replan step on a Dijkstra-kind server with the same stack
+    t0 = time.perf_counter()
+    dsrv = MeshNavServer(mesh, cfg, planner_kind="dijkstra", grid=ctx["planner"].grid,
+                         device=device)
+    step = dsrv.make_replan_step("obst")
+    sync(device)
+    t_dsetup = time.perf_counter() - t0
+    srng = np.random.default_rng(SEED + 9)
+    seeds = torch.from_numpy(np.sort(srng.integers(0, mesh.num_vertices, REPLAN_BATCH))).to(device)
+    base = bg.banded_solve_padded(dsrv.banded_plan, seeds, atol=ATOL, rtol=RTOL)
+    costs, d = dsrv.vertex_costs, base.d_pad
+    steps = []
+    step_timer = StageTimer(device)
+    for name, pts in [("warmup", update_clouds(srng, v, mesh_n)[0][1])] + \
+            update_clouds(srng, v, mesh_n):
+        sync(device)
+        t = time.perf_counter()
+        costs, d, rounds = step(torch.from_numpy(pts).to(device), costs, d, seeds,
+                                timer=None if name == "warmup" else step_timer)
+        sync(device)
+        ms = (time.perf_counter() - t) * 1e3
+        if not step.last["converged"]:
+            raise AssertionError(f"server_layers replan step {name} did not converge")
+        with uncounted():
+            wc = warm_vs_cold(step, seeds, d)
+        steps.append({"pattern": name, "ms": ms, "rounds": rounds,
+                      "lethal": int(torch.isinf(costs).sum()), **wc})
+    del d, base
+    # one batch GetPath on the Dijkstra server (the light banded path)
+    dwarm = sample()
+    dres = dsrv.get_path_batch(*dwarm)
+    sync(device)
+    if not dres.converged:
+        raise AssertionError("server_layers Dijkstra get_path_batch did not converge")
+    with uncounted():
+        dctx = dict(planner=dsrv.planner, kplan=dsrv.banded_plan, mesh=mesh,
+                    warm=tuple(x.numpy() for x in dwarm) + (None,), warm_res=dres, v=v, f=f,
+                    costs_np=dsrv.vertex_costs.cpu().numpy())
+        d_oracle = oracle_gate(dctx, phase="server_layers_dijkstra_oracle")
+    launches = {name: kernels.LAUNCHES[name] for name in SERVER_LAYERS_KERNELS}
+    for name in ("banded_pass", "banded_pass_dirty", "eik_pass", "class_pred", "check"):
+        if launches[name] <= 0 and cuda:
+            raise AssertionError(f"kernel {name} was not launched on the server_layers path")
+    timed_steps = steps[1:]
+    replan_out = {"setup_s": t_dsetup, "steps": steps,
+                  "ms_per_update": float(np.mean([x["ms"] for x in timed_steps])),
+                  "stage_ms_per_update": {k: val / len(timed_steps)
+                                          for k, val in step_timer.totals().items()},
+                  "warm_vs_cold_max_rel": max(x["max_rel_err"] for x in steps),
+                  "dijkstra_batch": {"lanes": batch, "rounds": dres.rounds,
+                                     "oracle": d_oracle}}
+    del dsrv, step, dres
+    out = {
+        "phase": "server_layers", "config": "full_stack", "mesh": f"{mesh_n}x{mesh_n}",
+        "V": mesh.num_vertices, "lanes": batch, **setup, "card_vs_cpu": vs_cpu,
+        "raycasts": rays, "warmup_s": t_warm, "iters": iters,
+        "solves_per_s": batch * iters / dt, "ms_per_iter": dt * 1e3 / iters,
+        "stage_ms_per_iter": stages, "solves": solves, "batch_launches": batch_launches,
+        "oracle_before": oracle_before, "oracle_after": oracle_after, "update": update,
+        "single": single, "replan": replan_out, "launches": launches,
+        "cvp_launches": cvp_launches, "trace": trace, "peak_mem_gb_batch": peak_batch,
+        "peak_mem_gb_cvp_server": cvp_srv_peak,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+    }
+    return out, {"launches": launches}
+
+
+def layers_terrain(device, mesh_n: int) -> dict:
+    """The main path's terrain family at mesh_n x mesh_n, as server_layers
+    reads it (v, f, mesh and a snap grid): the CPU rehearsal's
+    server_layers map, where the main path's tiny map would hold its
+    oracle percentile over a few thousand vertices."""
+    import types
+    from mesh_navigation_torch.mesh import query
+
+    v, f, mesh, *_ = steepness_setup(mesh_n, device)
+    return {"v": v, "f": f, "mesh": mesh,
+            "planner": types.SimpleNamespace(grid=query.build_grid(mesh))}
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
         structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
-        irregular_batch=IRREGULAR_BATCH, nav_dist=25.0, max_cycles=3000) -> list:
-    """Phases 2-21 on `device`; returns the kernels line."""
+        irregular_batch=IRREGULAR_BATCH, nav_dist=25.0, max_cycles=3000,
+        layers_n=None) -> list:
+    """Phases 2-22 on `device`; returns the kernels line. `layers_n` runs
+    server_layers on a terrain of its own size (default: the main path's)."""
     import torch
 
     kc = kernel_check(device, *small)
@@ -2529,6 +3045,15 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     eik = next(k for k in line if k["name"] == "eik_pass")
     eik["server_launches"] = vctx["launches"]["eik_pass"]
     eik["max_abs_err"] = max(eik["max_abs_err"], vctx["slab_max_abs_err"])
+    del vctx, dsrv
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    lp, lctx = server_layers(device, ctx if layers_n is None else layers_terrain(device, layers_n),
+                             iters, cvp_batch, nav_dist=nav_dist)
+    emit(lp)
+    for k in line:
+        if k["name"] in ("banded_pass", "eik_pass", "class_pred", "check"):
+            k["server_layers_launches"] = lctx["launches"][k["name"]]
     return line
 
 

@@ -436,8 +436,11 @@ class MeshNavServer:
 
         Only the static layers' outputs are cached; the obstacle layer's
         dependents re-evaluate per update (layer_manager.cpp:202-263). The
-        per-step refresh rewrites only the plane rows whose costs differ from
-        the no-obstacle base (refresh_banded_planes_rows). The windowed warm
+        step reads only costs, so its layers run with SKIP_VECTORS in their
+        state and compute no repulsive field (the reference's jitted step
+        returns only costs and so drops it too). The per-step refresh
+        rewrites only the plane rows whose costs differ from the
+        no-obstacle base (refresh_banded_planes_rows). The windowed warm
         resolve (`warm_window`) is not ported."""
         if warm_window is not None:
             raise NotImplementedError("the windowed warm resolve (warm_window)")
@@ -445,7 +448,7 @@ class MeshNavServer:
             raise ValueError("replan step needs a layer stack + banded plan")
         mesh = self.mesh
         stack = self.stack
-        base_state = dict(self.layer_state)
+        base_state = {**self.layer_state, _layers.SKIP_VECTORS: True}
         plan0 = self.banded_plan
         pos_planes = _bg.position_planes(plan0, mesh)
         factor = self.config.mesh_map.edge_cost_factor

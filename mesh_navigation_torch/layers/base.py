@@ -27,6 +27,11 @@ class LayerOutput(NamedTuple):
                             # layer provides one)
 
 
+# a state key: layers that compute a repulsive vector field return zeros
+# instead (a caller that reads only the costs, such as the live-replan step)
+SKIP_VECTORS = "__skip_vectors__"
+
+
 def zero_vectors(mesh: MeshArrays) -> torch.Tensor:
     return torch.zeros((mesh.num_vertices, 3), dtype=torch.float32, device=mesh.device)
 

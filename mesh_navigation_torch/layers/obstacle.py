@@ -4,14 +4,16 @@ mesh_navigation_tpu/layers/obstacle.py:29-130).
 Parity with mesh_layers/src/obstacle_layer.cpp: range-filter the points
 (214-227), cast every point along the `down_axis` (229-239), mark all three
 vertices of faces hit within `robot_height` as cost inf + lethal (241-256),
-and diff against the previous lethal set (258-274). The cast goes through the
-xy face bins of ops/raycast.py; arbitrary down axes (the 3D grid) and the
-brute-force cast are not ported yet.
+and diff against the previous lethal set (258-274). The cast goes through
+ops/raycast.py: the xy face bins for a vertical down axis, the 3-D grid's
+DDA for any other where the state holds one, else the brute force.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import torch
 
@@ -36,24 +38,34 @@ def process_point_cloud(
     *,
     sensor_origin: torch.Tensor | None = None,
     face_grid: raycast.FaceGrid2D | None = None,
+    face_grid3d: raycast.FaceGrid3D | None = None,
 ) -> torch.Tensor:
-    """Returns the new lethal mask [V] bool. Points are range-filtered
-    around `sensor_origin`, cast along the vertical `down_axis` through
-    `face_grid`, and faces hit within `robot_height` make their three
-    vertices lethal."""
-    if face_grid is None or tuple(params.down_axis[:2]) != (0.0, 0.0):
-        raise NotImplementedError(
-            "process_point_cloud: only the vertical cast through a FaceGrid2D is ported"
-        )
+    """Returns the new lethal mask [V] bool (obstacle.py:38-90). Points are
+    range-filtered around `sensor_origin` and cast along `down_axis`; faces
+    hit within `robot_height` make their three vertices lethal. A vertical
+    axis with a `face_grid` casts through the xy bins; any other axis
+    walks `face_grid3d` far enough to cover robot_height (hits beyond it
+    are dropped anyway); without a grid the cast is the brute force."""
     points = points.to(mesh.device, torch.float32)
+    down = torch.tensor(params.down_axis, dtype=torch.float32, device=mesh.device)
+    down = down / torch.clamp(torch.linalg.norm(down), min=1e-12)
     finite = torch.all(torch.isfinite(points), dim=-1)
     if sensor_origin is not None:
         rng = torch.linalg.norm(points - sensor_origin.to(points), dim=-1)
         finite = finite & (rng >= params.min_range) & (rng <= params.max_range)
     safe_points = torch.where(finite[:, None], points, 0.0)
-    t, face_id, hit = raycast.raycast_vertical(
-        mesh, face_grid, safe_points, down=params.down_axis[2] < 0
-    )
+    dirs = torch.broadcast_to(down, safe_points.shape)
+    if face_grid is not None and tuple(params.down_axis[:2]) == (0.0, 0.0):
+        t, face_id, hit = raycast.raycast_vertical(
+            mesh, face_grid, safe_points, down=params.down_axis[2] < 0
+        )
+    elif face_grid3d is not None:
+        n_steps = int(math.ceil(params.robot_height
+                                / max(face_grid3d.cell_size_static, 1e-6))) + 2
+        t, face_id, hit = raycast.raycast_grid(mesh, face_grid3d, safe_points, dirs,
+                                               n_steps=n_steps)
+    else:
+        t, face_id, hit = raycast.raycast_bruteforce(mesh, safe_points, dirs)
     hit = hit & finite & (t <= params.robot_height)
     # scatter only the <= N hit faces' vertices (obstacle_layer.cpp:241-256)
     vids = mesh.faces.long()[torch.where(hit, face_id, 0)]          # [N, 3]
@@ -84,6 +96,7 @@ def make_obstacle(cfg: LayerConfig):
         if key_pts in state:
             lethal = process_point_cloud(
                 mesh, state[key_pts], params, face_grid=state.get("__face_grid__"),
+                face_grid3d=state.get("clearance:grid3d") or state.get("__face_grid3d__"),
             )
             state[key_lethal] = lethal
         elif key_lethal in state:

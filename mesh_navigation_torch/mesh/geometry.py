@@ -15,6 +15,12 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dot over a last axis of 3, added x, then y, then z: the same float
+    result on every device (torch.sum's order is not fixed)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 def norm(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
 

@@ -2,10 +2,13 @@
 reference package's mesh_navigation_tpu/native/meshcore.cpp).
 
 Built with g++ on first use into mesh_navigation_torch/build/ (see
-buildutil.py). Provides the CSR mesh build, the heap-Dijkstra oracle
+buildutil.py). Provides the CSR mesh build, the radius neighbourhoods of
+the local cost layers (`meshcore_radius_neighborhood`,
+lvr2::visitLocalVertexNeighborhood semantics), the heap-Dijkstra oracle
 (`meshcore_dijkstra`, dijkstra_mesh_planner.cpp:287-348 semantics) and the
 CVP fast-marching oracle (`meshcore_cvp`, cvp_mesh_planner.cpp:651-886). A
-failed build raises: the port has no pure-Python mesh builder.
+failed build raises: the port has no pure-Python mesh builder and no
+Python neighbourhood search.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def get_lib() -> ctypes.CDLL:
         lib.meshcore_fill.argtypes = [
             ctypes.c_void_p, i32p, i32p, f32p, i32p,
             c, i32p, i32p, u8p, c, i32p, i32p, u8p, u8p, u8p,
+        ]
+        lib.meshcore_radius_neighborhood.restype = c
+        lib.meshcore_radius_neighborhood.argtypes = [
+            ctypes.c_void_p, ctypes.c_float, c, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.meshcore_dijkstra.restype = None
         lib.meshcore_dijkstra.argtypes = [
@@ -114,6 +121,20 @@ class NativeMesh:
             out["vf_mask"], out["boundary"], out["invalid"],
         )
         return out
+
+    def radius_neighborhood(self, radius: float) -> tuple[np.ndarray, np.ndarray]:
+        """Every vertex's neighbours within Euclidean `radius`, found by a
+        BFS along edges from the vertex (the vertex itself excluded). Returns
+        (neigh [V, K] int32, padded with the vertex's own id; mask [V, K]
+        bool), K the longest row (at least 1)."""
+        K = self._lib.meshcore_radius_neighborhood(self._h, float(radius), 0, None, None)
+        neigh = np.zeros((self.V, K), np.int32)
+        mask = np.zeros((self.V, K), np.uint8)
+        self._lib.meshcore_radius_neighborhood(
+            self._h, float(radius), K,
+            neigh.ctypes.data_as(ctypes.c_void_p), mask.ctypes.data_as(ctypes.c_void_p),
+        )
+        return neigh, mask.astype(bool)
 
     def dijkstra(
         self,

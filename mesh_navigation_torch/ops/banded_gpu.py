@@ -1256,7 +1256,9 @@ def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
     dirty in every block. The threshold's min is taken over the rows that
     hold the raised set only (the same value as the reference's full or
     32-row windowed min); finding them is one host read. An empty raised
-    set (a pure clear) gives a +inf threshold, which cuts nothing."""
+    set (a pure clear) gives a +inf threshold, which cuts nothing. Unlike
+    the reference, the sphere leaves out the padding cells that the
+    dilation reaches next to the plan's last columns or rows."""
     if tuple(warm_d.shape[:2]) != (Rp, plan.n_cols_pad):
         raise ValueError(f"warm_d {tuple(warm_d.shape)} is not this plan's padded field")
     Bp = warm_d.shape[2]
@@ -1275,8 +1277,12 @@ def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
     thresh = thresh * (1.0 - 2.0 * rtol) - 2.0 * atol
     lb = torch.zeros((Rp, plan.n_cols_pad), dtype=torch.float32, device=dev)
     if warm_pos is not None:
-        chm = raise_p
         pos = _pad_rows(warm_pos.transpose(0, 1), Rp).transpose(0, 1)   # [3, Rp, Cp]
+        # the sphere encloses the raised vertices only: the dilation can
+        # reach padding cells, whose +inf positions would turn the centre
+        # and every bound into NaN and so cut nothing (the reference's
+        # fault, pallas_banded.py:1760-1774)
+        chm = raise_p & torch.isfinite(pos).all(dim=0)
         n_ch = torch.clamp(chm.sum(), min=1)
         ctr = torch.where(chm[None], pos, 0.0).sum(dim=(1, 2)) / n_ch
         dc = torch.sqrt(((pos - ctr[:, None, None]) ** 2).sum(dim=0))

@@ -1025,3 +1025,88 @@ def test_navigate_on_card_reaches_the_goal(cuda, kind):
     target = srv.set_plan(srv.get_path(start, goal)).goal_pos
     assert float(torch.linalg.norm(out["final_position"] - target)) <= 0.3
     assert kernels.LAUNCHES == before
+
+
+def _terrain_pair(n, cuda):
+    v, f = synthetic.terrain_mesh(n, n, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+    return v, build_mesh(v, f, device=cuda), build_mesh(v, f, device="cpu")
+
+
+@pytest.mark.parametrize("kind,params", [
+    ("height_diff", (("radius", 1.0), ("threshold", 0.185))),
+    ("roughness", (("radius", 1.0), ("threshold", 0.02))),
+    ("ridge", (("radius", 1.0), ("threshold", 0.6))),
+    ("border", ()),
+    ("clearance", ()),
+])
+def test_local_layers_on_card_match_cpu(cuda, kind, params):
+    """The five local layers at 128 x 128: lethal masks and radius tables
+    equal, costs within 1e-5 (arccos may round otherwise on the card)."""
+    from mesh_navigation_torch.config import LayerConfig
+    from mesh_navigation_torch.layers import LAYER_REGISTRY
+
+    _, mg, mc = _terrain_pair(128, cuda)
+    fn = LAYER_REGISTRY[kind](LayerConfig(name="x", kind=kind, params=params))
+    sg = fn.prepare(mg) if hasattr(fn, "prepare") else {}
+    sc = fn.prepare(mc) if hasattr(fn, "prepare") else {}
+    for key in sg:
+        if key.startswith("neigh:"):
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(sg[key], sc[key]))
+    og, oc = fn(mg, {}, sg), fn(mc, {}, sc)
+    assert og.costs.device == mg.device and torch.equal(og.lethal.cpu(), oc.lethal)
+    torch.testing.assert_close(og.costs.cpu(), oc.costs, rtol=0, atol=1e-5)
+
+
+def test_raycasts_on_card_match_cpu(cuda):
+    """raycast_grid against raycast_bruteforce on the card, and both against
+    the CPU, for seeded rays from above a 128 x 128 terrain."""
+    from mesh_navigation_torch.ops import raycast
+
+    v, mg, mc = _terrain_pair(128, cuda)
+    rng = np.random.default_rng(0)
+    n = 512
+    o = np.stack([rng.uniform(2, 60, n), rng.uniform(2, 60, n),
+                  rng.uniform(v[:, 2].max() + 1.0, v[:, 2].max() + 3.0, n)], axis=1)
+    d = rng.normal(size=(n, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 0.3
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+    gg, gc = raycast.build_face_grid3d(mg), raycast.build_face_grid3d(mc)
+    tg, fg, hg = raycast.raycast_grid(mg, gg, o.to(cuda), d.to(cuda), n_steps=96)
+    tc, fc, hc = raycast.raycast_grid(mc, gc, o, d, n_steps=96)
+    tb, fb, hb = raycast.raycast_bruteforce(mg, o.to(cuda), d.to(cuda))
+    assert int(hb.sum()) > n // 2
+    for t, f, h in ((tg, fg, hg), (tb, fb, hb)):
+        assert torch.equal(h.cpu(), hc) and torch.equal(f.cpu(), fc)
+        torch.testing.assert_close(t.cpu()[hc], tc[hc], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("wall", ["row", "patches"])
+def test_repulsive_field_on_card_matches_cpu(cuda, wall):
+    """The repulsive field on the card and on the CPU from the same
+    distances: a straight row of lethal vertices on a flat grid (tied
+    winning-face scores) and patches on the terrain."""
+    from mesh_navigation_torch.layers import inflation
+
+    n = 128
+    if wall == "row":
+        v, f = synthetic.terrain_mesh(n, n, spacing=0.5, hills=0.0, roughness=0.0, seed=0)
+        mg, mc = build_mesh(v, f, device=cuda), build_mesh(v, f, device="cpu")
+    else:
+        v, mg, mc = _terrain_pair(n, cuda)
+    lethal = np.zeros(len(v), bool)
+    if wall == "row":
+        lethal[64 * n + np.arange(20, 100)] = True
+    else:
+        rng = np.random.default_rng(1)
+        for c in rng.integers(0, len(v), 12):
+            lethal[np.clip(c + np.arange(-2, 3)[:, None] * n + np.arange(-2, 3), 0, len(v) - 1)] = True
+    p = inflation.InflationParams(inflation_radius=2.0, inscribed_radius=0.5)
+    dist = inflation.inflation_distances(mc, torch.from_numpy(lethal), p)
+    rg = inflation.repulsive_field(mg, dist.to(cuda))
+    rc = inflation.repulsive_field(mc, dist)
+    assert rg.sweeps == rc.sweeps
+    vg = rg.vectors.cpu()
+    assert torch.equal(vg.ne(0).any(dim=1), rc.vectors.ne(0).any(dim=1))
+    assert int(rc.vectors.ne(0).any(dim=1).sum()) > int(lethal.sum())
+    torch.testing.assert_close(vg, rc.vectors, rtol=0, atol=1e-5)

@@ -97,8 +97,11 @@ def test_process_point_cloud_lethal_identical(seed, ranged):
     assert 0 < int(tl.sum()) < len(v)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tobstacle.lethal_diff(tl, ~tl).numpy(), np.ones(len(v), bool))
-    with pytest.raises(NotImplementedError):
-        tobstacle.process_point_cloud(tm, torch.from_numpy(pts), tobstacle.ObstacleParams())
+    # without a face grid the cast is the brute force, with the same hits
+    brute = tobstacle.process_point_cloud(
+        tm, torch.from_numpy(pts), tobstacle.ObstacleParams(*params),
+        sensor_origin=None if origin is None else torch.from_numpy(origin))
+    np.testing.assert_array_equal(brute.numpy(), np.asarray(jl))
 
 
 def _stacks(points=None, window=None):
@@ -143,12 +146,13 @@ def test_layer_stack_refuses_bad_graphs():
         LayerStack.from_configs((LayerConfig("a", "max_combination", ("b",)),
                                  LayerConfig("b", "max_combination", ("a",))))
     with pytest.raises(ValueError, match="unknown layer kind"):
-        LayerStack.from_configs((LayerConfig("a", "roughness"),))
+        LayerStack.from_configs((LayerConfig("a", "slope_magic"),))
     with pytest.raises(ValueError, match="unknown layer"):
         LayerStack.from_configs((LayerConfig("a", "max_combination", ("zz",)),))
-    # the repulsive field waits for a later slice: its default is refused
-    with pytest.raises(NotImplementedError):
-        LayerStack.from_configs((LayerConfig("i", "inflation"),))
+    # every kind of the reference is registered, and an inflation layer with
+    # its defaults (the repulsive field on) builds
+    assert set(LAYER_REGISTRY) == set(J_REGISTRY)
+    assert LayerStack.from_configs((LayerConfig("i", "inflation"),)).order == ("i",)
 
 
 def _seed_dist(V, kind):
