@@ -703,7 +703,14 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       // the stage of row r was loaded during the row before; the first row
       // and a jump load it here (after the load that is no longer wanted)
       if (staged_row != r) {
-        if (staged_row >= 0) wait_slot(slot);
+        if (staged_row >= 0) {
+          // every thread has seen the unwanted prefetch's phase complete
+          // before thread 0 arms the slot again: a thread that reached its
+          // wait after that next phase had completed too would find the
+          // barrier back at the parity it waits for and wait for ever
+          wait_slot(slot);
+          __syncthreads();
+        }
         if (tid == 0) {
           bulk_wait_read<0>();
           load_row(r, slot);

@@ -341,6 +341,35 @@ def test_warm_pass_jumps_between_far_apart_dirty_rows(cuda):
     assert walked_up < Rp * nb // 8
 
 
+def test_warm_pass_jumps_in_eight_warp_blocks_launch_after_launch(cuda):
+    """Rows of 1,024 columns (eight warps a block, rows staged by TMA) with
+    dirty rows 3 to 9 apart: every jump drops a prefetched row stage and
+    reloads its slot. Two hundred launches on the same input all equal the
+    plain pass, dirty tables included."""
+    nx, ny, B = 64, 1024, 16
+    _, plan = _plan(nx, ny, cuda)
+    rng = np.random.default_rng(11)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, B)).to(cuda)
+    d0 = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL, converge="check").d_pad
+    Rp, nb = d0.shape[0], d0.shape[2] // 8
+    dirty0 = torch.zeros((nb, Rp), dtype=torch.int32)
+    for j in range(nb):
+        r = int(rng.integers(0, 4))
+        while r < Rp:
+            dirty0[j, r] = 1
+            r += int(rng.integers(3, 10))
+    dirty0 = dirty0.to(cuda)
+    prob = bg.prepare_padded(plan, seeds, seeded=False)
+    kw = dict(reverse=False, atol=ATOL, rtol=RTOL)
+    d_p, dirty_p = d0.clone(), dirty0.clone()
+    bg.directional_pass_plain(d_p, prob.down, prob.a_fwd, prob.a_bwd, bb=8, dirty=dirty_p, **kw)
+    for _ in range(200):
+        d, dirty = d0.clone(), dirty0.clone()
+        bg.directional_pass(d, prob.down, prob.a_fwd, prob.a_bwd, dirty=dirty, **kw)
+        assert torch.equal(d, d_p)
+        assert torch.equal(dirty, dirty_p)
+
+
 def test_pass_wrapper_and_kernel_agree_on_the_column_limit(cuda):
     """PASS_MAX_COLS is the kernel's own limit; a wider row raises."""
     assert kernels.query("banded_pass")() == bg.PASS_MAX_COLS
