@@ -128,7 +128,8 @@ Phases, each printed as one JSON line on standard output:
    and `class_pred` with their irregular-path launches, time and bound;
    `banded_pass` and `eik_pass` with their `server_launches`; `banded_pass`,
    `eik_pass`, `class_pred` and `check` with their
-   `server_layers_launches`, from phase 22).
+   `server_layers_launches`, from phase 22; `banded_pass` and `class_pred`
+   with their `scanned_map_launches`, from phase 23).
 20. server_cvp: the navigation server's CVP kind (the reference's default)
    at full width on the main path's terrain with the replan phase's
    layers: set-up, one warm-up and ITERS timed get_path_batch calls of 128
@@ -178,13 +179,33 @@ Phases, each printed as one JSON line on standard output:
    against cold, converged, check and the warm pass launched), and one
    get_path_batch (converged, two lanes against the native heap
    Dijkstra).
+23. scanned_map: maps from files at full width. (a) The irregular phase's
+   jittered-Delaunay terrain with its vertex ids permuted by a seeded
+   permutation (a scan's native order), written as a binary PLY and loaded
+   by mesh/io.read_map (import and build timed), behind a Dijkstra server
+   on the steepness layer with the default PlannerConfig: no banded plan
+   and offset coverage <= 0.5 (asserted), so get_path_batch takes
+   plan_batch's hybrid solve. Set-up, one warm-up and two timed batches
+   of 128 lanes (sweeps, stages, peak memory; timed at ordered_rounds 2
+   where the warm-up took more than 20 s) and one solve at ordered_rounds
+   2; gates: converged, two lanes against the native heap Dijkstra (the
+   field's largest, the start vertex's and the 99.9th-percentile relative
+   error and the path cost against the native chain's, below 1%),
+   SUCCESS where the oracle reaches the start. (b) The CLI (`python -m
+   mesh_navigation_torch --mesh grid.ply --planner dijkstra --layers
+   steepness,border --out DIR`) on the main path's terrain written as a
+   PLY, as a subprocess: exit 0, SUCCESS, four exports; then the same PLY
+   through read_map into a Dijkstra server and one banded get_path_batch
+   of 128 lanes, whose banded_pass and class_pred launches are the
+   kernels line's `scanned_map_launches`.
 Then a line with the script's total wall time.
 
 Kernel launches are counted per path: the counts are set to 0 just before
 the main path, the banded_full path, the replan path, the CVP path, the
 structured path, the irregular path, the server_cvp path, the
-server_single path and the server_layers path (from its first batch
-GetPath), and read just after each; launches made to hold a kernel against
+server_single path, the server_layers path (from its first batch
+GetPath) and the scanned_map phase's banded batch, and read just after
+each; launches made to hold a kernel against
 its plain version, and the gates' own solves, are not counted.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
@@ -1923,7 +1944,6 @@ def irregular(device, mesh_n: int, iters: int, batch: int = IRREGULAR_BATCH) -> 
                                               hills=2.0, roughness=0.01, seed=1)
     t_delaunay = time.perf_counter() - t0
     mesh = reorder.build_reordered_mesh(vi, fi, device=device)
-    del vi, fi
     t_mesh = time.perf_counter() - t0
     costs_np, costs, W = steepness_weights(mesh)
     planner = DijkstraPlanner(mesh, PlannerConfig(cost_limit=2.0),
@@ -2004,7 +2024,7 @@ def irregular(device, mesh_n: int, iters: int, batch: int = IRREGULAR_BATCH) -> 
     }
     ctx = dict(v=host_array(mesh, "vertices"), f=host_array(mesh, "faces"), mesh=mesh,
                costs_np=costs_np, kplan=kplan, planner=planner, warm=warm, warm_res=warm_res,
-               launches=launches)
+               launches=launches, scan=(vi, fi))
     return out, ctx
 
 
@@ -2920,6 +2940,246 @@ def server_layers(device, ctx, iters: int, batch: int = CVP_BATCH,
     return out, {"launches": launches}
 
 
+SCANNED_BATCH = 128          # lanes per scanned_map batch GetPath
+SCANNED_KERNELS = ("banded_pass", "class_pred")   # the file-loaded grid map's banded batch
+SCANNED_SLOW_S = 20.0        # a default solve slower than this: timed calls at ordered_rounds 2
+SCANNED_ROUNDS = 2           # the ordered rounds of the second setting
+
+
+def write_binary_ply(path: str, v, f) -> None:
+    """A binary little-endian PLY of float32 vertices and uchar-counted
+    int32 triangles, as a scanner's exporter writes it."""
+    rec = np.dtype([("n", "u1"), ("i", "<i4", (3,))])
+    faces = np.empty(len(f), rec)
+    faces["n"], faces["i"] = 3, f
+    with open(path, "wb") as fh:
+        fh.write((f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
+                  "property float x\nproperty float y\nproperty float z\n"
+                  f"element face {len(f)}\nproperty list uchar int vertex_indices\n"
+                  "end_header\n").encode())
+        fh.write(np.ascontiguousarray(v, "<f4").tobytes())
+        fh.write(faces.tobytes())
+
+
+def scanned_map(device, mesh_n: int, iters: int, scan, batch: int = SCANNED_BATCH
+                ) -> tuple[dict, dict]:
+    """Phase 23: maps from files. (a) A scan in its native vertex order: the
+    irregular phase's jittered-Delaunay terrain (`scan`: its vertices and
+    faces) relabelled by a seeded permutation, written as a binary PLY,
+    loaded by io.read_map (import and build_mesh timed), behind a Dijkstra
+    MeshNavServer on the steepness layer (cost limit 2.0, edge cost factor
+    1.0, the default PlannerConfig: no ordered rounds); its set-up (the
+    failed banded and offset classifications) timed, and the third branch
+    asserted (no banded plan, offset coverage <= 0.5). One warm-up and
+    `iters` timed get_path_batch calls of `batch` lanes (plan_batch's
+    hybrid solve and the full result: sweeps, converged, stage times, peak
+    memory); timed at ordered_rounds 2 where the warm-up took more than
+    SCANNED_SLOW_S. Then one solve with ordered_rounds 2 beside it. Gates:
+    converged everywhere; two lanes of the warm-up against the native heap
+    Dijkstra (the field's largest relative error, the start vertex's and
+    the 99.9th percentile's, and the path cost against the native chain's,
+    all below 1%), SUCCESS where the oracle reaches the start. (b) The CLI
+    on the main path's terrain written as a PLY: `python -m
+    mesh_navigation_torch --mesh ... --planner dijkstra --layers
+    steepness,border --out DIR` as a subprocess (exit 0, SUCCESS, the four
+    exports); then the same PLY through read_map into a Dijkstra server
+    and one banded get_path_batch of `batch` lanes, whose banded_pass and
+    class_pred launches are counted."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.config import (
+        LayerConfig, MeshMapConfig, NavConfig, PlannerConfig,
+    )
+    from mesh_navigation_torch.mesh import io, synthetic
+    from mesh_navigation_torch.mesh.arrays import build_mesh, host_array
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.planners import DijkstraPlanner
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    cuda = torch.device(device).type == "cuda"
+    max_len = max(2048, 3 * mesh_n)
+    rng = np.random.default_rng(SEED + 11)
+    vi, fi = scan
+    perm = rng.permutation(len(vi))                 # new id -> the Delaunay's id
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(vi))
+    v_scan, f_scan = vi[perm], inv[fi].astype(np.int32)
+    cfg = NavConfig(mesh_map=MeshMapConfig(edge_cost_factor=1.0),
+                    planner=PlannerConfig(cost_limit=2.0),
+                    layers=(LayerConfig(name="steepness", kind="steepness"),))
+    out = {"phase": "scanned_map", "mesh": f"{mesh_n}x{mesh_n}", "lanes": batch}
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "scan.ply")
+        write_binary_ply(ply, v_scan, f_scan)
+        del v_scan, f_scan
+        out["ply_mb"] = os.path.getsize(ply) / 1e6
+        t0 = time.perf_counter()
+        vl, fl = io.import_mesh_file(ply)
+        out["import_s"] = time.perf_counter() - t0
+        del vl, fl
+        t0 = time.perf_counter()
+        mesh = io.read_map(ply, device=device)
+        sync(device)
+        out["read_map_s"] = time.perf_counter() - t0
+        out["V"], out["faces"], out["max_degree"] = mesh.num_vertices, mesh.num_faces, mesh.max_degree
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = MeshNavServer(mesh, cfg, planner_kind="dijkstra", max_path_len=max_len,
+                            device=device)
+        sync(device)
+        out["server_setup_s"] = time.perf_counter() - t0
+        out["offset_coverage"] = srv.offset_plan.coverage
+        if srv.banded_plan is not None or srv.offset_plan.coverage > 0.5:
+            raise AssertionError(f"the scan took another branch than plan_batch: {out}")
+        log(f"# scanned_map (a): {out}")
+
+        def batch_call(s, g, planner=None, timer=None):
+            if planner is None:
+                return srv.get_path_batch(torch.from_numpy(s), torch.from_numpy(g), timer=timer)
+            return planner.plan_batch(srv.slot_weights, torch.from_numpy(s), torch.from_numpy(g),
+                                      timer=timer)
+
+        warm = sample_scenarios(rng, mesh_n, batch)
+        t0 = time.perf_counter()
+        res = batch_call(*warm[:2])
+        sync(device)
+        out["warmup_s"] = time.perf_counter() - t0
+        solves = [{"sweeps": res.rounds, "converged": bool(res.converged)}]
+        n_lanes = 2
+        ws = {"potential": res.potential[:n_lanes].cpu().numpy(),
+              "pred": res.pred[:n_lanes].cpu().numpy(), "cost": res.cost[:n_lanes].cpu().numpy()}
+        outcome = res.outcome[:n_lanes].cpu().numpy()
+        del res
+        rounds2 = DijkstraPlanner(srv.mesh, dataclasses.replace(cfg.planner,
+                                                                ordered_rounds=SCANNED_ROUNDS),
+                                  grid=srv.grid, max_path_len=max_len, device=device)
+        timed_planner = rounds2 if out["warmup_s"] > SCANNED_SLOW_S else None
+        out["timed_ordered_rounds"] = SCANNED_ROUNDS if timed_planner is not None else 0
+        if timed_planner is not None:
+            log(f"# scanned_map: the default solve took {out['warmup_s']:.1f} s; timed calls "
+                f"at ordered_rounds {SCANNED_ROUNDS}")
+        timer = StageTimer(device)
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            res = None
+            res = batch_call(*sample_scenarios(rng, mesh_n, batch)[:2], planner=timed_planner,
+                             timer=timer)
+            solves.append({"sweeps": res.rounds, "converged": bool(res.converged)})
+        sync(device)
+        dt = time.perf_counter() - t1
+        out.update(iters=iters, solves_per_s=batch * iters / dt, ms_per_iter=dt * 1e3 / iters,
+                   stage_ms_per_iter={k: x / iters for k, x in timer.totals().items()})
+        res = None
+        if timed_planner is None:
+            timer2 = StageTimer(device)
+            t1 = time.perf_counter()
+            res = batch_call(*sample_scenarios(rng, mesh_n, batch)[:2], planner=rounds2,
+                             timer=timer2)
+            sync(device)
+            r2 = {"ms": (time.perf_counter() - t1) * 1e3, "sweeps": res.rounds,
+                  "converged": bool(res.converged), "stage_ms": timer2.totals()}
+            solves.append({"sweeps": res.rounds, "converged": bool(res.converged)})
+            res = None
+        else:
+            r2 = {"ms": out["ms_per_iter"], "sweeps": solves[-1]["sweeps"], "converged":
+                  solves[-1]["converged"], "stage_ms": out["stage_ms_per_iter"]}
+        out["ordered_rounds_2"] = r2
+        out["solves"] = solves
+        out["ms_per_sweep_default"] = out["warmup_s"] * 1e3 / solves[0]["sweeps"]
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        if not all(x["converged"] for x in solves):
+            raise AssertionError(f"a scanned_map solve did not converge: {solves}")
+        ctx = {"v": host_array(srv.mesh, "vertices"), "f": host_array(srv.mesh, "faces"),
+               "costs_np": srv.vertex_costs.cpu().numpy()}
+        lanes = full_result_oracle(ctx, srv.planner, warm[0][:n_lanes], warm[1][:n_lanes], ws)
+        for b, lane in enumerate(lanes):
+            lane["outcome"] = int(outcome[b])
+        gate = full_result_gate("scanned_map_oracle", lanes)
+        starts_v = _snapped(srv, warm[0][:n_lanes])
+        fields = native_fields(ctx["v"], ctx["f"], ctx["costs_np"],
+                               _snapped(srv, warm[1][:n_lanes]))
+        for b, (od, _) in enumerate(fields):
+            ref = float(od[starts_v[b]])
+            lanes[b]["start_rel_err"] = (abs(float(ws["potential"][b, starts_v[b]]) - ref) / ref
+                                         if np.isfinite(ref) and ref > 0 else 0.0)
+            lanes[b]["p999_rel_err"] = percentile_rel_err(ws["potential"][b], od)
+            if (outcome[b] == 0) != bool(np.isfinite(ref)):
+                raise AssertionError(f"scanned_map lane {b}: outcome {outcome[b]} where the "
+                                     f"oracle's start distance is {ref}")
+            if not (lanes[b]["start_rel_err"] < 0.01 and lanes[b]["p999_rel_err"] < 0.01):
+                raise AssertionError(f"scanned_map lane {b} against the oracle: {lanes[b]}")
+        out["oracle"] = gate
+        del srv, rounds2, timed_planner, mesh
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (b) the CLI and a banded batch on a file-loaded grid map
+        vg, fg = synthetic.terrain_mesh(mesh_n, mesh_n, spacing=0.5, hills=2.0, roughness=0.01,
+                                        seed=0)
+        grid_ply = os.path.join(tmp, "grid.ply")
+        write_binary_ply(grid_ply, vg, fg)
+        extent = mesh_n * 0.5
+        start = [0.05 * extent, 0.05 * extent, 0.0]
+        goal = [0.7 * extent, 0.6 * extent, 0.0]
+        exports = os.path.join(tmp, "cli_out")
+        cmd = [sys.executable, "-m", "mesh_navigation_torch", "--mesh", grid_ply,
+               "--planner", "dijkstra", "--layers", "steepness,border",
+               "--start", *map(str, start), "--goal", *map(str, goal), "--out", exports]
+        if not cuda:
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        cli = {"s": time.perf_counter() - t0, "rc": done.returncode,
+               "stderr_tail": done.stderr.strip().splitlines()[-3:]}
+        try:
+            cli["json"] = json.loads(done.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            cli["json"] = None
+        files = ("vertex_costs.ply", "potential.ply", "vector_field.obj", "path.obj")
+        cli["exports_mb"] = {x: os.path.getsize(os.path.join(exports, x)) / 1e6
+                             for x in files if os.path.exists(os.path.join(exports, x))}
+        out["cli"] = cli
+        if not (done.returncode == 0 and cli["json"] and cli["json"]["outcome"] == "SUCCESS"
+                and len(cli["exports_mb"]) == len(files)):
+            raise AssertionError(f"the CLI on the file-loaded map failed: {cli}\n{done.stderr}")
+        t0 = time.perf_counter()
+        gmesh = io.read_map(grid_ply, device=device)
+        gsrv = MeshNavServer(gmesh, cfg, planner_kind="dijkstra", max_path_len=max_len,
+                             device=device)
+        sync(device)
+        out["grid_setup_s"] = time.perf_counter() - t0
+        if gsrv.banded_plan is None:
+            raise AssertionError("the file-loaded grid map has no banded plan")
+        s, g, _ = sample_scenarios(rng, mesh_n, batch)
+        kernels.reset_launches()
+        gres = gsrv.get_path_batch(torch.from_numpy(s), torch.from_numpy(g))
+        sync(device)
+        launches = {name: kernels.LAUNCHES[name] for name in SCANNED_KERNELS}
+        out["grid_batch"] = {"rounds": gres.rounds, "converged": bool(gres.converged),
+                             "reach_rate": float((gres.outcome == 0).float().mean()),
+                             "launches": launches}
+        if cuda and not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"the file-loaded banded batch launched no kernel: {launches}")
+        if not gres.converged:
+            raise AssertionError("the file-loaded banded batch did not converge")
+        del gsrv, gmesh, gres
+    return out, {"launches": launches}
+
+
+def _snapped(srv, points) -> np.ndarray:
+    """The server's nearest vertices of [n, 3] points."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+
+    pts = torch.from_numpy(points).to(srv.device)
+    return query.nearest_vertex_batch(srv.mesh, srv.grid, pts)[0].cpu().numpy()
+
+
 def layers_terrain(device, mesh_n: int) -> dict:
     """The main path's terrain family at mesh_n x mesh_n, as server_layers
     reads it (v, f, mesh and a snap grid): the CPU rehearsal's
@@ -2937,8 +3197,8 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
         structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
         irregular_batch=IRREGULAR_BATCH, nav_dist=25.0, max_cycles=3000,
-        layers_n=None) -> list:
-    """Phases 2-22 on `device`; returns the kernels line. `layers_n` runs
+        layers_n=None, scanned_batch=SCANNED_BATCH) -> list:
+    """Phases 2-23 on `device`; returns the kernels line. `layers_n` runs
     server_layers on a terrain of its own size (default: the main path's)."""
     import torch
 
@@ -3035,6 +3295,7 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     line[1].update(irregular_launches=ictx["launches"]["class_pred"],
                    irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], ik["pred_max_abs_err"])
+    scan = ictx.pop("scan")       # the Delaunay terrain, for scanned_map
     del ictx
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -3054,6 +3315,14 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     for k in line:
         if k["name"] in ("banded_pass", "eik_pass", "class_pred", "check"):
             k["server_layers_launches"] = lctx["launches"][k["name"]]
+    del lctx
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    mp_out, mctx = scanned_map(device, mesh_n, 2, scan, scanned_batch)
+    emit(mp_out)
+    for k in line:
+        if k["name"] in SCANNED_KERNELS:
+            k["scanned_map_launches"] = mctx["launches"][k["name"]]
     return line
 
 

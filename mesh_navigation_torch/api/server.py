@@ -15,6 +15,7 @@ verbs:
   recovery(name), clear_mesh(), set_parameters(params)
   update_point_cloud(layer, points)  -> obstacle sensor update
   make_replan_step(layer)            -> the live-replan step (Dijkstra kind)
+  save_map(path)                     -> the mesh and every layer's costs to HDF5
 
 The solver plans: the Dijkstra kind keeps a banded plan where the vertex
 order has band structure, else an offset-classed plan; the CVP kind keeps
@@ -24,7 +25,7 @@ the CVP plan only on structural refreshes, so after a sensor update its
 batch GetPath solves on the old side lengths and target mask (ROADMAP
 queue C). Here a sensor update drops the CVP plan and marks it stale, and
 the next get_path_batch rebuilds it from the current edge weights and
-costs. `save_map` (mesh/io.py) is not ported.
+costs. `save_map` writes the working file (mesh/io.py).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from mesh_navigation_torch.control.controller import (
     ControllerState, MeshController, initial_state, unicycle_step,
 )
 from mesh_navigation_torch.device import resolve_device
-from mesh_navigation_torch.mesh import geometry, query
+from mesh_navigation_torch.mesh import geometry, io, query
 from mesh_navigation_torch.mesh.arrays import MeshArrays
 from mesh_navigation_torch.ops import banded_gpu as _bg
 from mesh_navigation_torch.ops import structured as _structured
@@ -209,7 +210,8 @@ class MeshNavServer:
         Dijkstra kind: the banded light path where the mesh has a banded
         plan (its result has no vector map, predecessor map or [B, V]
         potential), else the structured path where the offset classes cover
-        more than half of the edges (the full result).
+        more than half of the edges, else the planner's plan_batch (the
+        hybrid ordered + Jacobi solve); both give the full result.
 
         CVP kind: a stale plan is rebuilt first (the `rebuild` stage of
         `timer`); then plan_batch_banded where the mesh has an eikonal plan
@@ -229,10 +231,7 @@ class MeshNavServer:
             return self.planner.plan_batch_structured(
                 self.slot_weights, self.offset_plan, starts, goals, timer=timer
             )
-        raise NotImplementedError(
-            "plan_batch, the hybrid gather solve for meshes with neither a banded plan "
-            "nor offset coverage above 0.5"
-        )
+        return self.planner.plan_batch(self.slot_weights, starts, goals, timer=timer)
 
     # ------------------------------------------------------------------
     # ExePath
@@ -419,6 +418,15 @@ class MeshNavServer:
                 orientation = torch.tensor([0.0, 0.0, 0.0, 1.0], device=self.device)
             return _recovery.rotate_in_place(_recovery.RotateRecovery(), orientation)
         return Outcome.INVALID_PLUGIN
+
+    def save_map(self, path: str) -> bool:
+        """save_map Trigger service (mesh_map.cpp:141-146; reference
+        server.py:534-544): the mesh and one channel per layer's costs, plus
+        `vertex_costs`, into the HDF5 working file at `path`."""
+        channels = {name: out.costs.cpu().numpy() for name, out in self.layer_outputs.items()}
+        channels["vertex_costs"] = self.vertex_costs.cpu().numpy()
+        io.save_working_file(path, self.mesh, channels)
+        return True
 
     def make_replan_step(self, layer_name: str, *, inflation_window=(64, 128),
                          warm_window: int | None = None):

@@ -3,8 +3,8 @@
 The system has no model weights; what two implementations must share to be
 compared is the mesh and the plan. These functions take plain numpy arrays
 (for instance read off the reference package's MeshArrays,
-BandedKernelPlan, EikonalKernelPlan and OffsetPlan), so either side can be
-fed the other's exact inputs.
+BandedKernelPlan, EikonalKernelPlan, OffsetPlan and SweepPlan), so either
+side can be fed the other's exact inputs.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from mesh_navigation_torch.ops.banded_gpu import PLAN_ARRAYS, PLAN_META, BandedK
 from mesh_navigation_torch.ops.eikonal_gpu import (
     EIK_PLAN_ARRAYS, EIK_PLAN_META, EikonalKernelPlan,
 )
+from mesh_navigation_torch.ops.ordered import SweepPlan
 from mesh_navigation_torch.ops.structured import (
     OFFSET_PLAN_ARRAYS, OFFSET_PLAN_META, OffsetPlan,
 )
@@ -71,3 +72,13 @@ def offset_plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> OffsetPl
     fields = {k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in OFFSET_PLAN_ARRAYS}
     return OffsetPlan(offsets=tuple(int(o) for o in meta["offsets"]),
                       coverage=float(meta["coverage"]), **fields)
+
+
+def sweep_plan_from_numpy(chunks, num_vertices: int, *, device=None) -> SweepPlan:
+    """SweepPlan from its [n_dir, n_chunks, C] chunk table (padding: the
+    dummy vertex num_vertices)."""
+    chunks = np.asarray(chunks)
+    if chunks.ndim != 3:
+        raise ValueError(f"sweep_plan_from_numpy: chunks must be 3-D, got {chunks.shape}")
+    return SweepPlan(chunks=torch.from_numpy(chunks.astype(np.int32)).to(resolve_device(device)),
+                     num_vertices=int(num_vertices))

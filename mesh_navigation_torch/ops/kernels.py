@@ -103,14 +103,19 @@ def build_all(timeout: float = 900.0) -> dict[str, str]:
                 timeout=max(1.0, deadline - time.monotonic()),
             )
         for name in SOURCES:
-            lib = ctypes.CDLL(_lib_path(name))
-            specs = [_SIGNATURES[name], *_QUERIES.get(name, ())]
-            for fn_name, argtypes in specs:
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[name] = bind(name, _lib_path(name))
         return logs
+
+
+def bind(name: str, path: str) -> ctypes.CDLL:
+    """Load a library built from kernel `name`'s source (or a copy of it)
+    and declare its launch function and queries."""
+    lib = ctypes.CDLL(path)
+    for fn_name, argtypes in [_SIGNATURES[name], *_QUERIES.get(name, ())]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def launcher(name: str):

@@ -1,9 +1,8 @@
-"""Dijkstra-parity planner (port of mesh_navigation_tpu/planners/dijkstra.py:
-28-108, 137-156 and 158-341).
+"""Dijkstra-parity planner (port of mesh_navigation_tpu/planners/dijkstra.py).
 
 plan_one answers one GetPath: snap start and goal to vertices, the
 goal-seeded Jacobi field (ops/sweeps.shortest_path_field), its vector map,
-the predecessor walk and the pose chain. Three batch paths. The banded light path snaps starts and goals to
+the predecessor walk and the pose chain. Four batch paths. The banded light path snaps starts and goals to
 vertices, groups lanes by goal, solves the goal-seeded fields with the
 banded kernels (converge="pred": the last certificate pass emits the int8
 class table; on irregular plans a quiet-round solve and the residual class
@@ -14,7 +13,8 @@ gives the full result: potential, the int32 predecessor map of the
 class-pred kernel's id mode and the [B, V, 3] vector field the controller
 samples. The structured path solves with the fused offset-shift sweeps
 (ops/structured.py) on meshes without a banded plan and gives the same full
-result.
+result. plan_batch takes any mesh (a scan in its native vertex order): the
+hybrid ordered + Jacobi solve (ops/ordered.py) and the same full result.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from mesh_navigation_torch.device import resolve_device
 from mesh_navigation_torch.mesh import query
 from mesh_navigation_torch.mesh.arrays import MeshArrays
 from mesh_navigation_torch.ops import banded_gpu as _bg
+from mesh_navigation_torch.ops import ordered as _ordered
 from mesh_navigation_torch.ops import structured as _structured
 from mesh_navigation_torch.ops import sweeps
 from mesh_navigation_torch.planners.common import PlanResult, pose_chain
@@ -56,6 +57,12 @@ class DijkstraPlanner:
         # [V, 6] position + normal rows, gathered once per path step
         self._pos_normals = torch.cat(
             [self.mesh.vertices, self.mesh.vertex_normals], dim=1
+        )
+        # plan_batch's ordered rounds (dijkstra.py:43-54); with none, no
+        # plan is built (the reference builds a dummy one)
+        self.sweep_plan = (
+            _ordered.build_sweep_plan(self.mesh, directions=config.sweep_directions)
+            if config.method == "batched" and config.ordered_rounds > 0 else None
         )
 
     def cancel(self) -> bool:
@@ -103,6 +110,40 @@ class DijkstraPlanner:
             rounds=field.sweeps,
             converged=field.converged,
         )
+
+    def plan_batch(self, weights_vd: torch.Tensor, starts: torch.Tensor,
+                   goals: torch.Tensor, *, timer=None) -> PlanResult:
+        """Batch planning on any mesh (dijkstra.py:110-156), the server's
+        path where the mesh has neither a banded plan nor an offset plan
+        covering more than half of its edges. method="batched": one hybrid
+        solve for the whole batch (ops/ordered.batched_field_hybrid: the
+        config's ordered_rounds, then Jacobi sweeps in blocks of
+        max(block_sweeps, 16)), then the full result (_finish_batch). Any
+        other method: each lane's plan_one result, stacked (the reference's
+        vmap). `timer` records the snap, solve (the predecessors included),
+        vector_map, extract and pose stages of the batched method."""
+        weights_vd = weights_vd.to(self.device, torch.float32)
+        starts = starts.to(self.device, torch.float32)
+        goals = goals.to(self.device, torch.float32)
+        if self.config.method != "batched":
+            lanes = [self.plan_one(weights_vd, s, g) for s, g in zip(starts, goals)]
+            stack = {f: torch.stack([getattr(r, f) for r in lanes]) for f in (
+                "outcome", "path_positions", "path_quats", "path_valid", "cost",
+                "potential", "vector_map", "pred")}
+            return PlanResult(**stack, rounds=max(r.rounds for r in lanes),
+                              converged=all(r.converged for r in lanes))
+        with _stage(timer, "snap"):
+            start_v = query.nearest_vertex_batch(self.mesh, self.grid, starts)[0]
+            goal_v = query.nearest_vertex_batch(self.mesh, self.grid, goals)[0]
+        with _stage(timer, "solve"):
+            field = _ordered.batched_field_hybrid(
+                self.mesh, weights_vd, self.sweep_plan, goal_v,
+                ordered_rounds=self.config.ordered_rounds,
+                block_sweeps=max(self.config.block_sweeps, 16),
+                max_sweeps=self.config.max_sweeps,
+            )
+        return self._finish_batch(field.dist, field.pred, start_v, goal_v, rounds=field.rounds,
+                                  converged=field.converged, timer=timer)
 
     def prepare_banded_plan(self, weights_vd, *, min_coverage: float = 0.9):
         """Banded kernel plan when the vertex order has band structure

@@ -1139,3 +1139,119 @@ def test_repulsive_field_on_card_matches_cpu(cuda, wall):
     assert torch.equal(vg.ne(0).any(dim=1), rc.vectors.ne(0).any(dim=1))
     assert int(rc.vectors.ne(0).any(dim=1).sum()) > int(lethal.sum())
     torch.testing.assert_close(vg, rc.vectors, rtol=0, atol=1e-5)
+
+
+# The kernels' handoffs launch after launch (the stress scripts
+# scripts/*_stress.py run the same inputs against copies whose warps or
+# blocks lag before each handoff): a race shows as a launch that differs
+# from the plain version or fails a wait's assertion.
+
+def test_class_pred_ring_of_row_slots_holds_launch_after_launch(cuda):
+    """The cp.async ring of row slots (refilled two steps ahead, one barrier
+    a step) on 256 x 1,024 x 128 and 130 x 300 x 32 fields: 150 launches in
+    each mode equal the plain version."""
+    for Rp, Cp, Bp in ((256, 1024, 128), (130, 300, 32)):
+        d, w8 = _random_field(Rp, Cp, Bp, cuda, seed=Rp + Cp + Bp)
+        kw = dict(R=Rp - 1, C=Cp - 1, V=(Rp - 1) * (Cp - 1) - 1, tol=6e-3)
+        for as_class, check in ((True, (ATOL, RTOL)), (False, None)):
+            t_p, f_p = bg.class_pred_plain(d, w8, **kw, check=check, as_class=as_class)
+            for _ in range(150):
+                t_k, f_k = bg.class_pred(d, w8, **kw, check=check, as_class=as_class)
+                assert torch.equal(t_k, t_p)
+                assert f_k is None or bool(f_k.any()) == bool(f_p)
+
+
+def test_fused_sweep_ring_holds_launch_after_launch(cuda):
+    """The ring of the next tile's rows and planes on the structured path's
+    layout (tile 1,280, 128 lanes, the 1M terrain's offsets) and without
+    spare ring rows (tile 5,632): 150 launches each equal the plain
+    version."""
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    for tile, V, B, offsets in ((1280, 200_000, 128, (1, -1, 1024, -1024, 1025, -1025)),
+                                (5632, 56_320, 1, (1, -1, 5631, -5631, 5632, -5632))):
+        d, planes = _sweep_inputs(tile, V, B, offsets, cuda, seed=V + B)
+        want = sg._fused_sweep_plain(d, planes, offsets, tile, 2)
+        out = torch.empty_like(d)
+        for _ in range(150):
+            assert torch.equal(sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=2, out=out),
+                               want)
+
+
+def test_eik_pass_progress_words_hold_launch_after_launch(cuda):
+    """The release / acquire progress words between strip blocks, 64 x 200
+    x 128 at strip width 4 (more strip-rows than resident blocks): a forced
+    pass and the dirty-driven pass after it, 100 launches each, equal the
+    plain version."""
+    plan, _, _, d = _eik_field(64, 200, 128, cuda)
+    cls = eg.class_sources(plan)
+    dirty = torch.zeros((d.shape[2] // eg.EIK_LANES, d.shape[0]), dtype=torch.int32, device=cuda)
+    for force in (True, False):
+        kw = dict(reverse=False, chunk_dir=1, atol=ATOL, rtol=RTOL, force=force, strip_width=4)
+        out_p, chg_p, dirty_p = eg._eik_pass_plain(d, plan.abc, cls, dirty, **kw)
+        for _ in range(100):
+            out_k, chg_k, dirty_k = eg.eik_pass(d, plan.abc, cls, dirty, **kw)
+            assert torch.equal(out_k, out_p) and torch.equal(dirty_k, dirty_p)
+            assert int(chg_k.item()) == int(chg_p.item())
+        d, dirty = out_p, dirty_p
+
+
+def test_pass_stages_and_carried_rows_hold_launch_after_launch(cuda):
+    """The ordinary stage prefetch (a forced pass over 1,024-column rows,
+    eight-warp blocks, rows staged by TMA) and the extended lanes' two
+    carried rows (staged at 1,024 columns, from device memory at 2,048):
+    100 launches each equal the plain version, rows walked included."""
+    _, plan = _plan(64, 1024, cuda)
+    seeds = torch.from_numpy(np.random.default_rng(5).integers(0, plan.num_vertices, 64))
+    prob = bg.prepare_padded(plan, seeds.to(cuda))
+    problems = [(prob.d0, prob.down, prob, (), None)]
+    for Cp in (1024, 2048):
+        d, down, _, a_fwd, a_bwd, xdown, _ = _xl_problem(64, Cp, 64, XLANES, cuda, seed=Cp)
+        problems.append((d, down, _XLProb(a_fwd, a_bwd), XLANES, xdown))
+    for d0, cross, chains, xlanes, xcross in problems:
+        kw = dict(reverse=False, atol=ATOL, rtol=RTOL, force=True, xcross=xcross, xlanes=xlanes)
+        d_p = d0.clone()
+        wp = torch.zeros(1, dtype=torch.int64, device=cuda)
+        chg_p = bg.directional_pass_plain(d_p, cross, chains.a_fwd, chains.a_bwd, bb=8,
+                                          rows_walked=wp, **kw)
+        for _ in range(100):
+            d_k = d0.clone()
+            wk = torch.zeros(1, dtype=torch.int32, device=cuda)
+            chg_k = bg.directional_pass(d_k, cross, chains.a_fwd, chains.a_bwd, rows_walked=wk,
+                                        **kw)
+            assert torch.equal(d_k, d_p)
+            assert bool(chg_k.item()) == bool(chg_p.item()) and int(wk.item()) == int(wp.item())
+
+
+@pytest.mark.parametrize("ordered_rounds", [0, 2])
+def test_server_third_branch_on_card_matches_cpu(cuda, ordered_rounds):
+    """A Dijkstra server on a 64 x 64 jittered-Delaunay terrain whose vertex
+    ids are permuted (no banded plan, offset coverage <= 0.5) answers a batch
+    through plan_batch on the card as on the CPU: the fields, predecessors,
+    rounds and outcomes equal (adds and minima only, in the same order)."""
+    from mesh_navigation_torch.api.server import MeshNavServer
+    from mesh_navigation_torch.config import LayerConfig, NavConfig, PlannerConfig
+
+    v, f = synthetic.irregular_terrain_mesh(64, 64, spacing=0.5, jitter=0.45, hills=2.0,
+                                            roughness=0.01, seed=1)
+    perm = np.random.default_rng(7).permutation(len(v))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(v))
+    v, f = v[perm], inv[f].astype(np.int32)
+    cfg = NavConfig(planner=PlannerConfig(cost_limit=2.0, ordered_rounds=ordered_rounds),
+                    layers=(LayerConfig(name="steepness", kind="steepness"),))
+    rng = np.random.default_rng(2)
+    s = torch.from_numpy(v[rng.integers(0, len(v), 16)])
+    g = torch.from_numpy(v[rng.integers(0, len(v), 16)])
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        srv = MeshNavServer(build_mesh(v, f, device=dev), cfg, planner_kind="dijkstra",
+                            max_path_len=256, device=dev)
+        assert srv.banded_plan is None and srv.offset_plan.coverage <= 0.5
+        res[dev.type] = srv.get_path_batch(s, g)
+    a, b = res["cuda"], res["cpu"]
+    assert a.converged and b.converged and a.rounds == b.rounds
+    assert torch.equal(a.potential.cpu(), b.potential)
+    assert torch.equal(a.pred.cpu(), b.pred)
+    assert torch.equal(a.outcome.cpu(), b.outcome) and bool((b.outcome == 0).all())
+    assert torch.equal(a.path_valid.cpu(), b.path_valid)

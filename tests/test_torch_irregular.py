@@ -33,7 +33,6 @@ from mesh_navigation_tpu.mesh.arrays import host_array as jhost_array
 from mesh_navigation_tpu.ops import pallas_banded as jpb
 from mesh_navigation_tpu.ops import sweeps as jsweeps
 from mesh_navigation_tpu.planners import DijkstraPlanner as JDijkstraPlanner
-from mesh_navigation_tpu.utils import oracle
 
 from mesh_navigation_torch.api.server import MeshNavServer
 from mesh_navigation_torch.config import (
@@ -44,6 +43,7 @@ from mesh_navigation_torch.mesh.arrays import host_array
 from mesh_navigation_torch.ops import banded as tbanded
 from mesh_navigation_torch.ops import banded_gpu as tbg
 from mesh_navigation_torch.planners import DijkstraPlanner
+from mesh_navigation_torch.utils import oracle
 
 from test_torch_reference import reference_build_mesh
 
@@ -88,10 +88,12 @@ def _within(got, ref, k=1.0):
     assert np.all(err <= k * (ATOL + RTOL * np.abs(ref[fin]))), float(err.max())
 
 
-def _oracle_fields(jm, costs, seeds):
-    adj = oracle.mesh_adjacency(jm)
+def _oracle_fields(jm, tm, costs, seeds):
+    """The port's heap oracle on the port's mesh with the reference's edge
+    weights."""
+    adj = oracle.mesh_adjacency(tm)
     ew = np.asarray(jsweeps.compute_edge_weights(jm, jnp.asarray(costs), 1.0))
-    return [oracle.dijkstra_oracle(jm.num_vertices, adj, ew, costs, int(s), COST_LIMIT)[0]
+    return [oracle.dijkstra_oracle(tm.num_vertices, adj, ew, costs, int(s), COST_LIMIT)[0]
             for s in seeds]
 
 
@@ -213,7 +215,7 @@ def test_residual_solve_matches_reference_and_oracle(converge):
     _within(d, ref, k=2.0)
     R, C, V = tplan.n_rows, tplan.n_cols, tplan.num_vertices
     dist = d[:R, :C, :len(SEEDS)].reshape(R * C, -1)[:V]
-    for b, od in enumerate(_oracle_fields(jm, costs, SEEDS[:3])):
+    for b, od in enumerate(_oracle_fields(jm, tm, costs, SEEDS[:3])):
         np.testing.assert_allclose(dist[:, b], od, rtol=1e-3, atol=1e-3)
     assert tbg.check_converged_banded(tplan, res.d_pad, atol=ATOL, rtol=RTOL)
     assert bool(jpb.check_converged_banded(jplan, jnp.asarray(d), atol=ATOL, rtol=RTOL,

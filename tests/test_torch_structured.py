@@ -456,14 +456,24 @@ def test_server_routes_plans_wider_than_the_pass_to_the_structured_tier(monkeypa
 
 
 def test_server_without_a_plan_raises():
+    """A map with neither a banded nor an offset plan: get_path_batch takes
+    the planner's plan_batch (it raised NotImplementedError until
+    plan_batch was ported)."""
     v, f = synthetic.terrain_mesh(12, 12, spacing=0.5, hills=1.0, seed=2)
     ts = MeshNavServer(build_mesh(v, f, device="cpu"), NavConfig(), planner_kind="dijkstra",
                        device="cpu")
     assert ts.banded_plan is not None and ts.offset_plan is None
-    # the map forgets its plans: no path is ported for such a mesh
+    # the map forgets its plans and keeps the slot weights, as it does for
+    # a mesh without either plan
     ts.banded_plan = None
-    with pytest.raises(NotImplementedError, match="plan_batch"):
-        ts.get_path_batch(torch.zeros(1, 3), torch.ones(1, 3))
+    ts.slot_weights = torch.from_numpy(tsweeps.slot_weights_np(
+        ts.mesh, ts.vertex_costs.numpy(), cost_limit=ts.config.planner.cost_limit,
+        edge_cost_factor=ts.config.mesh_map.edge_cost_factor))
+    s, g = torch.zeros(1, 3), torch.ones(1, 3)
+    got = ts.get_path_batch(s, g)
+    want = ts.planner.plan_batch(ts.slot_weights, s, g)
+    assert got.converged and bool((got.outcome == 0).all())
+    assert torch.equal(got.potential, want.potential) and torch.equal(got.pred, want.pred)
 
 
 def test_offset_plan_from_numpy_reproduces_reference_solve():
