@@ -198,15 +198,43 @@ Phases, each printed as one JSON line on standard output:
    through read_map into a Dijkstra server and one banded get_path_batch
    of 128 lanes, whose banded_pass and class_pred launches are the
    kernels line's `scanned_map_launches`.
+24. banded_walks (after phase 8): on banded_full's own field and int32
+   id table (its warm-up draw, 128 lanes), extract_paths_vb over the
+   lane-minor table gives the path's walk's vertex ids lane for lane, and
+   descend_paths (the greedy descent of the [B, V] field, no table) walks
+   within 1% of its length wherever both reach the goal (walk ms
+   printed); then the row-scan solver ops/banded.batched_field_banded
+   (plain torch, a loop over rows) on the main terrain with 16 lanes:
+   rounds, ms, `converged`, two lanes against the native heap Dijkstra
+   (<1%). A solve over 60 s moves to a 512 x 512 terrain and says so.
+25. replan_window (after phase 10): the replan phase's server with
+   make_replan_step("obst", warm_window=384) and the same step without the
+   window, in turns on the same jump / drift / clear clouds, for the
+   replan draw's 128 lanes and its first 8: per pattern and cohort the ms
+   an update with the window on and off, the share of steps where it fit,
+   its slab rounds, seam aborts and slabs that certified alone, and the
+   banded_pass and check launches. Gates: every step converged and against
+   a cold solve (<1%), two lanes of each cohort's last windowed field
+   against the native heap Dijkstra (<1%).
+26. cvp_hybrid (after phase 13): the CVP phase's plan, warm-up draw and
+   128 lanes; eikonal_solve_padded with and without graph_plan (the CVP
+   planner's Dijkstra warm plan), cold at orderings 4 and in the planner's
+   own setting (its warm start, orderings 2): rounds, ms, eik_pass and
+   banded_pass launches of each. Gates: converged, and each hybrid field
+   by cvp_oracle_gate (two lanes, 1%).
 Then a line with the script's total wall time.
 
 Kernel launches are counted per path: the counts are set to 0 just before
-the main path, the banded_full path, the replan path, the CVP path, the
-structured path, the irregular path, the server_cvp path, the
-server_single path, the server_layers path (from its first batch
-GetPath) and the scanned_map phase's banded batch, and read just after
-each; launches made to hold a kernel against
-its plain version, and the gates' own solves, are not counted.
+the main path, the banded_full path, the replan path, the windowed replan
+steps, the CVP path, the hybrid CVP solves, the structured path, the
+irregular path, the server_cvp path, the server_single path, the
+server_layers path (from its first batch GetPath) and the scanned_map
+phase's banded batch, and read just after each; launches made to hold a
+kernel against its plain version, the gates' own solves, and the
+windowless steps and plain solves the new paths are compared with, are
+not counted. The kernels line's `banded_pass` and `check` carry
+`replan_window_launches`, `banded_pass` and `eik_pass` carry
+`cvp_hybrid_launches`.
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`; the last is
@@ -216,6 +244,7 @@ Any failed check raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3193,12 +3222,329 @@ def layers_terrain(device, mesh_n: int) -> dict:
             "planner": types.SimpleNamespace(grid=query.build_grid(mesh))}
 
 
+# --------------------------------------------------------------------------
+# phases 24-26: the banded walks and the row-scan solver, the windowed warm
+# resolve, the hybrid CVP transport
+# --------------------------------------------------------------------------
+
+WALK_SCAN_BATCH = 16         # lanes of the row-scan solver (ops/banded.py)
+WALK_SCAN_SLOW_S = 60.0      # a row-scan solve slower than this moves to a 512 x 512 terrain
+REPLAN_WINDOW = 384          # rows of the warm window (bench.py:382-388's measured setting)
+WINDOW_COHORTS = (128, 8)    # lanes of the replan draw the window phase runs
+WINDOW_KERNELS = ("banded_pass", "check")
+HYBRID_KERNELS = ("eik_pass", "banded_pass")
+
+
+def banded_walks(device, ctx, bctx) -> dict:
+    """Phase 24 (after phase 8): the banded walks on banded_full's own
+    field and id table (the warm-up draw's 128 lanes, solved and tabled as
+    that path does): extract_paths_vb walks the lane-minor [V, Bp] table
+    and must give the vertex ids of the path's walk (sweeps.extract_path
+    on the [B, V] table) lane for lane; descend_paths descends the [B, V]
+    field with no table, and its walked length must stay within 1% of the
+    walk's on every lane where both reach the goal. Then the row-scan
+    solver (ops/banded.batched_field_banded, plain torch: a loop over rows)
+    on the main terrain with 16 lanes of the same draw's goals: its
+    rounds, ms and `converged`, and two lanes against the native heap
+    Dijkstra (field's largest and 99.9th-percentile relative error below
+    1%, the same finite set). Where that solve takes over 60 s it runs
+    again on a 512 x 512 terrain, and the line says so."""
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.ops import banded as sb
+    from mesh_navigation_torch.ops import banded_gpu as bg
+    from mesh_navigation_torch.ops import sweeps
+
+    planner, kplan, mesh = ctx["planner"], ctx["kplan"], ctx["mesh"]
+    s, g, _ = bctx["warm"]
+    B = len(s)
+    with uncounted():
+        sv = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(s).to(device))[0]
+        gv = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(g).to(device))[0]
+        d = bg.banded_solve_padded(kplan, gv, max_rounds=max(planner.config.max_sweeps // 2, 64),
+                                   atol=ATOL, rtol=RTOL, converge="round").d_pad
+        tol = max(ATOL, 1e-6)
+        ids = bg.predecessors_banded_ids(kplan, d, tol=tol)
+    R, C, V = kplan.n_rows, kplan.n_cols, kplan.num_vertices
+    dist = d[:R, :C, :B].reshape(R * C, B)[:V].T.contiguous()
+    del d
+    L = planner.max_path_len
+    pred_bv = ids[:, :B].T.contiguous()
+    walks = {}
+    for name, fn in (("extract_path", lambda: sweeps.extract_path(pred_bv, sv, gv, L)),
+                     ("extract_paths_vb", lambda: bg.extract_paths_vb(ids, sv, gv, L)),
+                     ("descend_paths", lambda: bg.descend_paths(kplan, dist, sv, gv, L, tol=tol))):
+        sync(device)
+        t = time.perf_counter()
+        walks[name] = fn()
+        sync(device)
+        walks[name] = (*walks[name], (time.perf_counter() - t) * 1e3)
+    (pa, va, ms_a), (pb, vb, ms_b), (pc, vc, ms_c) = (walks[k] for k in walks)
+    ids_equal = bool(torch.equal(pa, pb) and torch.equal(va, vb))
+    if not ids_equal:
+        raise AssertionError("extract_paths_vb's vertex ids differ from the banded_full walk's")
+    la = sweeps.path_cost(mesh.vertices, pa, va)
+    lc = sweeps.path_cost(mesh.vertices, pc, vc)
+    steps_a, steps_c = va.sum(dim=1), vc.sum(dim=1)
+    end_a = pa[torch.arange(B, device=pa.device), (steps_a - 1).clamp(min=0)]
+    end_c = pc[torch.arange(B, device=pc.device), (steps_c - 1).clamp(min=0)]
+    both = (end_a == gv) & (end_c == gv)
+    rel = ((lc - la).abs() / la.clamp(min=1e-6))[both]
+    descend = {"lanes_at_goal": int(both.sum()), "max_rel_len_diff": float(rel.max()),
+               "same_path_lanes": int((pa == pc).all(dim=1).sum()), "budget": 0.01}
+    if not (int(both.sum()) > B // 2 and descend["max_rel_len_diff"] < 0.01):
+        raise AssertionError(f"descend_paths against the banded_full walk: {descend}")
+    del ids, pred_bv, dist
+
+    def scan_solve(mesh_s, W, v, f, costs_np, n):
+        bplan = sb.build_banded_plan(mesh_s, W)
+        rng = np.random.default_rng(SEED + 24)
+        seeds = torch.from_numpy(rng.integers(0, mesh_s.num_vertices, WALK_SCAN_BATCH)).to(device)
+        sync(device)
+        t = time.perf_counter()
+        res = sb.batched_field_banded(mesh_s, torch.from_numpy(W).to(device), bplan, seeds,
+                                      atol=ATOL, rtol=RTOL)
+        sync(device)
+        secs = time.perf_counter() - t
+        if not res.converged:
+            raise AssertionError(f"batched_field_banded did not converge in {res.rounds} rounds")
+        errs, same = [], []
+        for b, (od, _) in enumerate(native_fields(v, f, costs_np, seeds[:2].cpu().numpy())):
+            got = res.dist[b].cpu().numpy()
+            fin = np.isfinite(od)
+            same.append(bool(np.array_equal(np.isfinite(got), fin)))
+            errs.append(float(np.max(np.abs(got[fin] - od[fin]) / np.maximum(od[fin], 1e-3))))
+            errs.append(percentile_rel_err(got, od))
+        oracle = {"lanes": 2, "max_rel_err": float(np.max(errs)), "same_finite_set": same,
+                  "budget": 0.01}
+        if not (oracle["max_rel_err"] < 0.01 and all(same)):
+            raise AssertionError(f"batched_field_banded oracle parity failed: {oracle}")
+        return {"mesh": f"{n}x{n}", "V": mesh_s.num_vertices, "lanes": WALK_SCAN_BATCH,
+                "rounds": res.rounds, "converged": res.converged, "ms": secs * 1e3,
+                "coverage": bplan.coverage, "oracle": oracle}
+
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    W = sweeps.slot_weights_np(mesh, ctx["costs_np"], cost_limit=2.0, edge_cost_factor=1.0)
+    scan = scan_solve(mesh, W, ctx["v"], ctx["f"], ctx["costs_np"], mesh_n)
+    if scan["ms"] > WALK_SCAN_SLOW_S * 1e3:
+        v2, f2, mesh2, costs2, _, W2 = steepness_setup(512, device)
+        scan = {"at_main_terrain": scan, "moved_to_512": True,
+                **scan_solve(mesh2, W2, v2, f2, costs2, 512)}
+    return {"phase": "banded_walks", "lanes": B, "max_len": L,
+            "walk_ms": {"extract_path": ms_a, "extract_paths_vb": ms_b, "descend_paths": ms_c},
+            "ids_equal": ids_equal, "walk_steps_max": int(steps_a.max()),
+            "descend": descend, "row_scan": scan}
+
+
+def fit_share(records) -> float | None:
+    """The share of windowed steps whose window fit; None where no step
+    used the window (a field no taller than the window)."""
+    fits = [r["fit"] for r in records if r["fit"] is not None]
+    return float(np.mean(fits)) if fits else None
+
+
+def replan_window(device, ctx, rctx, iters: int) -> tuple[dict, dict]:
+    """Phase 25 (after phase 10): the windowed warm resolve on the replan
+    phase's server and terrain: make_replan_step("obst", warm_window=384)
+    and the same step without the window, for two cohorts of the replan
+    draw (its 128 lanes, then its first 8). Each cohort starts both steps
+    from one cold field, runs one warm-up jump on each, then `iters` rounds
+    of the jump / drift / clear clouds; each cloud goes through both steps
+    in turns (the order alternates), each step from its own last field.
+    Per step: ms (host clock around a synchronised step), rounds, the
+    window record, banded_pass and check launches. Gates: every step
+    converged and its field against a cold solve on its planes (same
+    finite set, < 1%); two lanes of each cohort's last windowed field
+    against the native heap Dijkstra (< 1%). Only the windowed steps count
+    for the path's launches."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+    from mesh_navigation_torch.ops import kernels
+
+    srv, draw = rctx["srv"], rctx["seeds"]
+    v, mesh = ctx["v"], srv.mesh
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    steps = {"on": srv.make_replan_step("obst", warm_window=REPLAN_WINDOW),
+             "off": srv.make_replan_step("obst")}
+    rng = np.random.default_rng(SEED + 25)
+    kernels.reset_launches()
+    records, cohorts = [], {}
+    for lanes in WINDOW_COHORTS:
+        seeds = draw[:lanes]
+        with uncounted():
+            base = bg.banded_solve_padded(srv.banded_plan, seeds, atol=ATOL, rtol=RTOL).d_pad
+        state = {mode: (srv.vertex_costs, base) for mode in steps}
+
+        def one(mode, name, pts, timed=True):
+            step = steps[mode]
+            costs, d = state[mode]
+            with uncounted() if mode == "off" else contextlib.nullcontext():
+                before = {k: kernels.LAUNCHES[k] for k in WINDOW_KERNELS}
+                sync(device)
+                t = time.perf_counter()
+                costs, d, rounds = step(pts, costs, d, seeds)
+                sync(device)
+                ms = (time.perf_counter() - t) * 1e3
+                launched = {k: kernels.LAUNCHES[k] - before[k] for k in WINDOW_KERNELS}
+            w = step.last["window"]
+            where = f"{lanes} lanes, window {mode}, {name}: {w}"
+            if not step.last["converged"]:
+                raise AssertionError(f"replan_window step did not converge ({where})")
+            with uncounted():
+                try:
+                    gate = warm_vs_cold(step, seeds, d)
+                except AssertionError as e:
+                    raise AssertionError(f"{e} ({where})") from e
+            state[mode] = (costs, d)
+            if timed:
+                records.append({"cohort": lanes, "mode": mode, "pattern": name, "ms": ms,
+                                "rounds": rounds, "launches": launched,
+                                "fit": None if w is None else w.fit,
+                                "slab_rounds": None if w is None else w.slab_rounds,
+                                "seam_abort": None if w is None else w.seam_abort,
+                                "done": None if w is None else w.done,
+                                "max_rel_err": gate["max_rel_err"],
+                                "tol_ratio": gate["tol_ratio"]})
+
+        jump = torch.from_numpy(update_clouds(rng, v, mesh_n)[0][1]).to(device)
+        for mode in steps:
+            one(mode, "warmup", jump, timed=False)
+        for it in range(iters):
+            for i, (name, pts) in enumerate(update_clouds(rng, v, mesh_n)):
+                pts = torch.from_numpy(pts).to(device)
+                for mode in (("on", "off") if (it + i) % 2 == 0 else ("off", "on")):
+                    one(mode, name, pts)
+        with uncounted():
+            costs_np = state["on"][0].cpu().numpy()
+            d = state["on"][1]
+            R, C, V = srv.banded_plan.n_rows, srv.banded_plan.n_cols, mesh.num_vertices
+            errs, same = [], []
+            for b, (od, _) in enumerate(native_fields(v, ctx["f"], costs_np,
+                                                      seeds[:2].cpu().numpy())):
+                pot = d[:R, :C, b].reshape(-1)[:V].cpu().numpy()
+                same.append(bool(np.array_equal(np.isfinite(pot), np.isfinite(od))))
+                errs.append(percentile_rel_err(pot, od))
+            oracle = {"lanes": 2, "max_rel_err": float(np.max(errs)), "same_finite_set": same,
+                      "budget": 0.01}
+            if not (oracle["max_rel_err"] < 0.01 and all(same)):
+                raise AssertionError(f"replan_window oracle parity failed ({lanes} lanes): {oracle}")
+        per = {}
+        for name in ("jump", "drift", "clear"):
+            row = {}
+            for mode in steps:
+                rs = [r for r in records if r["cohort"] == lanes and r["pattern"] == name
+                      and r["mode"] == mode]
+                row[mode] = {"ms": [r["ms"] for r in rs], "mean_ms": float(np.mean([r["ms"] for r in rs])),
+                             "rounds": [r["rounds"] for r in rs],
+                             "launches": {k: sum(r["launches"][k] for r in rs) for k in WINDOW_KERNELS}}
+                if mode == "on":
+                    row[mode].update(fit_share=fit_share(rs),
+                                     slab_rounds=[r["slab_rounds"] for r in rs],
+                                     seam_aborts=sum(bool(r["seam_abort"]) for r in rs),
+                                     slab_done=sum(bool(r["done"]) for r in rs))
+            per[name] = row
+        mine = [r for r in records if r["cohort"] == lanes]
+        cohorts[lanes] = {
+            "per_pattern": per, "oracle": oracle,
+            "ms_per_update": {m: float(np.mean([r["ms"] for r in mine if r["mode"] == m]))
+                              for m in steps},
+            "fit_share": fit_share([r for r in mine if r["mode"] == "on"]),
+            "warm_vs_cold_max_rel": max(r["max_rel_err"] for r in mine),
+            "warm_vs_cold_tol_ratio_max": max(r["tol_ratio"] for r in mine)}
+        for mode in steps:
+            log(f"# replan_window {lanes} lanes, window {mode}: "
+                f"{cohorts[lanes]['ms_per_update'][mode]:.2f} ms an update")
+        log(f"# replan_window {lanes} lanes: the window fit {cohorts[lanes]['fit_share']} "
+            f"of the steps")
+    launches = {k: kernels.LAUNCHES[k] for k in WINDOW_KERNELS}
+    for k, n in launches.items():
+        if n <= 0 and torch.device(device).type == "cuda":
+            raise AssertionError(f"kernel {k} was not launched on the windowed replan path")
+    out = {"phase": "replan_window", "warm_window": REPLAN_WINDOW, "iters": iters,
+           "cohorts": {str(k): c for k, c in cohorts.items()}, "launches": launches,
+           "gates": {"converged_every_step": True,
+                     "warm_vs_cold_max_rel": max(r["max_rel_err"] for r in records)}}
+    return out, {"launches": launches}
+
+
+def cvp_hybrid(device, ctx, cctx) -> tuple[dict, dict]:
+    """Phase 26 (after phase 13): the hybrid CVP transport at full width on
+    the CVP phase's plan and warm-up draw (128 lanes): eikonal_solve_padded
+    with and without graph_plan=the planner's Dijkstra warm plan
+    (planners/cvp.py: the same side lengths, the CVP '>=' skip), in two
+    settings: cold at orderings 4, and the planner's own (its Dijkstra
+    warm start, orderings 2). Each solve timed (host clock around a
+    synchronised solve), its rounds and its eik_pass and banded_pass
+    launches. Gates: every solve converged; each hybrid field against the
+    native CVP fast marching by cvp_oracle_gate (two lanes, 1%; their
+    walked costs from the same descent the planner runs). Only the hybrid
+    solves count for the path's launches."""
+    import types
+
+    import torch
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.ops import eikonal_gpu as eg
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.planners.common import pose_chain
+
+    planner, kplan, mesh = cctx["planner"], cctx["kplan"], cctx["planner"].mesh
+    s, g = cctx["warm"]
+    B = len(s)
+    with uncounted():
+        g_vids, seed_d, _, init = planner.banded_solve_inputs(torch.from_numpy(g).to(device))
+        s_v = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(s[:2]).to(device))[0]
+    graph = planner._dij_plan
+    settings = {"cold": dict(orderings=4), "planner": dict(orderings=2, init_vb=init)}
+    kernels.reset_launches()
+    runs, gates = {}, {}
+    R, Cp = kplan.n_rows, kplan.n_cols_pad
+    for name, kw in settings.items():
+        for mode in ("plain", "hybrid"):
+            with uncounted() if mode == "plain" else contextlib.nullcontext():
+                before = {k: kernels.LAUNCHES[k] for k in HYBRID_KERNELS}
+                sync(device)
+                t = time.perf_counter()
+                res = eg.eikonal_solve_padded(kplan, g_vids, seed_d, atol=CVP_ATOL, rtol=CVP_RTOL,
+                                              graph_plan=graph if mode == "hybrid" else None, **kw)
+                sync(device)
+                ms = (time.perf_counter() - t) * 1e3
+                launched = {k: kernels.LAUNCHES[k] - before[k] for k in HYBRID_KERNELS}
+            if not res.converged:
+                raise AssertionError(f"cvp_hybrid {name} {mode} did not converge in {res.rounds}")
+            runs[f"{name}_{mode}"] = {"rounds": res.rounds, "ms": ms, "launches": launched}
+            log(f"# cvp_hybrid {name} {mode}: {res.rounds} rounds, {ms:.1f} ms, {launched}")
+            if mode == "hybrid":
+                with uncounted():
+                    path, valid = eg.cvp_descend_paths(
+                        kplan, mesh, cctx["ew"], res.d_pad.view(R * Cp, -1), s_v, g_vids[:2],
+                        planner.max_path_len, tol=5e-3)
+                    cost = pose_chain(mesh.vertices[path], valid, mesh.vertex_normals[path])[1]
+                    field = types.SimpleNamespace(d_pad=res.d_pad, cost=cost, path_valid=valid,
+                                                  lane_map=torch.arange(B, device=device))
+                    gates[name] = cvp_oracle_gate(ctx, {**cctx, "warm_res": field},
+                                                  phase=f"cvp_hybrid_{name}")
+            del res
+    launches = {k: kernels.LAUNCHES[k] for k in HYBRID_KERNELS}
+    for k, n in launches.items():
+        if n <= 0 and torch.device(device).type == "cuda":
+            raise AssertionError(f"kernel {k} was not launched on the hybrid CVP path")
+    out = {"phase": "cvp_hybrid", "lanes": B, "atol": CVP_ATOL, "rtol": CVP_RTOL,
+           "graph_plan": {"n_rows": graph.n_rows, "n_cols": graph.n_cols,
+                          "n_cols_pad": graph.n_cols_pad},
+           "runs": runs, "launches": launches,
+           "gates": {k: {"max_rel_err": x["max_rel_err"],
+                         "walked_over_oracle_field_walk": [
+                             l["walked_cost"] / l["oracle_field_walked_cost"] for l in x["lanes"]]}
+                     for k, x in gates.items()}}
+    return out, {"launches": launches}
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
         structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
         irregular_batch=IRREGULAR_BATCH, nav_dist=25.0, max_cycles=3000,
         layers_n=None, scanned_batch=SCANNED_BATCH) -> list:
-    """Phases 2-23 on `device`; returns the kernels line. `layers_n` runs
+    """Phases 2-26 on `device`; returns the kernels line. `layers_n` runs
     server_layers on a terrain of its own size (default: the main path's)."""
     import torch
 
@@ -3227,6 +3573,7 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
                    pass_launches_full=bctx["launches"]["banded_pass"],
                    **{k: v for k, v in fk.items() if k != "max_abs_err"})
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], fk["max_abs_err"])
+    emit(banded_walks(device, ctx, bctx))
     del bctx
     ctx.pop("kplan")
     rp, rctx = replan(device, ctx, iters)
@@ -3243,6 +3590,10 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
                  "replaces": "mesh_navigation_tpu/ops/pallas_banded.py:2310",
                  "launches": rctx["launches"]["check"], **rk["check"],
                  "library_ms": None})
+    wp, wctx = replan_window(device, ctx, rctx, iters)
+    emit(wp)
+    line[0]["replan_window_launches"] = wctx["launches"]["banded_pass"]
+    line[-1]["replan_window_launches"] = wctx["launches"]["check"]
     dsrv = rctx["srv"]          # the Dijkstra server, for server_single
     del rctx
     if torch.device(device).type == "cuda":
@@ -3263,6 +3614,10 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
                  "ms_at_plain_shape": eik_check["check_shape_ms"],
                  "library_ms": None,
                  "library_note": "no single PyTorch call computes the unfolding pass"})
+    hp, hctx = cvp_hybrid(device, ctx, cctx)
+    emit(hp)
+    line[0]["cvp_hybrid_launches"] = hctx["launches"]["banded_pass"]
+    line[-1]["cvp_hybrid_launches"] = hctx["launches"]["eik_pass"]
     del cctx
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()

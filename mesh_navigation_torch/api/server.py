@@ -448,10 +448,12 @@ class MeshNavServer:
         state and compute no repulsive field (the reference's jitted step
         returns only costs and so drops it too). The per-step refresh
         rewrites only the plane rows whose costs differ from the
-        no-obstacle base (refresh_banded_planes_rows). The windowed warm
-        resolve (`warm_window`) is not ported."""
-        if warm_window is not None:
-            raise NotImplementedError("the windowed warm resolve (warm_window)")
+        no-obstacle base (refresh_banded_planes_rows). `warm_window` (rows,
+        a positive multiple of 128; default None, as the reference's) runs
+        each step's resolve on a row slab where the rows it affects fit
+        (banded_solve_padded); `step.last["window"]` then holds that step's
+        WindowRecord."""
+        _bg.check_warm_window(warm_window)
         if self.stack is None or self.banded_plan is None:
             raise ValueError("replan step needs a layer stack + banded plan")
         mesh = self.mesh
@@ -510,9 +512,10 @@ class MeshNavServer:
             res = _bg.banded_solve_padded(
                 kp, seeds, max_rounds=REPLAN_MAX_ROUNDS, atol=REPLAN_ATOL, rtol=REPLAN_RTOL,
                 warm_d=d_prev, warm_changed=changed, warm_raised=raised,
-                warm_pos=pos_planes, converge="check", timer=timer,
+                warm_pos=pos_planes, warm_window=warm_window, converge="check", timer=timer,
             )
-            step.last = {"plan": kp, "rounds": res.rounds, "converged": res.converged}
+            step.last = {"plan": kp, "rounds": res.rounds, "converged": res.converged,
+                         "window": res.window}
             return combined, res.d_pad, res.rounds
 
         step.last = None

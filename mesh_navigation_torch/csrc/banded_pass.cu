@@ -21,16 +21,17 @@
 //   else: row = cur (left in place)
 // and the row as written is the carry `prev` of the next row. `changed` is
 // the OR of `imp` over all rows and blocks.
-// DIRTY: need |= dirty[j, row]; a needed row scans base = row0,
-// simp = any over the block of scanned*(1+rtol)+atol < base, writes
-// simp ? scanned : base, sets dirty[j, row] = simp and changed |= simp; a row
-// that is not needed sets dirty[j, row] = 0. Block j owns row j of the table.
-// The reference scans base = imp ? row0 : cur (pallas_banded.py:1019): a row
-// needed only because it is dirty drops its sub-tolerance cross-row gains.
-// Those gains can compound along the chains a warm resolve re-solves, leaving
-// labels several tolerances above their distance while every edge passes
-// the certificate. Every needed row is scanned, so keeping the gains cannot
-// leave a row off its lateral fixed point unflagged.
+// DIRTY: need |= dirty[j, row]; a needed row scans base = row0 and writes
+// the scan, simp = any over the block of scanned*(1+rtol)+atol < base, sets
+// dirty[j, row] = simp and changed |= simp; a row that is not needed sets
+// dirty[j, row] = 0. Block j owns row j of the table. The reference scans
+// base = imp ? row0 : cur and writes simp ? scanned : base
+// (pallas_banded.py:1019-1026): a row needed only because it is dirty drops
+// its sub-tolerance cross-row gains, and every needed row its sub-tolerance
+// lateral gains. Both compound along the chains a warm resolve re-solves,
+// leaving labels several tolerances above their distance while every edge
+// passes the certificate. Every needed row is scanned to its lateral fixed
+// point, so keeping the gains cannot leave a row off it unflagged.
 // CUT: each label is cut at load, cur = cur >= cutlb[row, c] + cutth[lane]
 // ? inf : cur, then cur = 0 where (seedrc[0, lane], seedrc[1, lane]) ==
 // (row, c); a row that is not needed keeps the cut labels.
@@ -904,21 +905,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
               simp |= below(v[i][l], fminf(cur[l], cd[l]), k_rtol, atol);
           }
         }
-        simp = __syncthreads_or(simp);
-        if (!simp) {
-          if (thr_ok) {
-            #pragma unroll
-            for (int i = 0; i < CPT; ++i) {
-              const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
-              const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
-              float cd[LANES];
-              cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
-              #pragma unroll
-              for (int l = 0; l < LANES; ++l) v[i][l] = fminf(cur[l], cd[l]);
-            }
-          }
-          __syncthreads();   // every carry read is done before it is rewritten
-        }
+        simp = __syncthreads_or(simp);   // also: every carry read is done before it is rewritten
         changed |= simp;
         if (tid == 0) drow[r] = simp;
       }

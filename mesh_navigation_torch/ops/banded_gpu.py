@@ -3,15 +3,17 @@
 Counterpart of mesh_navigation_tpu/ops/pallas_banded.py: the host plan
 builder (BandedKernelPlan / build_banded_kernel_plan, :56-511), the padded
 problem (prepare_padded, :1332), the solve loop (banded_solve_padded,
-:1413, converge="pred", "round" and "check", and the warm incremental
-resolve; on irregular plans the extended lanes and the residual
-scatter-min, :1530-1678), lane grouping (:2041), the int8 class
-predecessor table (:2531) with its residual reconcile (:2588) and the int32
-real-id table with its residual post-pass (predecessors_banded_pallas,
-:2463), the class-decoding path walk with the class-9 decode (:2644), the
-on-the-fly predecessor lookup with the residual probe (:2834), and the
-live-replan plane refresh, residual weights and changed-region planes
-(:580-807, :2069-2143).
+:1413, converge="pred", "round" and "check", the warm incremental
+resolve with its row-slab window, and the init_pad propagation mode; on
+irregular plans the extended lanes and the residual scatter-min,
+:1530-1678), lane grouping (:2041), the int8 class predecessor table
+(:2531) with its residual reconcile (:2588) and the int32 real-id table
+with its residual post-pass (predecessors_banded_pallas, :2463), the
+class-decoding path walk with the class-9 decode (:2644), the walk over a
+lane-minor id table (:2785), the on-the-fly predecessor lookup with the
+residual probe (:2834), the greedy descent (:2923), and the live-replan
+plane refresh, residual weights and changed-region planes (:580-807,
+:2069-2143).
 
 Three kernels carry the solve; each has a plain PyTorch version beside it
 with the same semantics (row order, carry, gated writes, class order):
@@ -38,6 +40,7 @@ import torch
 from mesh_navigation_torch.mesh.arrays import MeshArrays, host_array
 from mesh_navigation_torch.ops import banded as _banded
 from mesh_navigation_torch.ops import kernels
+from mesh_navigation_torch.ops import sweeps as _sweeps
 from mesh_navigation_torch.utils.timing import stage as _stage
 
 INF = float("inf")
@@ -620,11 +623,14 @@ def directional_pass_plain(
     as loaded (sel 0).
     With `dirty` ([Bp // bb, Rp] int32, updated in place; use_dirty,
     pallas_banded.py:1003-1036) need |= dirty[j, row], a needed row scans
-    base = row0 and keeps the scan only where it still improved by more than
-    the tolerance (simp), and dirty[j, row] = need & simp. The reference
-    scans base = imp ? row0 : cur, dropping the sub-tolerance cross-row gains
-    of rows needed only because they are dirty; they can compound along
-    re-solved chains (ROADMAP queue C), so the port keeps them.
+    base = row0 and writes the scan, simp flags a scan that still improved
+    by more than the tolerance, and dirty[j, row] = need & simp. The
+    reference scans base = imp ? row0 : cur and writes simp ? scan : base,
+    dropping the sub-tolerance cross-row gains of rows needed only because
+    they are dirty and the sub-tolerance lateral gains of every needed row;
+    both compound along the chains a warm resolve re-solves (ROADMAP queue
+    C), so the port keeps them. A full-depth scan leaves the row at its
+    lateral fixed point, so no row is left off it unflagged.
     With `warm_cut` = (cutlb [Rp, Cp], cutth [Bp], seedrc [2, Bp] int32)
     (:864-878), which needs `dirty`, each row is cut at load: labels >=
     cutlb[row, c] + cutth[lane] become +inf and each lane's seed (row, col)
@@ -687,7 +693,7 @@ def directional_pass_plain(
             if bool(need.any()):
                 scanned = _scan_row(row0, a_fwd[r], a_bwd[r])
                 simp = block_any(scanned * k + atol < row0) & need
-                new = torch.where(lanes(need), torch.where(lanes(simp), scanned, row0), cur)
+                new = torch.where(lanes(need), scanned, cur)
             dirty[:, r] = simp.to(torch.int32)
             changed |= simp.any()
         elif bool(need.any()):
@@ -1081,14 +1087,39 @@ def check_converged_banded(
 # solve loop
 # --------------------------------------------------------------------------
 
+WINDOW_GHOST = 8          # ghost rows at each seam of the warm window's slab
+WINDOW_MAX_ROUNDS = 16    # slab rounds before the full loop takes over
+
+
+def check_warm_window(warm_window: int | None) -> None:
+    """A warm window is None or a positive multiple of 128 rows (the
+    reference's assertion, pallas_banded.py:1829-1831)."""
+    if warm_window is not None and (warm_window <= 0 or warm_window % 128):
+        raise ValueError(f"warm_window must be a positive multiple of 128, got {warm_window}")
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowRecord:
+    """What the windowed warm resolve did: whether the affected rows and
+    their ghost rows fit the window, the slab's rounds, whether a ghost row
+    changed (the seam aborted), and whether the slab certified the field
+    (seam intact and certificate clean), so that no full-field round ran."""
+    fit: bool
+    slab_rounds: int
+    seam_abort: bool
+    done: bool
+
+
 @dataclasses.dataclass(frozen=True)
 class BandedPaddedResult:
     """Converged field on the padded [Rp, Cp, Bp] grid; with
-    converge="pred" also the int8 class table [V, Bp] of its certificate."""
+    converge="pred" also the int8 class table [V, Bp] of its certificate;
+    with `warm_window` the window's record."""
     d_pad: torch.Tensor
     rounds: int
     converged: bool
     cls: torch.Tensor | None = None
+    window: WindowRecord | None = None
 
 
 def banded_solve_padded(
@@ -1105,6 +1136,7 @@ def banded_solve_padded(
     warm_raised: torch.Tensor | None = None,
     warm_pos: torch.Tensor | None = None,
     warm_window: int | None = None,
+    init_pad: torch.Tensor | None = None,
 ) -> BandedPaddedResult:
     """Banded GS rounds (one pass down, the first forced, one pass up) to
     convergence on the padded field. converge="pred": after every round the
@@ -1119,8 +1151,22 @@ def banded_solve_padded(
     raised costs) and `warm_pos` (position_planes) is the incremental warm
     resolve (pallas_banded.py:1686-1789, :1946-1949): the passes keep a dirty
     table, and the first down pass cuts every label that may have routed
-    through a raised edge and re-inserts the seeds (see _warm_start). It
+    through a raised edge and re-inserts the seeds (see _warm_start). Unlike
+    the reference's, its first full round is forced in both passes. It
     needs converge="check". The solve works on a copy: warm_d is unchanged.
+
+    `warm_window` (rows, a positive multiple of 128) runs the warm resolve's
+    rounds on a slab of that many rows around the rows it affects
+    (pallas_banded.py:1790-1944, with two faults of the reference repaired;
+    see _warm_window), where the plan has no residual edges and the window
+    is shorter than the field. The result's `window` records what it did.
+
+    `init_pad` ([R', Cp, B'] padded field) is the propagation mode
+    (pallas_banded.py:1437-1448, :1499-1517): the field starts from a copy
+    of init_pad conformed to this solve's rows and lanes (+inf where it
+    lacks any, cut where it has more), no seed is injected (only
+    len(seeds) matters), and the rounds, the first forced, run to the fixed
+    point of the graph constraints from there. init_pad is unchanged.
 
     On an irregular plan (residual edges; pallas_banded.py:1530-1678) the
     passes keep the dirty table and relax the plan's extended lanes, and
@@ -1128,17 +1174,18 @@ def banded_solve_padded(
     converge="round" and "check" work there, "pred" does not (class tables
     cannot hold residual predecessors).
 
-    Only full-depth plans; the windowed warm resolve (`warm_window`),
-    four_dir, scan_steps and bfloat16 of the reference are not ported."""
+    Only full-depth plans; four_dir, scan_steps and bfloat16 of the
+    reference are not ported."""
     if converge not in ("pred", "round", "check"):
         raise NotImplementedError(f"converge={converge!r}")
     full = max(1, int(math.ceil(math.log2(max(plan.n_cols, 2)))))
     if plan.n_scan < full:
         raise NotImplementedError("partial scan depth")
-    if warm_window is not None:
-        raise NotImplementedError("the windowed warm resolve (warm_window)")
+    check_warm_window(warm_window)
     warm = warm_d is not None
-    prob = prepare_padded(plan, seeds, seeded=not warm)
+    if warm and init_pad is not None:
+        raise ValueError("init_pad and warm_d exclude each other")
+    prob = prepare_padded(plan, seeds, seeded=not warm and init_pad is None)
     Rp = prob.down.shape[0]
     dirty = cut = None
     if warm:
@@ -1148,12 +1195,14 @@ def banded_solve_padded(
                 plan, seeds, warm_d, warm_changed, warm_raised, warm_pos,
                 Rp=Rp, bb=prob.bb, atol=atol, rtol=rtol,
             )
+    elif init_pad is not None:
+        d = conform_padded(init_pad, Rp, plan.n_cols_pad, _round_up(seeds.shape[0], prob.bb))
     else:
         d = prob.d0
     if plan.n_residual and dirty is None:
         dirty = torch.zeros((d.shape[2] // prob.bb, Rp), dtype=torch.int32, device=d.device)
 
-    def one_round(force: bool = False, cut=None) -> torch.Tensor:
+    def one_round(force: bool = False, cut=None, force_up: bool = False) -> torch.Tensor:
         with _stage(timer, "solve"):
             c_dn = directional_pass(
                 d, prob.down, prob.a_fwd, prob.a_bwd, reverse=False,
@@ -1161,8 +1210,8 @@ def banded_solve_padded(
                 xcross=prob.xdown, xlanes=plan.xlanes_down,
             )
             c_up = directional_pass(
-                d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True,
-                atol=atol, rtol=rtol, dirty=dirty, xcross=prob.xup, xlanes=plan.xlanes_up,
+                d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True, atol=atol, rtol=rtol,
+                force=force_up, dirty=dirty, xcross=prob.xup, xlanes=plan.xlanes_up,
             )
             changed = c_dn | c_up
             if plan.n_residual:
@@ -1206,14 +1255,33 @@ def banded_solve_padded(
             with _stage(timer, "check"):
                 return check_converged_banded(plan, d, atol=atol, rtol=rtol, w8=w8)
 
-        one_round(force=not warm, cut=cut)
-        ok = certified()
-        rounds = 1
-        while not ok and rounds < max_rounds:
-            one_round()
+        window = None
+        if warm and warm_window is not None and not plan.n_residual and warm_window < Rp:
+            window = _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, warm_window,
+                                  max_rounds=min(WINDOW_MAX_ROUNDS, max_rounds), atol=atol,
+                                  rtol=rtol, timer=timer)
+        if window is not None and window.done:
+            return BandedPaddedResult(d_pad=d, rounds=window.slab_rounds, converged=True,
+                                      window=window)
+        # a warm resolve's first full round is forced in both passes: every
+        # row holding a label is rescanned, so the sub-tolerance gains that
+        # gated rounds drop cannot compound along the chains it re-solves
+        # (left unforced, as the reference's, a 128-lane replan chain at 1M
+        # drifted past 1% above the exact field; ROADMAP queue C)
+        full_force = warm
+        if window is not None and window.fit:
+            # the slab cut the field and re-inserted the seeds; the full loop
+            # finishes from the slab-written field
+            rounds, ok = window.slab_rounds, False
+        else:
+            one_round(force=True, cut=cut, force_up=warm)
             ok = certified()
-            rounds += 1
-        return BandedPaddedResult(d_pad=d, rounds=rounds, converged=ok)
+            rounds, full_force = 1, False
+        while not ok and rounds < max_rounds:
+            one_round(force=full_force, force_up=full_force)
+            ok = certified()
+            rounds, full_force = rounds + 1, False
+        return BandedPaddedResult(d_pad=d, rounds=rounds, converged=ok, window=window)
 
     changed = bool(one_round(True).any())
     rounds = 1
@@ -1299,6 +1367,137 @@ def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
     return d, dirty, (lb, thresh.contiguous(), seedrc)
 
 
+_WINDOW_SCAN_ROWS = 128   # rows a step of the window's footprint scan reads
+
+
+def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
+                 max_rounds: int, atol: float, rtol: float, timer=None) -> WindowRecord:
+    """The windowed warm resolve (pallas_banded.py:1790-1944), in place on
+    the warm copy d and its dirty table, after _warm_start.
+
+    The affected rows are those holding a finite label that the cut
+    changes, the rows of the dilated changed set, and the row of every
+    seed whose label in d is not 0 (one host read finds their span). Where
+    they and WINDOW_GHOST ghost rows on each side fit W rows, the rounds
+    run on the slab of W rows from lo = r_lo - WINDOW_GHOST (clamped into
+    the field), a view of d that the kernels take in place: the first
+    round cuts with the slab's rows of the cut and the seeds shifted into
+    it. After each round the check kernel certifies the slab and its ghost
+    rows are compared with the incoming field bit for bit; the loop goes on
+    while the slab violates the certificate and the seam is intact, up to
+    max_rounds. `done` (seam intact, certificate clean) certifies the
+    field: nothing outside the slab was cut, no weight outside its interior
+    changed, and every row outside is as the previous solve left it. Else
+    the slab rows join the dirty table and the caller's full loop finishes
+    from the slab-written field (every slab write relaxes valid upper
+    bounds).
+
+    Two faults of the reference are repaired. Its loop stores the negation
+    of the violation flag in its violation slot (:1904, :1913), so it leaves
+    on the first round that still violates and certifies that slab. And it
+    drops the seeds outside the slab (:1849-1853); here such a seed, unless
+    its label is already 0 (then it is at its fixed point: a cut that
+    reaches it makes its row a cut row), widens the affected span, so the
+    window misses and the full path re-inserts it. Two choices differ from
+    the reference's without changing a certified result: the certificate
+    leaves out the slab's edge rows' in-edges from beyond the slab (the
+    check's clamped halo would relax an edge row from itself through them,
+    a false violation), and a seam on the field's first or last row is not
+    compared (nothing lies beyond it). As a full warm resolve's first round
+    is forced, the slab's first round rescans every interior row in both
+    passes, through the dirty table: the force flag would rescan the ghost
+    rows too and rewrite them by sub-tolerance gains, which the seam test
+    reads as a crossing."""
+    Rp, Cp, Bp = d.shape
+    GH = WINDOW_GHOST
+    lb, thresh, seedrc = cut
+    dev = d.device
+    with _stage(timer, "window"):
+        cut_rows = torch.zeros(Rp, dtype=torch.bool, device=dev)
+        for r0 in range(0, Rp, _WINDOW_SCAN_ROWS):
+            blk = d[r0:r0 + _WINDOW_SCAN_ROWS]
+            hit = (blk >= lb[r0:r0 + _WINDOW_SCAN_ROWS, :, None] + thresh) & (blk < INF)
+            cut_rows[r0:r0 + blk.shape[0]] = hit.flatten(1).any(dim=1)
+        changed_rows = _pad_rows(_dilate_changed(plan, warm_changed), Rp, False).any(dim=1)
+        seeds = seeds.long()
+        sr = seeds // plan.n_cols
+        off_zero = d[sr, seeds % plan.n_cols, torch.arange(seeds.shape[0], device=dev)] != 0
+        seed_rows = torch.zeros(Rp, dtype=torch.int32, device=dev).index_add_(
+            0, sr, off_zero.to(torch.int32)) > 0
+        aff = cut_rows | changed_rows | seed_rows
+        idx = torch.arange(Rp, device=dev)
+        r_lo, r_hi = torch.stack([torch.where(aff, idx, Rp).min(),
+                                  torch.where(aff, idx, -1).max()]).tolist()
+    if not (r_hi >= r_lo and r_hi - r_lo + 1 + 2 * GH <= W):
+        return WindowRecord(fit=False, slab_rounds=0, seam_abort=False, done=False)
+    lo = min(max(r_lo - GH, 0), Rp - W)
+    sl = slice(lo, lo + W)
+    d_s = d[sl]
+    top = d[lo:lo + GH].clone() if lo > 0 else None
+    bot = d[lo + W - GH:lo + W].clone() if lo + W < Rp else None
+    w8_s = _w8_planes(plan, Rp)[sl].clone()
+    w8_s[0, 2:5] = INF       # in-edges from the row above the slab
+    w8_s[-1, 5:8] = INF      # from the row below it
+    seed_r = seedrc[0] - lo
+    inside = (seedrc[0] >= 0) & (seed_r >= 0) & (seed_r < W)
+    seedrc_s = torch.stack([torch.where(inside, seed_r, -1), seedrc[1]]).to(torch.int32)
+    # the first round marks every interior row before each pass (the
+    # affected rows all lie there); a ghost row is walked only where a gain
+    # crosses the seam, so a seed at 0 in it is not rescanned
+    dirty_s = torch.zeros((dirty.shape[0], W), dtype=torch.int32, device=dev)
+    planes = [(prob.down[sl], prob.xdown[sl] if prob.xdown is not None else None,
+               plan.xlanes_down, False),
+              (prob.up[sl], prob.xup[sl] if prob.xup is not None else None, plan.xlanes_up, True)]
+    a_fwd, a_bwd = prob.a_fwd[sl], prob.a_bwd[sl]
+    interior = slice(GH if top is not None else 0, W - GH if bot is not None else W)
+
+    def slab_round(warm_cut=None):
+        with _stage(timer, "solve"):
+            for cross, xcross, xlanes, reverse in planes:
+                if warm_cut is not None:
+                    dirty_s[:, interior] = 1
+                directional_pass(d_s, cross, a_fwd, a_bwd, reverse=reverse, atol=atol, rtol=rtol,
+                                 dirty=dirty_s, warm_cut=None if reverse else warm_cut,
+                                 xcross=xcross, xlanes=xlanes)
+
+    def state():
+        """(violates, seam broken), one host read."""
+        with _stage(timer, "check"):
+            flags = [check(d_s, w8_s, atol=atol, rtol=rtol).any()]
+            if top is not None:
+                flags.append((d_s[:GH] != top).any())
+            if bot is not None:
+                flags.append((d_s[W - GH:] != bot).any())
+            f = torch.stack(flags).tolist()
+        return bool(f[0]), any(f[1:])
+
+    slab_round((lb[sl], thresh, seedrc_s))
+    rounds = 1
+    violates, seam = state()
+    while violates and not seam and rounds < max_rounds:
+        slab_round()
+        rounds += 1
+        violates, seam = state()
+    done = not violates and not seam
+    if not done:
+        dirty[:, sl] = 1
+    return WindowRecord(fit=True, slab_rounds=rounds, seam_abort=seam, done=done)
+
+
+def conform_padded(x: torch.Tensor, rows: int, cols: int, lanes: int) -> torch.Tensor:
+    """A new [rows, cols, lanes] f32 field from a padded field x [R', cols,
+    B']: rows and lanes that x lacks are +inf, those it has in excess are
+    cut (pallas_banded.py:1499-1517)."""
+    if x.dim() != 3 or x.shape[1] != cols:
+        raise ValueError(f"padded field {tuple(x.shape)} does not have {cols} padded columns")
+    if tuple(x.shape) == (rows, cols, lanes):
+        return x.to(torch.float32, copy=True)
+    out = torch.full((rows, cols, lanes), INF, dtype=torch.float32, device=x.device)
+    r, b = min(rows, x.shape[0]), min(lanes, x.shape[2])
+    out[:r, :, :b] = x[:r, :, :b]
+    return out
+
+
 # --------------------------------------------------------------------------
 # lanes, path walk, predecessor lookup
 # --------------------------------------------------------------------------
@@ -1366,6 +1565,68 @@ def extract_paths_cls(
                 nxt = torch.where(k == 9, res_jump[row, slot].long(), nxt)
             alive = alive & (v != goal) & (k != 8)
             v = torch.where(alive, nxt, v)
+    fill = torch.where(valid, path, v[None, :])
+    return fill[:max_len].T, valid[:max_len].T
+
+
+def extract_paths_vb(
+    pred_vb: torch.Tensor,     # [V, >= B] predecessor ids (lane-minor)
+    start_v: torch.Tensor,     # [B]
+    goal_v: torch.Tensor,      # [B]
+    max_len: int,
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The predecessor walk over a lane-minor id table, e.g. the [V, Bp]
+    table of predecessors_banded_ids (pallas_banded.py:2785): one [B]
+    gather a step, no [B, V] transpose. A lane stops after v == goal or
+    pred[v] == v. Chunks of `chunk` steps with one host read of any(alive)
+    before each. Returns (path [B, max_len] i64, valid [B, max_len] bool);
+    dead steps repeat the terminal vertex with valid False."""
+    return _sweeps.extract_path(pred_vb.t(), start_v, goal_v, max_len, chunk=chunk)
+
+
+def descend_paths(
+    plan: BandedKernelPlan,
+    dist_bv: torch.Tensor,     # [B, V] converged labels
+    start_v: torch.Tensor,     # [B] real vertex ids
+    goal_v: torch.Tensor,      # [B] real vertex ids (the seeds)
+    max_len: int,
+    *,
+    tol: float = 1e-5,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy descent straight from a [B, V] field (pallas_banded.py:2923),
+    with no predecessor table: each step moves to the argmin over the eight
+    class in-edges of dist[u] + w(u, v) (the first class on ties) while
+    best <= dv*(1+tol)+tol, dv > 0 and dv is finite; a lane stops at its
+    goal or where no in-edge explains its label. The reference runs all
+    max_len steps; here chunks of `chunk` steps with one host read of
+    any(alive) before each, and steps after a lane stops repeat its final
+    vertex with valid False either way. Returns (path [B, max_len] i64,
+    valid [B, max_len] bool)."""
+    dev = dist_bv.device
+    B, V = start_v.shape[0], plan.num_vertices
+    W8, offs = _inbound_tables(plan)
+    lane = torch.arange(B, device=dev)
+    n_chunks = -(-max_len // chunk)
+    v = start_v.long().clone()
+    goal = goal_v.long()
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    path = v[None, :].repeat(n_chunks * chunk, 1)
+    valid = torch.zeros((n_chunks * chunk, B), dtype=torch.bool, device=dev)
+    for j in range(n_chunks):
+        if not bool(alive.any()):
+            break
+        for i in range(j * chunk, (j + 1) * chunk):
+            path[i] = v
+            valid[i] = alive
+            dv = dist_bv[lane, v]
+            u = torch.clamp(v[None, :] + offs[:, None], 0, V - 1)          # [8, B]
+            best, arg = torch.min(dist_bv[lane[None], u] + W8[:, _to_padded_flat(plan, v)], dim=0)
+            descends = (best <= dv * (1.0 + tol) + tol) & (dv > 0) & torch.isfinite(dv)
+            alive = alive & (v != goal) & descends
+            v = torch.where(alive, torch.gather(u, 0, arg[None])[0], v)
     fill = torch.where(valid, path, v[None, :])
     return fill[:max_len].T, valid[:max_len].T
 

@@ -4,8 +4,9 @@ Counterpart of mesh_navigation_tpu/ops/pallas_eikonal.py: the per-element
 CVP unfolding update (unfolding_value, :55), the offset-pair classification
 of the (face, corner) update table (EikonalKernelPlan /
 build_eikonal_kernel_plan, :113-275, and apply_target_mask, :724), the
-round loop (eikonal_solve_padded, :516) and the lazy path descent and
-direction rows read straight off the converged field (cvp_descend_paths,
+round loop (eikonal_solve_padded, :516, with the hybrid graph transport
+through banded_gpu's pass kernel) and the lazy path descent and direction
+rows read straight off the converged field (cvp_descend_paths,
 :753, and cvp_rows_at_vertices, :851).
 
 One kernel carries the solve: `eik_pass` — csrc/eik_pass.cu, replacing
@@ -48,6 +49,7 @@ import torch
 from mesh_navigation_torch.mesh.arrays import MeshArrays, host_array
 from mesh_navigation_torch.mesh import geometry
 from mesh_navigation_torch.ops import banded as _banded
+from mesh_navigation_torch.ops import banded_gpu as _bg
 from mesh_navigation_torch.ops import kernels
 from mesh_navigation_torch.ops.eikonal import _face_corner_tables, unfolding_candidates
 from mesh_navigation_torch.utils.timing import stage as _stage
@@ -537,10 +539,26 @@ def eikonal_solve_padded(
     upper bounds of the fixed point (a graph-distance field plus the seed
     offset). `strip_width` is the passes' unit of gating (eik_pass), at
     least EIK_MIN_SOLVE_WIDTH; on the card it is widened to
-    resident_strip_width where its strips cannot all be resident. The
-    hybrid `graph_plan` mode is not ported."""
-    if graph_plan is not None:
-        raise NotImplementedError("the hybrid graph_plan transport mode")
+    resident_strip_width where its strips cannot all be resident.
+
+    `graph_plan` (a banded Dijkstra kernel plan over the same side lengths
+    and the same grid, e.g. CVPPlanner._dij_plan) makes each round hybrid
+    (pallas_eikonal.py:528-545, :660-685): after the orderings and the
+    residual update, banded_solve_padded(graph_plan, init_pad=field,
+    max_rounds=32) carries every improvement along the graph's edges across
+    the mesh at the pass kernel's speed. The triangle update lower-bounds
+    the edge relaxation, so the edge constraints do not lower the fixed
+    point; a graph with fewer or heavier edges (the CVP '>=' skip) keeps
+    them valid upper bounds. The rows the graph stage changed become dirty
+    for the next orderings, and its change counts as the round's. The
+    graph plan must have the eikonal plan's rows, columns and padded
+    columns (ValueError otherwise; the reference assumes it)."""
+    if graph_plan is not None and (
+            (graph_plan.n_rows, graph_plan.n_cols, graph_plan.n_cols_pad)
+            != (plan.n_rows, plan.n_cols, plan.n_cols_pad)):
+        raise ValueError(
+            f"graph_plan grid {(graph_plan.n_rows, graph_plan.n_cols, graph_plan.n_cols_pad)} "
+            f"is not the eikonal plan's {(plan.n_rows, plan.n_cols, plan.n_cols_pad)}")
     if orderings not in (2, 4):
         raise ValueError(f"orderings must be 2 or 4, got {orderings}")
     if strip_width < EIK_MIN_SOLVE_WIDTH:
@@ -584,6 +602,20 @@ def eikonal_solve_padded(
                 changed = changed.bool().any()
             if plan.n_residual:
                 changed = changed | _residual_update(plan, d, dirty, k_rtol, atol)
+        if graph_plan is not None:
+            with _stage(timer, "graph"):
+                g = _bg.banded_solve_padded(
+                    graph_plan, torch.zeros(B, dtype=torch.int64, device=dev), max_rounds=32,
+                    atol=atol, rtol=rtol, init_pad=d).d_pad
+                if g.shape != d.shape:
+                    g = _bg.conform_padded(g, *d.shape)
+                # the graph solve worked on its own copy, so d is the field
+                # before it: the rows it moved re-enter the orderings
+                moved = (g != d).any(dim=1)                                  # [R, Bp]
+                dirty = torch.maximum(
+                    dirty, moved.view(R, nj, EIK_LANES).any(dim=2).T.to(torch.int32))
+                changed = changed | moved.any()
+                d = g
         return d, dirty, changed
 
     dirty = torch.zeros((nj, R), dtype=torch.int32, device=dev)

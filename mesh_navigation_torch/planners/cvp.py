@@ -205,6 +205,34 @@ class CVPPlanner:
         return PlanResult(outcome=outcome, path_positions=positions, path_quats=quats,
                           path_valid=valid, cost=torch.where(reached, cost, torch.inf))
 
+    def banded_solve_inputs(self, goals: torch.Tensor, *, timer=None):
+        """The banded path's eikonal seeds of [B, 3] goals and its warm
+        start: (g_vids [B, 3] goal-face vertices, seed_d [B, 3] their
+        distances, +inf where no face holds the goal, g_found [B], init
+        [V, B] or None). init is the Dijkstra field of the warm plan of
+        prepare_eikonal_plan from each goal face's first vertex plus that
+        vertex's seed distance, +inf outside the target mask. `timer`
+        records the goal and warm stages."""
+        mesh, dev, warm_plan = self.mesh, self.device, self._dij_plan
+        goals = goals.to(dev, torch.float32)
+        B = goals.shape[0]
+        with _stage(timer, "goal"):
+            g_face, _, _, g_found = query.containing_face_batch(mesh, self.grid, goals)
+            g_vids = mesh.faces[torch.clamp(g_face, min=0)].long()            # [B, 3]
+            seed_d = geometry.norm(mesh.vertices[g_vids] - goals[:, None, :])
+            seed_d = torch.where(g_found[:, None], seed_d, torch.inf)
+        init = None
+        if warm_plan is not None:
+            with _stage(timer, "warm"):
+                dres = _bg.banded_solve_padded(warm_plan, g_vids[:, 0], max_rounds=64,
+                                               atol=1e-4, rtol=2e-3)
+                Rd, Cd, V = warm_plan.n_rows, warm_plan.n_cols, mesh.num_vertices
+                init = dres.d_pad[:Rd, :Cd, :B].reshape(Rd * Cd, B)[:V] + seed_d[:, 0][None, :]
+                if self._target_ok is not None:
+                    init = torch.where(self._target_ok[:, None], init, torch.inf)
+                del dres
+        return g_vids, seed_d, g_found, init
+
     def prepare_eikonal_plan(self, side_lengths_np, vertex_costs_np=None, *,
                              warm_start: bool = True):
         """Banded eikonal plan for band-ordered meshes (None otherwise),
@@ -266,28 +294,13 @@ class CVPPlanner:
         (planners/cvp.py:352-356). `cost` is the walked pose-chain cost.
         Lanes are in robot order (lane_map is the identity). `timer` records
         the goal, warm, eikonal, descent and pose stages."""
-        plan, warm_plan = kernel_plan, self._dij_plan
+        plan = kernel_plan
         mesh, dev = self.mesh, self.device
         starts = starts.to(dev, torch.float32)
-        goals = goals.to(dev, torch.float32)
         B = starts.shape[0]
         lane = torch.arange(B, device=dev)
         R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
-        with _stage(timer, "goal"):
-            g_face, _, _, g_found = query.containing_face_batch(mesh, self.grid, goals)
-            g_vids = mesh.faces[torch.clamp(g_face, min=0)].long()            # [B, 3]
-            seed_d = geometry.norm(mesh.vertices[g_vids] - goals[:, None, :])
-            seed_d = torch.where(g_found[:, None], seed_d, torch.inf)
-        init = None
-        if warm_plan is not None:
-            with _stage(timer, "warm"):
-                dres = _bg.banded_solve_padded(warm_plan, g_vids[:, 0], max_rounds=64,
-                                               atol=1e-4, rtol=2e-3)
-                Rd, Cd, V = warm_plan.n_rows, warm_plan.n_cols, plan.num_vertices
-                init = dres.d_pad[:Rd, :Cd, :B].reshape(Rd * Cd, B)[:V] + seed_d[:, 0][None, :]
-                if self._target_ok is not None:
-                    init = torch.where(self._target_ok[:, None], init, torch.inf)
-                del dres
+        g_vids, seed_d, g_found, init = self.banded_solve_inputs(goals, timer=timer)
         res = _eg.eikonal_solve_padded(plan, g_vids, seed_d, atol=atol, rtol=rtol,
                                        init_vb=init, orderings=2, timer=timer)
         del init

@@ -9,12 +9,16 @@ scripts/banded_jump_stress.py stresses:
 - the extended lanes' two-row ring: rows r-1 and r-2 carried in shared
   memory, read by the sel-1 and sel-2 lanes of the neighbouring threads'
   columns, the written row put over r-2 and the two swapped at the row's
-  end.
+  end;
+- the dirty mode's second read of the carried row (row0 recomputed for
+  the flag of a needed row's scan), which the block's vote on that flag
+  must finish before any thread writes its row into the carry.
 
 Launches the shipped kernel many times, then a lagging copy
 (scripts/lagging_copy.py) in which, row by row in turn, one warp sleeps
 ~80 us before the stage wait, another before it reads the carried rows,
-another before it writes its row into the carry, and thread 0 before it
+another before the dirty mode's second read of them, another before it
+writes its row into the carry, and thread 0 before it
 re-arms the next stage, with the stage barrier's assertion cut to ~2 s of
 the SM's cycles; and holds the first, the last and every `--every`-th
 result (field, dirty table, flag, rows walked) against the plain version,
@@ -55,6 +59,7 @@ PATCHES = [
     ("    // cand, row0 and the flags", "    " + lc.lag("((warp + r) & 7) == 5")),
     ("      if (thr_ok) {\n        char* sd = reinterpret_cast<char*>(stage + slot * slot_f);",
      "      " + lc.lag("((warp + r) & 7) == 6")),
+    ("        int simp = 0;", "        " + lc.lag("((warp + r) & 7) == 2")),
     ("        float4* nx4 = two_rows ? prev2_4 : prev4;\n        #pragma unroll",
      "        " + lc.lag("((warp + r) & 7) == 6")),
     ("    if (staged_row >= 0) wait_slot(slot);   // a prefetch no row took",

@@ -39,8 +39,9 @@ from mesh_navigation_torch import convert
 from mesh_navigation_torch.config import ControllerConfig, PlannerConfig
 from mesh_navigation_torch.control.controller import MeshController, initial_state
 from mesh_navigation_torch.mesh import query as tquery
-from mesh_navigation_torch.mesh.arrays import FIELDS, build_mesh
+from mesh_navigation_torch.mesh.arrays import FIELDS, build_mesh, host_array
 from mesh_navigation_torch.native import NativeMesh
+from mesh_navigation_torch.ops import banded_gpu as tbg
 from mesh_navigation_torch.ops import eikonal as teik
 from mesh_navigation_torch.ops import eikonal_gpu as teg
 from mesh_navigation_torch.planners import CVPPlanner
@@ -320,8 +321,15 @@ def test_orderings_and_warm_start_keep_the_fixed_point(width):
     assert c4 and c2 and cw
     for d in (d2, dw):
         _assert_fields(d.numpy(), d4.numpy(), 1e-4)
-    with pytest.raises(NotImplementedError):
-        teg.eikonal_solve_padded(plan, seed_v, seed_d, graph_plan=object())
+    # the hybrid transport (graph rounds over the same side lengths) keeps
+    # it too; tests/test_torch_hybrid.py holds it against the reference
+    W = np.where(host_array(tm, "adj_mask"),
+                 np.asarray(jm.edge_dist)[host_array(tm, "adj_edge")], np.inf)
+    graph = tbg.build_banded_kernel_plan(tm, W.astype(np.float32))
+    dh, rh, ch = teg.eikonal_field_banded(tm, plan, seed_v, seed_d, orderings=2,
+                                          graph_plan=graph, **kw)
+    assert ch
+    _assert_fields(dh.numpy(), d4.numpy(), 1e-4)
 
 
 def _strip_rows(new, old, strips):

@@ -1223,6 +1223,36 @@ def test_pass_stages_and_carried_rows_hold_launch_after_launch(cuda):
             assert bool(chg_k.item()) == bool(chg_p.item()) and int(wk.item()) == int(wp.item())
 
 
+def test_dirty_pass_writes_its_scan_launch_after_launch(cuda):
+    """The dirty mode writes a needed row's scan, its sub-tolerance gains
+    included, with no second read of the carried row: every row dirty on a
+    field solved to the replan tolerance, down and up, 100 launches each
+    equal to the plain version (field, dirty table, flag, rows walked), and
+    the pass lowers labels in rows it leaves unflagged."""
+    _, plan = _plan(64, 1024, cuda)
+    seeds = torch.from_numpy(np.random.default_rng(5).integers(0, plan.num_vertices, 64))
+    prob = bg.prepare_padded(plan, seeds.to(cuda))
+    d0 = bg.banded_solve_padded(plan, seeds.to(cuda), atol=ATOL, rtol=RTOL).d_pad
+    every = torch.ones((d0.shape[2] // bg.PASS_LANES, d0.shape[0]), dtype=torch.int32,
+                       device=cuda)
+    for reverse, cross in ((False, prob.down), (True, prob.up)):
+        kw = dict(reverse=reverse, atol=ATOL, rtol=RTOL)
+        d_p, dirty_p = d0.clone(), every.clone()
+        wp = torch.zeros(1, dtype=torch.int64, device=cuda)
+        chg_p = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, bb=8,
+                                          dirty=dirty_p, rows_walked=wp, **kw)
+        lowered = (d_p < d0).view(d0.shape[0], d0.shape[1], -1, bg.PASS_LANES)
+        lowered = lowered.any(dim=3).any(dim=1).T                        # [blocks, rows]
+        assert bool((lowered & (dirty_p == 0)).any())
+        for _ in range(100):
+            d_k, dirty_k = d0.clone(), every.clone()
+            wk = torch.zeros(1, dtype=torch.int32, device=cuda)
+            chg_k = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, dirty=dirty_k,
+                                        rows_walked=wk, **kw)
+            assert torch.equal(d_k, d_p) and torch.equal(dirty_k, dirty_p)
+            assert bool(chg_k.item()) == bool(chg_p.item()) and int(wk.item()) == int(wp.item())
+
+
 @pytest.mark.parametrize("ordered_rounds", [0, 2])
 def test_server_third_branch_on_card_matches_cpu(cuda, ordered_rounds):
     """A Dijkstra server on a 64 x 64 jittered-Delaunay terrain whose vertex
@@ -1255,3 +1285,70 @@ def test_server_third_branch_on_card_matches_cpu(cuda, ordered_rounds):
     assert torch.equal(a.pred.cpu(), b.pred)
     assert torch.equal(a.outcome.cpu(), b.outcome) and bool((b.outcome == 0).all())
     assert torch.equal(a.path_valid.cpu(), b.path_valid)
+
+
+@pytest.mark.parametrize("name", ["maze", "wall_clear"])
+def test_windowed_solve_on_card_matches_cpu(cuda, name):
+    """The windowed warm resolve of tests/window_cases.py on the card and
+    on the CPU: the maze refills over several slab rounds with the seam
+    intact, the wall clear aborts at the seam and the full loop finishes.
+    The same window record and rounds, fields bit for bit (the pass and
+    check kernels equal their plain versions); the slab's passes and
+    certificates launched on the card."""
+    import window_cases as wc
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p0, p1, seeds, old, new, d_prev = wc.case(name, dev)
+        before = dict(kernels.LAUNCHES)
+        out[dev.type] = wc.warm(p0, p1, seeds, old, new, d_prev, warm_window=128)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["check"] >= before["check"] + out["cuda"].window.slab_rounds
+            assert kernels.LAUNCHES["banded_pass_dirty"] >= (
+                before["banded_pass_dirty"] + 2 * out["cuda"].window.slab_rounds)
+    k, c = out["cuda"], out["cpu"]
+    assert k.converged and c.converged and k.window.fit
+    assert k.window == c.window and k.rounds == c.rounds
+    assert k.window.done == (name == "maze") and k.window.seam_abort == (name != "maze")
+    assert torch.equal(k.d_pad.cpu(), c.d_pad)
+
+
+def test_hybrid_solve_on_card_matches_cpu(cuda):
+    """eikonal_solve_padded with the CVP planner's Dijkstra warm plan as its
+    graph_plan, on the card and on the CPU, cold at orderings 4: both
+    converged, the same finite set, fields within twice the stopping
+    tolerance (the eikonal solve's card-vs-CPU agreement, as in
+    test_cvp_server_batch_on_card_matches_cpu); eik_pass and banded_pass
+    launched on the card."""
+    from mesh_navigation_torch.config import PlannerConfig
+    from mesh_navigation_torch.planners import CVPPlanner
+
+    v, f = synthetic.terrain_mesh(40, 36, spacing=0.5, hills=2.0, roughness=0.01, seed=1)
+    rng = np.random.default_rng(3)
+    atol, rtol = 1e-4, 1e-3
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = build_mesh(v, f, device=dev)
+        nz = np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0)
+        costs = np.arccos(nz).astype(np.float32)
+        ew = sweeps.compute_edge_weights(mesh, torch.from_numpy(costs).to(dev), 1.0)
+        planner = CVPPlanner(mesh, PlannerConfig(cost_limit=2.0), device=dev)
+        plan = planner.prepare_eikonal_plan(ew.cpu().numpy(), costs)
+        if dev.type == "cuda":
+            faces = host_array(mesh, "faces")[rng.integers(0, mesh.num_faces, 8)]
+            seed_v = torch.from_numpy(faces.astype(np.int64))
+            seed_d = torch.from_numpy(rng.uniform(0.05, 0.4, faces.shape).astype(np.float32))
+        before = dict(kernels.LAUNCHES)
+        out[dev.type] = eg.eikonal_solve_padded(plan, seed_v, seed_d, atol=atol, rtol=rtol,
+                                                orderings=4, graph_plan=planner._dij_plan)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["eik_pass"] > before["eik_pass"]
+            assert kernels.LAUNCHES["banded_pass"] > before["banded_pass"]
+    k, c = out["cuda"], out["cpu"]
+    assert k.converged and c.converged
+    dk, dc = k.d_pad.cpu()[..., :8], c.d_pad[..., :8]
+    fin = torch.isfinite(dc)
+    assert torch.equal(torch.isfinite(dk), fin)
+    assert bool(((dk[fin] - dc[fin]).abs() <= 2 * (atol + rtol * dc[fin].abs())).all())

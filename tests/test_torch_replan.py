@@ -16,16 +16,18 @@ order may be kept by one side and dropped by the other. A warm field against
 a cold one on the same planes, or against an exact solve, is held at twice
 that: the warm field is certified only edge by edge, and a label may sit up
 to the tolerance above its best in-edge on every edge of its path. On the
-jump / drift / clear chain below both the reference's warm field and the
-port's sit 1.06-1.09 tolerances from the cold one (the cold solve is exact
-at this size), and over the 20 chained updates of
-test_chained_updates_stay_near_an_exact_solve the port's sits 0.83-1.36
-tolerances from an exact solve (1.07 after the last), with no growth along
-the chain."""
+jump / drift / clear chain below the reference's warm field sits 1.06-1.09
+tolerances above an exact solve: its warm pass drops the sub-tolerance
+gains of the rows it scans. The port keeps them and sits within 2e-4
+tolerances of it; over the 20 chained updates of
+test_chained_updates_stay_near_an_exact_solve it sits 0-0.96 tolerances
+from an exact solve (0 after the last), with no growth along the chain."""
 
 import numpy as np
 import pytest
 import torch
+from scipy.sparse import coo_matrix
+from scipy.sparse.csgraph import dijkstra
 
 import jax.numpy as jnp
 
@@ -36,6 +38,7 @@ from mesh_navigation_tpu.config import NavConfig as JNavConfig
 from mesh_navigation_tpu.config import PlannerConfig as JPlannerConfig
 from test_torch_reference import reference_build_mesh as jax_build_mesh
 from mesh_navigation_tpu.mesh import synthetic
+from mesh_navigation_tpu.mesh.arrays import host_array as jhost_array
 from mesh_navigation_tpu.ops import pallas_banded as jpb
 from mesh_navigation_tpu.ops import sweeps as jsweeps
 
@@ -95,6 +98,22 @@ def _within(got, ref, k=1.0):
     np.testing.assert_array_equal(np.isfinite(got), fin)
     err = np.abs(got[fin] - ref[fin])
     assert np.all(err <= k * (ATOL + RTOL * np.abs(ref[fin]))), float(err.max())
+
+
+def _dijkstra_padded(jm, costs, seeds, shape, n_cols):
+    """The exact field of every seed on the padded [Rp, Cp, Bp] grid: a heap
+    Dijkstra (scipy) over the reference's slot weights for `costs`, in-edge
+    adj[v, j] -> v of weight W[v, j], vertex v at (v // n_cols, v % n_cols)."""
+    W = jsweeps.slot_weights_np(jm, costs, cost_limit=LIMIT, edge_cost_factor=FACTOR)
+    adj = jhost_array(jm, "adj_vertex")
+    V = W.shape[0]
+    dst, slot = np.nonzero(np.isfinite(W))
+    g = coo_matrix((W[dst, slot].astype(np.float64), (adj[dst, slot], dst)),
+                   shape=(V, V)).tocsr()
+    out = np.full(shape, np.inf)
+    ids = np.arange(V)
+    out[ids // n_cols, ids % n_cols, :len(seeds)] = dijkstra(g, indices=np.asarray(seeds)).T
+    return out
 
 
 @pytest.mark.parametrize("shape,rows,row_window,fits", [
@@ -273,10 +292,17 @@ def test_warm_solve_matches_reference_and_cold():
                                         converge="check")
     assert certified.converged
     _within(certified.d_pad.numpy(), cold.d_pad.numpy())
-    with pytest.raises(NotImplementedError):
-        tbg.banded_solve_padded(tp1, torch.from_numpy(seeds), converge="check",
-                                warm_d=warm_d, warm_changed=tbg.changed_plane_from_costs(
-                                    tplan, old_t, new_t), warm_window=128)
+    # the windowed resolve: a window as tall as this 24-row field is not
+    # used, so the step is the one above; a window that is no positive
+    # multiple of 128 is refused (tests/test_torch_window.py runs the slab)
+    kw = dict(atol=ATOL, rtol=RTOL, max_rounds=64, converge="check", warm_d=warm_d,
+              warm_changed=tbg.changed_plane_from_costs(tplan, old_t, new_t),
+              warm_raised=tbg.raised_plane_from_costs(tplan, old_t, new_t), warm_pos=tpos)
+    windowed = tbg.banded_solve_padded(tp1, torch.from_numpy(seeds), warm_window=128, **kw)
+    assert windowed.window is None and windowed.rounds == tres.rounds
+    assert torch.equal(windowed.d_pad, tres.d_pad)
+    with pytest.raises(ValueError):
+        tbg.banded_solve_padded(tp1, torch.from_numpy(seeds), warm_window=96, **kw)
     with pytest.raises(AssertionError):
         tbg.banded_solve_padded(tp1, torch.from_numpy(seeds), converge="round",
                                 warm_d=warm_d, warm_changed=tbg.changed_plane_from_costs(
@@ -354,7 +380,14 @@ def test_make_replan_step_chain_matches_reference_and_cold():
                                    atol=1e-6, err_msg=name)
         assert tstep.last["converged"], name
         assert tr == tstep.last["rounds"]
-        _within(td.numpy(), np.asarray(jd))
+        # the reference's warm pass drops the sub-tolerance gains of the rows
+        # it scans, and its field sits about one tolerance above the exact
+        # one; the port keeps them (ROADMAP queue C). So the port's field is
+        # held against the reference's at twice the tolerance, as a warm field
+        # against an exact solve, and within one tolerance of the exact field
+        _within(td.numpy(), np.asarray(jd), k=2.0)
+        exact = _dijkstra_padded(js.mesh, np.asarray(jc), seeds, td.shape, ts.banded_plan.n_cols)
+        _within(td.numpy(), exact)
         cold = tbg.banded_solve_padded(tstep.last["plan"], torch.from_numpy(seeds).long(),
                                        atol=ATOL, rtol=RTOL)
         _within(td.numpy(), cold.d_pad.numpy(), k=2.0)
@@ -420,8 +453,11 @@ def test_update_point_cloud_refreshes_like_a_rebuild():
     ts.layer_state.pop("obstacle:obst:points")
     refreshed = js.banded_plan
     _assert_planes(ts.banded_plan, refreshed)
-    with pytest.raises(NotImplementedError):
-        ts.make_replan_step("obst", warm_window=128)
+    # the windowed step is built (tests/test_torch_window.py drives it); a
+    # window that is no positive multiple of 128 is refused
+    assert ts.make_replan_step("obst", warm_window=128).last is None
+    with pytest.raises(ValueError):
+        ts.make_replan_step("obst", warm_window=100)
 
 
 def test_warm_resolve_repairs_a_stale_chain_the_reference_keeps():
