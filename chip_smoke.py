@@ -222,19 +222,44 @@ Phases, each printed as one JSON line on standard output:
    own setting (its warm start, orderings 2): rounds, ms, eik_pass and
    banded_pass launches of each. Gates: converged, and each hybrid field
    by cvp_oracle_gate (two lanes, 1%).
+27. sharded (after phase 19): mesh_navigation_torch/parallel on
+   torch.distributed. The main terrain's plan (atol = rtol = 0, the
+   reference's default) and the irregular phase's plan (its tolerance),
+   128 lanes from the seed each, cut into 4 row shards (G ghost rows a
+   side: 1 on the grid, 4 on the irregular plan, whose far residuals ride
+   an all-reduced table). 4 ranks are spawned with gloo, all on this card
+   (each rank's shard and its pass launches on the card, the exchange
+   staged through pinned host buffers); where the machine has 4 cards,
+   again with NCCL, one rank a card. Each rank runs the gather tiers at
+   the reference dry run's 320 x 320 (parallel/dryrun.dryrun_multichip:
+   layers, partitioned_field_solve on a (2, 2) grid, one controller
+   cycle, the banded solve on row shards of that terrain's plan and of a
+   96 x 96 irregular plan, each against the native heap Dijkstra within
+   1e-3; then sharded_field_solve on a (2, 2) grid, the same gate), then
+   both 1M sharded solves, rank 0 holding its first forced down pass
+   against the plain pass on the same shard input (bit for bit, dirty
+   tables and flags equal). Gates: every rank exits 0; converged; the
+   grid's reachability that of the single-device solve at the same
+   tolerance and its fields within 1e-4 relative; two lanes (grid) and
+   eight (irregular) below 1% of the native heap Dijkstra. Printed per
+   backend: ranks, cards, rounds against the single-device solve's, ms a
+   round, bytes a rank sends a round, peak memory a rank, G, the usable
+   near residuals a shard and the far table's size.
 Then a line with the script's total wall time.
 
 Kernel launches are counted per path: the counts are set to 0 just before
 the main path, the banded_full path, the replan path, the windowed replan
 steps, the CVP path, the hybrid CVP solves, the structured path, the
 irregular path, the server_cvp path, the server_single path, the
-server_layers path (from its first batch GetPath) and the scanned_map
-phase's banded batch, and read just after each; launches made to hold a
-kernel against its plain version, the gates' own solves, and the
-windowless steps and plain solves the new paths are compared with, are
-not counted. The kernels line's `banded_pass` and `check` carry
-`replan_window_launches`, `banded_pass` and `eik_pass` carry
-`cvp_hybrid_launches`.
+server_layers path (from its first batch GetPath), the scanned_map
+phase's banded batch and, in each rank, each of the sharded phase's 1M
+solves, and read just after each; launches made to hold a kernel against
+its plain version, the gates' own solves, and the windowless steps and
+plain solves the new paths are compared with, are not counted. The
+kernels line's `banded_pass` and `check` carry `replan_window_launches`,
+`banded_pass` and `eik_pass` carry `cvp_hybrid_launches`, and
+`banded_pass` carries `sharded_launches` (the gloo run's, summed over
+its ranks).
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`; the last is
@@ -3539,13 +3564,309 @@ def cvp_hybrid(device, ctx, cctx) -> tuple[dict, dict]:
     return out, {"launches": launches}
 
 
+SHARDS = 4                   # ranks of the sharded phase: 4 row shards, a (2, 2) grid
+SHARDED_BATCH = 128          # lanes of each 1M sharded solve
+SHARDED_KERNELS = ("banded_pass", "banded_pass_dirty")
+GATHER_MESH_N = 320          # the reference dry run's terrain (102,400 vertices)
+SHARDED_FIELD_RTOL = 1e-4    # the grid's sharded field against the single-device solve's
+ORACLE_GATE = 0.01
+
+
+class shard_pass_check:
+    """Within this block, this rank's first forced down pass is held
+    against the plain pass on the same shard input (the shard's field,
+    dirty table, planes and lanes): the kernel's launch is the path's own,
+    the plain pass runs on copies of its input. `result` holds the
+    comparison (compare_fields, the flags, the dirty tables, the elements
+    the pass changed, the plain pass's ms)."""
+
+    def __enter__(self):
+        from mesh_navigation_torch.ops import banded_gpu as bg
+
+        self.bg, self.orig, self.result = bg, bg.directional_pass, None
+        bg.directional_pass = self._pass
+        return self
+
+    def __exit__(self, *exc):
+        self.bg.directional_pass = self.orig
+        return False
+
+    def _pass(self, d, cross, a_fwd, a_bwd, **kw):
+        if self.result is not None or not kw.get("force") or kw.get("reverse"):
+            return self.orig(d, cross, a_fwd, a_bwd, **kw)
+        import torch
+
+        d_in = d.clone()
+        d_p = d.clone()
+        dirty = kw.get("dirty")
+        dirty_p = None if dirty is None else dirty.clone()
+        chg = self.orig(d, cross, a_fwd, a_bwd, **kw)
+        sync(d.device)
+        t0 = time.perf_counter()
+        chg_p = self.bg.directional_pass_plain(d_p, cross, a_fwd, a_bwd, **dict(kw, dirty=dirty_p))
+        sync(d.device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        cmp = compare_fields(d, d_p, kw["atol"], kw["rtol"])
+        cmp.update(shape=list(d.shape), lanes=len(kw.get("xlanes") or ()),
+                   flags_equal=bool(chg.item()) == bool(chg_p.item()),
+                   dirty_equal=dirty is None or bool(torch.equal(dirty, dirty_p)),
+                   elements_changed=int((d_p != d_in).sum()), plain_ms=plain_ms)
+        self.result = cmp
+        return chg
+
+
+def sharded_field_tier(dev, mesh_n: int) -> dict:
+    """sharded_field_solve on a (2, 2) grid of the ranks: the reference dry
+    run's terrain (mesh_n x mesh_n) with steepness costs, four lanes from
+    the seed, against the native heap Dijkstra (max |err| < 1e-3)."""
+    from mesh_navigation_torch.mesh import synthetic
+    from mesh_navigation_torch.mesh.arrays import build_mesh
+    from mesh_navigation_torch.parallel import comm, make_device_mesh, shard_weights
+    from mesh_navigation_torch.parallel import sharded_field_solve
+    from mesh_navigation_torch.parallel.dryrun import oracle_max_err
+
+    v, f = synthetic.terrain_mesh(mesh_n, mesh_n, spacing=0.5, hills=1.5, roughness=0.01, seed=0)
+    mesh = build_mesh(v, f, device=dev)
+    costs_np, _, W = steepness_weights(mesh)
+    V = mesh.num_vertices
+    seeds = np.random.default_rng(0).integers(0, V, 4)
+    grid = make_device_mesh(2, 2)
+    sw = shard_weights(mesh, W, 2)
+    comm.reset_sent_bytes()
+    sync(dev)
+    t0 = time.perf_counter()
+    d = sharded_field_solve(sw, seeds, grid, device=dev)
+    sync(dev)
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    sent = dict(comm.SENT_BYTES)
+    err = oracle_max_err(v, f, costs_np, seeds, d[:, :V].T.cpu().numpy(), "sharded field solve")
+    if not err < 1e-3:
+        raise AssertionError(f"sharded_field_solve parity fail: {err}")
+    return {"V": V, "grid": [2, 2], "lanes": 4, "solve_ms": solve_ms,
+            "all_gather_bytes": sent["all_gather"], "oracle_max_abs_err": err}
+
+
+def sharded_rank(rank: int, store: str, out_dir: str, backend: str, device, n: int,
+                 gather_n: int) -> None:
+    """One rank of phase 27, in a process of its own (spawned): the gather
+    tiers (the reference's dry run, then sharded_field_solve on a (2, 2)
+    grid), then the row-sharded banded solve of each 1M plan in
+    `store`/plans.pt (each rank moves its own shard), rank 0 holding its
+    first forced down pass against the plain pass. Launches and bytes are
+    counted from a reset just before each 1M solve. Writes
+    `out_dir`/rank{rank}.json; rank 0 also each solve's [V, B] field."""
+    import torch
+    import torch.distributed as tdist
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.parallel import comm, distributed, make_device_mesh
+    from mesh_navigation_torch.parallel import sharded_banded_solve
+    from mesh_navigation_torch.parallel.dryrun import dryrun_multichip
+
+    torch.set_num_threads(1)
+    sys.stdout = sys.stderr          # the dry run's lines: standard output holds the phases' JSON
+    distributed.initialize(backend, init_method=f"file://{out_dir}/rendezvous", world_size=n,
+                           rank=rank)
+    try:
+        dev = distributed.local_device(device)
+        cuda = dev.type == "cuda"
+        out = {"rank": rank, "device": str(dev), "backend": backend}
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun_multichip(n, mesh_n=gather_n, device=dev)
+        out["dryrun"]["s"] = time.perf_counter() - t0
+        out["sharded_field"] = sharded_field_tier(dev, gather_n)
+        plans = torch.load(os.path.join(store, "plans.pt"), mmap=True, weights_only=False)
+        row_grid = make_device_mesh(n, 1)
+        for name, p in plans.items():
+            check = shard_pass_check() if rank == 0 else contextlib.nullcontext()
+            kernels.reset_launches()
+            comm.reset_sent_bytes()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            tdist.barrier()
+            t0 = time.perf_counter()
+            with check:
+                d, rounds, conv = sharded_banded_solve(p["splan"], p["seeds"], row_grid,
+                                                       atol=p["atol"], rtol=p["rtol"], device=dev)
+                sync(dev)
+            solve_ms = (time.perf_counter() - t0) * 1e3
+            out[name] = {"rounds": rounds, "converged": conv, "solve_ms": solve_ms,
+                         "launches": {k: kernels.LAUNCHES[k] for k in SHARDED_KERNELS},
+                         "sent_bytes": dict(comm.SENT_BYTES),
+                         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None,
+                         "shard_pass_check": check.result if rank == 0 else None}
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"{name}.npy"), d.cpu().numpy())
+            del d
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+
+
+def field_agreement(got: np.ndarray, ref, chunk: int = 1 << 17) -> dict:
+    """A sharded [V, B] field (host, memory-mapped) against the
+    single-device one (a tensor on the card) in row chunks: finite support
+    equal, bit for bit, the largest relative difference."""
+    import torch
+
+    same_support, bitwise, max_rel = True, True, 0.0
+    for i in range(0, got.shape[0], chunk):
+        g = torch.from_numpy(np.array(got[i:i + chunk])).to(ref.device)
+        r = ref[i:i + chunk]
+        fin = torch.isfinite(r)
+        same_support &= bool(torch.equal(torch.isfinite(g), fin))
+        bitwise &= bool(torch.equal(g, r))
+        rel = torch.where(fin, (g - r).abs() / r.abs().clamp(min=1e-6), torch.zeros_like(r))
+        max_rel = max(max_rel, float(rel.max()))
+    return {"same_finite_support": same_support, "bitwise": bitwise, "max_rel_err": max_rel}
+
+
+def sharded(device, ctx, grid_kplan, ictx, gather_n: int = GATHER_MESH_N,
+            batch: int = SHARDED_BATCH, n: int = SHARDS) -> tuple[dict, dict]:
+    """Phase 27 (after phase 19): the parallel/ package on torch.distributed.
+    The main terrain's plan (V = 1,048,576, atol = rtol = 0, the
+    reference's default) and the irregular phase's plan (its atol / rtol),
+    `batch` lanes from the seed each, cut into n row shards; n ranks
+    spawned (gloo, every rank on this card; then NCCL, one rank a card,
+    where the machine has n cards), each running the gather tiers at
+    gather_n and then both sharded solves (sharded_rank). Gates: every rank
+    exits 0; the gather tiers' oracle asserts; each solve converged; the
+    grid's reachability that of the single-device banded_solve_padded
+    (converge="round") at the same tolerance and its fields within 1e-4
+    relative of it; two lanes (grid) and eight (irregular) below 1% of the
+    native heap Dijkstra at the 99.9th percentile; rank 0's first forced
+    down pass of each solve bit for bit its plain pass, dirty tables and
+    flags equal; the pass kernel launched. Prints rounds against the
+    single-device solve's, ms a round, bytes sent a round a rank, peak
+    memory a rank."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from mesh_navigation_torch.ops import banded_gpu as bg
+    from mesh_navigation_torch.ops import kernels
+    from mesh_navigation_torch.parallel import build_sharded_banded_plan
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        kernels.build_all()
+    singles, plans, oracles, info = {}, {}, {}, {}
+    cases = (("grid", ctx, grid_kplan, 0.0, 0.0, 2), ("irregular", ictx, ictx["kplan"],
+             IRREGULAR_ATOL, IRREGULAR_RTOL, IRREGULAR_ORACLE_LANES))
+    for i, (name, c, kplan, atol, rtol, n_oracle) in enumerate(cases):
+        seeds = np.random.default_rng(SEED + 27 + i).integers(0, kplan.num_vertices, batch)
+        with uncounted():
+            sync(device)
+            t0 = time.perf_counter()
+            res = bg.banded_solve_padded(kplan, torch.from_numpy(seeds).to(device), atol=atol,
+                                         rtol=rtol, converge="round")
+            sync(device)
+            single_ms = (time.perf_counter() - t0) * 1e3
+        R, C, V = kplan.n_rows, kplan.n_cols, kplan.num_vertices
+        singles[name] = {"field": res.d_pad[:R, :C, :batch].reshape(-1, batch)[:V],
+                         "rounds": res.rounds, "converged": res.converged, "ms": single_ms}
+        del res
+        t0 = time.perf_counter()
+        splan = build_sharded_banded_plan(kplan, n)
+        plans[name] = {"splan": splan, "seeds": seeds, "atol": atol, "rtol": rtol}
+        oracles[name] = native_fields(c["v"], c["f"], c["costs_np"], seeds[:n_oracle])
+        info[name] = {"V": V, "R": R, "Cp": kplan.n_cols_pad, "atol": atol, "rtol": rtol,
+                      "ghost": splan.ghost, "rows_per_shard": splan.rows_per_shard,
+                      "rp_local": splan.rp_local, "xlanes": [len(kplan.xlanes_down),
+                                                             len(kplan.xlanes_up)],
+                      "n_residual": kplan.n_residual, "n_far": splan.n_far,
+                      "near_usable_per_shard": torch.isfinite(splan.res_w).sum(1).tolist(),
+                      "plan_s": time.perf_counter() - t0,
+                      "single_rounds": singles[name]["rounds"], "single_ms": single_ms}
+        log(f"# sharded {name}: {info[name]}")
+    backends = [("gloo", "cuda:0" if cuda else "cpu")]
+    if cuda and torch.cuda.device_count() >= n:
+        backends.append(("nccl", None))
+    runs = {}
+    store = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        torch.save(plans, os.path.join(store, "plans.pt"))
+        for backend, dev_arg in backends:
+            out_dir = os.path.join(store, backend)
+            os.makedirs(out_dir)
+            t0 = time.perf_counter()
+            mp.spawn(sharded_rank, args=(store, out_dir, backend, dev_arg, n, gather_n),
+                     nprocs=n, join=True)
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(n):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            run = {"backend": backend, "ranks": n,
+                   "cards": len({x["device"] for x in ranks}), "devices": [x["device"] for x in ranks],
+                   "spawn_s": spawn_s, "dryrun": ranks[0]["dryrun"],
+                   "sharded_field": ranks[0]["sharded_field"]}
+            for name in plans:
+                per = [x[name] for x in ranks]
+                rounds = per[0]["rounds"]
+                if not all(p["converged"] and p["rounds"] == rounds for p in per):
+                    raise AssertionError(f"sharded {name} ({backend}): not converged or ranks "
+                                         f"disagree: {[(p['rounds'], p['converged']) for p in per]}")
+                got = np.load(os.path.join(out_dir, f"{name}.npy"), mmap_mode="r")
+                agree = field_agreement(got, singles[name]["field"])
+                lanes, cols = [], np.ascontiguousarray(got[:, :len(oracles[name])])
+                for b, (od, _) in enumerate(oracles[name]):
+                    col = cols[:, b]
+                    if not np.array_equal(np.isfinite(col), np.isfinite(od)):
+                        raise AssertionError(f"sharded {name} ({backend}) lane {b}: reachability "
+                                             f"differs from the native heap Dijkstra")
+                    lanes.append(percentile_rel_err(col, od))
+                del got
+                check = per[0]["shard_pass_check"]
+                launches = {k: sum(p["launches"][k] for p in per) for k in SHARDED_KERNELS}
+                check_ms = check["plain_ms"] if check else 0.0
+                solve_ms = max(p["solve_ms"] for p in per)
+                run[name] = {
+                    **info[name], "rounds": rounds, "converged": True,
+                    "solve_ms": solve_ms, "solve_ms_less_check": solve_ms - check_ms,
+                    "ms_per_round": (solve_ms - check_ms) / rounds,
+                    "p2p_bytes_per_round": [p["sent_bytes"]["p2p"] / rounds for p in per],
+                    "all_reduce_bytes_per_round": [p["sent_bytes"]["all_reduce"] / rounds
+                                                   for p in per],
+                    "peak_mem_gb": [p["peak_mem_gb"] for p in per], "launches": launches,
+                    "vs_single": agree, "oracle_rel_err": lanes, "shard_pass_check": check,
+                }
+                if name == "grid" and not (agree["same_finite_support"]
+                                           and agree["max_rel_err"] <= SHARDED_FIELD_RTOL):
+                    raise AssertionError(f"sharded grid ({backend}) against the single-device "
+                                         f"solve: {agree}")
+                if not max(lanes) < ORACLE_GATE:
+                    raise AssertionError(f"sharded {name} ({backend}) oracle {lanes} exceeds 1%")
+                if not (check and check["bitwise"] and check["flags_equal"]
+                        and check["dirty_equal"] and check["elements_changed"] > 0):
+                    raise AssertionError(f"sharded {name} ({backend}): the shard's pass kernel "
+                                         f"disagrees with its plain version: {check}")
+                if cuda and launches["banded_pass"] <= 0:
+                    raise AssertionError(f"sharded {name}: the pass kernel was not launched")
+                log(f"# sharded {name} ({backend}, {n} ranks, {run['cards']} card(s)): "
+                    f"{rounds} rounds (single {info[name]['single_rounds']}), "
+                    f"{run[name]['ms_per_round']:.2f} ms a round")
+            runs[backend] = run
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    out = {"phase": "sharded", "shards": n, "lanes": batch, "gather_n": gather_n, "runs": runs}
+    gloo = runs["gloo"]
+    return out, {"launches": {k: gloo["grid"]["launches"][k] + gloo["irregular"]["launches"][k]
+                              for k in SHARDED_KERNELS},
+                 "max_abs_err": max(gloo[k]["shard_pass_check"]["max_abs_err"]
+                                    for k in ("grid", "irregular"))}
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
         structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
         irregular_batch=IRREGULAR_BATCH, nav_dist=25.0, max_cycles=3000,
-        layers_n=None, scanned_batch=SCANNED_BATCH) -> list:
-    """Phases 2-26 on `device`; returns the kernels line. `layers_n` runs
-    server_layers on a terrain of its own size (default: the main path's)."""
+        layers_n=None, scanned_batch=SCANNED_BATCH, gather_n=GATHER_MESH_N) -> list:
+    """Phases 2-27 on `device`; returns the kernels line. `layers_n` runs
+    server_layers on a terrain of its own size (default: the main path's);
+    `gather_n` is the sharded phase's gather-tier terrain."""
     import torch
 
     kc = kernel_check(device, *small)
@@ -3575,7 +3896,7 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], fk["max_abs_err"])
     emit(banded_walks(device, ctx, bctx))
     del bctx
-    ctx.pop("kplan")
+    grid_kplan = ctx.pop("kplan")      # for the sharded phase
     rp, rctx = replan(device, ctx, iters)
     emit(rp)
     rdetail, rk = kernels_at_replan_shapes(rctx, device)
@@ -3650,6 +3971,13 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     line[1].update(irregular_launches=ictx["launches"]["class_pred"],
                    irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], ik["pred_max_abs_err"])
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shp, shk = sharded(device, ctx, grid_kplan, ictx, gather_n)
+    emit(shp)
+    line[0]["sharded_launches"] = shk["launches"]["banded_pass"]
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"], shk["max_abs_err"])
+    del grid_kplan
     scan = ictx.pop("scan")       # the Delaunay terrain, for scanned_map
     del ictx
     if torch.device(device).type == "cuda":

@@ -1352,3 +1352,43 @@ def test_hybrid_solve_on_card_matches_cpu(cuda):
     fin = torch.isfinite(dc)
     assert torch.equal(torch.isfinite(dk), fin)
     assert bool(((dk[fin] - dc[fin]).abs() <= 2 * (atol + rtol * dc[fin].abs())).all())
+
+
+def _sharded_pair(cuda, backend, device):
+    """The 64 x 64 terrain's plan solved on 2 row shards by 2 spawned ranks
+    (tests/torch_parallel_ranks.py) and by the single-device solve, both
+    with the pass kernel, at zero tolerance."""
+    import torch_parallel_ranks as ranks
+    from mesh_navigation_torch.parallel import build_sharded_banded_plan
+
+    kernels.build_all()                    # the ranks bind the built libraries
+    mesh, plan = _plan(64, 64, cuda)
+    seeds = np.random.default_rng(7).integers(0, mesh.num_vertices, 12)
+    single = bg.banded_solve_padded(plan, torch.from_numpy(seeds).to(cuda), atol=0.0, rtol=0.0)
+    R, C, V = plan.n_rows, plan.n_cols, plan.num_vertices
+    ref = single.d_pad[:R, :C, :12].reshape(-1, 12)[:V].cpu()
+    d, rounds, conv, launches = ranks.run(
+        "banded_solve", 2, {"splan": build_sharded_banded_plan(plan, 2), "seeds": seeds},
+        backend=backend, device=device)
+    assert single.converged and conv
+    assert all(n >= 2 * rounds for n in launches)     # two kernel passes a round on each rank
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(d), fin)
+    torch.testing.assert_close(d[fin], ref[fin], rtol=1e-6, atol=1e-6)
+    return d, ref
+
+
+def test_sharded_banded_solve_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks share cuda:0 (the exchange staged through pinned host
+    buffers): the fields of the single-device kernel solve within 1e-6,
+    reachability equal."""
+    _sharded_pair(cuda, "gloo", "cuda:0")
+
+
+def test_sharded_banded_solve_nccl_one_rank_a_card(cuda):
+    """NCCL, one rank on each of two cards: the same fields as gloo's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices for NCCL")
+    d_nccl, ref = _sharded_pair(cuda, "nccl", None)
+    d_gloo, _ = _sharded_pair(cuda, "gloo", "cuda:0")
+    assert torch.equal(d_nccl, d_gloo)
