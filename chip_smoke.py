@@ -245,6 +245,30 @@ Phases, each printed as one JSON line on standard output:
    backend: ranks, cards, rounds against the single-device solve's, ms a
    round, bytes a rank sends a round, peak memory a rank, G, the usable
    near residuals a shard and the far table's size.
+28. solve_modes (after phase 19): the solvers' opt-in options at full
+   width. The main pipeline of phase 3 (its draw, 1,024 lanes) with
+   dtype=bfloat16 (the controller at tol 1e-2) and with scan_steps=5 in
+   f32, one warm-up and one timed iteration each: solves/s, stages,
+   rounds, `converged`, pass launches; two lanes against the native heap
+   Dijkstra, gated at 1% at partial depth and printed, not gated, in
+   bfloat16 (the reference's bf16 fields err by up to 63% at 1M), whose
+   gates are no NaN and the f32 field's finite support. The exact modes
+   on the grid with 128 lanes (converge "round") at the main path's
+   tolerance: the default and skip_rows=False (within twice the stopping
+   tolerance of the default), each 1% on 2 lanes; scan_dirs="up" and
+   scan_steps=5 read there (they drop sub-tolerance gains and can stop
+   several tolerances above the fixed point, as the reference's do) and
+   gated at 1% again at atol = rtol = 1e-5. four_dir on the irregular plan, 128
+   lanes: transpose_banded_plan (timed; its lanes and those it leaves
+   out), two-direction and four-direction rounds, ms and the transposes'
+   ms, each 1% on 2 lanes. The structured tier in bfloat16, 128 lanes:
+   sweeps, ms, solves/s beside phase 14's, its oracle reading. Then each
+   new kernel mode held against its plain version bit for bit on the
+   phase's own inputs (the pass on 48-row slabs of a bf16 main-mode, a
+   bf16 dirty-mode, a partial-depth, a deferring, an unskipped and a
+   transposed-field launch; class_pred and check on the bf16 main field;
+   the bf16 fused sweep on the structured matrix), each timed against its
+   bound; the phase's wall time.
 Then a line with the script's total wall time.
 
 Kernel launches are counted per path: the counts are set to 0 just before
@@ -252,14 +276,16 @@ the main path, the banded_full path, the replan path, the windowed replan
 steps, the CVP path, the hybrid CVP solves, the structured path, the
 irregular path, the server_cvp path, the server_single path, the
 server_layers path (from its first batch GetPath), the scanned_map
-phase's banded batch and, in each rank, each of the sharded phase's 1M
-solves, and read just after each; launches made to hold a kernel against
+phase's banded batch, the solve_modes phase's drives and, in each rank,
+each of the sharded phase's 1M solves, and read just after each; launches made to hold a kernel against
 its plain version, the gates' own solves, and the windowless steps and
 plain solves the new paths are compared with, are not counted. The
 kernels line's `banded_pass` and `check` carry `replan_window_launches`,
 `banded_pass` and `eik_pass` carry `cvp_hybrid_launches`, and
 `banded_pass` carries `sharded_launches` (the gloo run's, summed over
-its ranks).
+its ranks); `banded_pass`, `class_pred`, `check` and `fused_sweep` carry
+`solve_modes` (each new mode's ms, bound, plain ms where timed and
+max_abs_err, and the phase's launches by mode).
 
 The line before the last is `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`; the last is
@@ -3859,6 +3885,540 @@ def sharded(device, ctx, grid_kplan, ictx, gather_n: int = GATHER_MESH_N,
                                     for k in ("grid", "irregular"))}
 
 
+SOLVE_MODES_BATCH = 128      # lanes of the exact modes, four_dir and structured bf16
+SOLVE_MODES_STEPS = 5        # partial scan depth (pallas_banded.py:1460-1463: 5-6 useful)
+SOLVE_MODES_KERNELS = ("banded_pass", "banded_pass_dirty", "banded_pass_bf16",
+                       "banded_pass_partial", "banded_pass_defer", "banded_pass_noskip",
+                       "class_pred", "class_pred_bf16", "check", "check_bf16", "fused_sweep",
+                       "fused_sweep_bf16")
+PROBE_ROUNDS = 6             # rounds of each solve whose launches are timed one by one
+# exact modes read, not gated, at the main path's tolerance and gated at 1e-5 (solve_modes)
+TOLERANCE_READ_ONLY = ("scan_dirs_up", f"scan_steps_{SOLVE_MODES_STEPS}")
+BF16_NOTE = ("bf16 distance fields are approximate: the reference measured 63% max relative "
+             "error at 1M (NOTES_ROUND3.md:111-116; ~0.5 edge increments round away at "
+             "ulp(256) = 2); reported, not gated")
+
+
+def slab_check(pass_fn, d, cross, a_fwd, a_bwd, kw: dict, r0: int, device,
+               rows: int = IRREGULAR_SLAB_ROWS) -> dict:
+    """A pass kernel (`pass_fn`, any mode in `kw`) against its plain version
+    on rows r0 .. r0 + rows of one launch's own input, at the launch's full
+    width and lanes, with its dirty table, extended lanes and flags; rows
+    outside the slab read as +inf to both. Fields bit for bit, dirty
+    tables, flags and rows walked equal; also the plain version's time."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    r1 = min(r0 + rows, d.shape[0])
+    sl = lambda t: None if t is None else t[r0:r1].contiguous()   # noqa: E731
+    d_k = d[r0:r1].clone()
+    d_p = d_k.clone()
+    kw_s = dict(kw, xcross=sl(kw.get("xcross")))
+    dirty = kw.get("dirty")
+    dirty_k = None if dirty is None else dirty[:, r0:r1].clone()
+    dirty_p = None if dirty is None else dirty_k.clone()
+    wk = torch.zeros(1, dtype=torch.int32, device=d.device)
+    wp = torch.zeros(1, dtype=torch.int64, device=d.device)
+    chg_k = pass_fn(d_k, sl(cross), sl(a_fwd), sl(a_bwd),
+                    **dict(kw_s, dirty=dirty_k, rows_walked=wk))
+    got = []
+    plain_ms = time_ms(lambda: got.append(bg.directional_pass_plain(
+        d_p, sl(cross), sl(a_fwd), sl(a_bwd), bb=bg.PASS_LANES,
+        **dict(kw_s, dirty=dirty_p, rows_walked=wp))), device)
+    cmp = compare_fields(d_k.float(), d_p.float(), kw["atol"], kw["rtol"])
+    cmp.update(rows=[r0, r1], shape=list(d_k.shape), dtype=str(d.dtype).split(".")[-1],
+               force=bool(kw.get("force")), reverse=bool(kw["reverse"]),
+               modes={k: kw[k] for k in ("skip", "scan_steps", "defer") if k in kw},
+               flags_equal=bool(chg_k.item()) == bool(got[0].item()),
+               dirty_equal=dirty is None or bool(torch.equal(dirty_k, dirty_p)),
+               rows_walked=int(wk.item()), rows_walked_equal=int(wk.item()) == int(wp.item()),
+               elements_changed=int((d_p != sl(d)).sum()), plain_ms=plain_ms)
+    cmp["bitwise"] = bool(torch.equal(d_k, d_p))
+    if not (cmp["bitwise"] and cmp["flags_equal"] and cmp["dirty_equal"]
+            and cmp["rows_walked_equal"] and cmp["elements_changed"] > 0):
+        raise AssertionError(f"the pass kernel disagrees with its plain version on a slab of "
+                             f"the solve_modes phase's input: {cmp}")
+    return cmp
+
+
+class PassProbe:
+    """Inside the block, every directional_pass launch is timed by its own
+    event pair (ms, rows walked, a bound from what that launch's data
+    needs: one read of the field and the planes it reads, the dirty table
+    read and written, one write of each element it changed, against the
+    pass's operations: PASS_OPS an element, or 10 + 4 * scan_steps at
+    partial depth, plus XLANE_OPS a lane), and the first launch of each
+    wanted key (`want(kw, d)` -> key or None) with labels to change is held
+    against the plain version on a slab of its own input (slab_check). Not
+    counted for any path."""
+
+    def __init__(self, device, want):
+        self.device, self.want = device, want
+        self.ms, self.bound, self.walked, self.slabs = [], [], [], {}
+
+    def __enter__(self):
+        from mesh_navigation_torch.ops import banded_gpu as bg
+
+        self.bg, self.orig = bg, bg.directional_pass
+        self.counts = uncounted()
+        self.counts.__enter__()
+        bg.directional_pass = self._pass
+        return self
+
+    def __exit__(self, *exc):
+        self.bg.directional_pass = self.orig
+        self.counts.__exit__(*exc)
+        return False
+
+    def _pass(self, d, cross, a_fwd, a_bwd, **kw):
+        import torch
+
+        bg = self.bg
+        Rp, Cp, Bp = d.shape
+        nb = Bp // bg.PASS_LANES
+        key = self.want(kw, d)
+        slab = key is not None and key not in self.slabs
+        if slab:
+            d_in = d.clone()
+            dirty_in = None if kw.get("dirty") is None else kw["dirty"].clone()
+        before = d.clone()
+        nw = torch.zeros(1, dtype=torch.int32, device=d.device)
+        got = []
+        self.ms.append(time_ms(lambda: got.append(self.orig(d, cross, a_fwd, a_bwd,
+                                                            rows_walked=nw, **kw)),
+                               self.device))
+        diff = d != before
+        del before
+        n_written = int(diff.sum())
+        es = d.element_size()
+        L = len(kw.get("xlanes", ()))
+        steps = 0 if kw.get("defer") else kw.get("scan_steps", 0)
+        ops = ((10 + 4 * steps) if steps else PASS_OPS) + XLANE_OPS * L
+        planes = (5 + L) * Rp * Cp * 4
+        dirty_b = 2 * nb * Rp * 4 if kw.get("dirty") is not None else 0
+        bytes_s = (Rp * Cp * Bp * es + planes + dirty_b + n_written * es) / HBM_BYTES_PER_S
+        ops_s = ops * Rp * Cp * Bp / F32_OPS_PER_S
+        self.bound.append(max(bytes_s, ops_s) * 1e3)
+        self.walked.append(int(nw.item()) / (Rp * nb))
+        if slab and n_written:
+            rows = diff.any(dim=2).any(dim=1).nonzero()[:, 0]
+            r = int(rows[len(rows) // 2])
+            r0 = max(0, min(r - IRREGULAR_SLAB_ROWS // 2, Rp - IRREGULAR_SLAB_ROWS))
+            self.slabs[key] = slab_check(self.orig, d_in, cross, a_fwd, a_bwd,
+                                         dict(kw, dirty=dirty_in), r0, self.device)
+        return got[0]
+
+    def summary(self) -> dict:
+        return {"launches": len(self.ms), "ms": float(np.mean(self.ms)) if self.ms else None,
+                "bound_ms": float(np.mean(self.bound)) if self.bound else None,
+                "rows_walked_share": float(np.mean(self.walked)) if self.walked else None,
+                "max_abs_err": max((c["max_abs_err"] for c in self.slabs.values()), default=0.0)}
+
+
+def oracle_reading(native, pot, sv) -> float:
+    """The larger of the start vertex's relative error and the field's
+    99.9th-percentile one over lanes pot [n, V] against `native`, the
+    native heap Dijkstra's (dist, pred) from each lane's goal (bench.py:
+    169-204)."""
+    errs = []
+    for b, (od, _) in enumerate(native):
+        ref, got = od[sv[b]], pot[b, sv[b]]
+        if np.isfinite(ref) and ref > 0:
+            errs.append(abs(got - ref) / ref)
+        errs.append(percentile_rel_err(pot[b], od))
+    return float(np.max(errs))
+
+
+def _field_lanes(plan, d_pad, lanes) -> np.ndarray:
+    """[len(lanes), V] f32 potential of a padded field's lanes (no grouping)."""
+    R, C, V = plan.n_rows, plan.n_cols, plan.num_vertices
+    return d_pad[:R, :C, lanes].reshape(R * C, -1)[:V].T.float().cpu().numpy()
+
+
+def solve_modes(device, ctx, grid_kplan, ictx, sp: dict, batch: int = SOLVE_MODES_BATCH,
+                main_batch: int = BATCH) -> tuple[dict, dict]:
+    """The solver's opt-in modes at full width (V = 1,048,576).
+    1. The main pipeline (plan_batch_banded(light=True) +
+       compute_velocity_banded, `main_batch` lanes, the main path's draw)
+       with dtype=bfloat16 (the controller at tol 1e-2) and with
+       scan_steps=SOLVE_MODES_STEPS in f32: one warm-up and one timed
+       iteration each (a bf16 solve that runs to max_rounds is not run
+       twice): solves/s, stages, rounds, `converged`; the pass launches
+       of a third solve of the draw timed one by one against their bounds
+       (PassProbe). Gates: partial depth 1% on 2 lanes against the native
+       heap Dijkstra; bf16 no NaN and the f32 field's finite support, its
+       oracle reading printed, not gated.
+    2. The exact modes on the grid plan, `batch` lanes, converge="round",
+       at the main path's tolerance: the default, skip_rows=False,
+       scan_dirs="up", scan_steps: rounds, ms, each field's distance to
+       the default's and 1% on 2 lanes against the native heap Dijkstra,
+       gated for the default and skip_rows=False (also within twice the
+       stopping tolerance of the default) and read for the deferring and
+       partial-depth passes, which run again at atol = rtol = 1e-5 gated
+       at 1%.
+    3. four_dir on the irregular phase's plan, `batch` lanes at its
+       tolerance: transpose_banded_plan (timed; its lanes and the lanes it
+       leaves out printed), then two-direction and four-direction solves:
+       rounds, ms, the transposes' ms; 1% on 2 lanes.
+    4. The structured tier in bf16, `batch` lanes: sweeps, ms, solves/s
+       beside the structured phase's f32 figures (`sp`); its oracle
+       reading printed.
+    5. Each new kernel mode against its plain version, bit for bit, on the
+       phase's own inputs: the pass on 48-row slabs of a launch of each
+       mode (bf16 main and dirty, partial depth, defer, no-skip, the
+       transposed field), class_pred in bf16 (int8, certificate, ids) and
+       check in bf16 on the bf16 main field, fused_sweep in bf16 on the
+       structured solve's matrix; each timed against its bound (a bf16
+       element is 2 bytes).
+    Launches are counted over 1-4 (reset before 1, read after 4)."""
+    import torch
+    from mesh_navigation_torch.config import ControllerConfig
+    from mesh_navigation_torch.control import MeshController
+    from mesh_navigation_torch.control.controller import initial_state
+    from mesh_navigation_torch.mesh import query
+    from mesh_navigation_torch.ops import banded_gpu as bg
+    from mesh_navigation_torch.ops import kernels, sweeps
+    from mesh_navigation_torch.ops import structured as st
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+    from mesh_navigation_torch.planners.dijkstra import potential_lanes
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    bf16 = torch.bfloat16
+    planner, mesh, v, f, costs_np = (ctx[k] for k in ("planner", "mesh", "v", "f", "costs_np"))
+    kplan = grid_kplan
+    mesh_n = int(round(np.sqrt(mesh.num_vertices)))
+    costs = torch.from_numpy(costs_np).to(device)
+    ctrl = MeshController(mesh, ControllerConfig(), grid=planner.grid, device=device)
+    out = {"phase": "solve_modes", "V": mesh.num_vertices}
+    detail = {}
+    kernels.reset_launches()
+
+    # 1. the main pipeline at bf16 and at partial depth
+    s_all, g_all, q_all = ctx["warm"]
+    s, g, q = s_all[:main_batch], g_all[:main_batch], q_all[:main_batch]
+    gv2 = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(g[:2]).to(device))[0]
+    sv2 = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(s[:2]).to(device))[0]
+    gv2, sv2 = gv2.cpu().numpy(), sv2.cpu().numpy()
+    native_main = native_fields(v, f, costs_np, gv2)
+    pipes, fields = {}, {}
+    for name, kw, tol in (("bf16", dict(dtype=bf16), 1e-2),
+                          (f"scan_steps_{SOLVE_MODES_STEPS}", dict(scan_steps=SOLVE_MODES_STEPS),
+                           1e-5)):
+        def step(timer=None, kw=kw, tol=tol):
+            st0 = initial_state(torch.from_numpy(g).to(device), torch.tensor([1.0, 0.0, 0.0]))
+            res = planner.plan_batch_banded(kplan, torch.from_numpy(s), torch.from_numpy(g),
+                                            atol=ATOL, rtol=RTOL, timer=timer, **kw)
+            cmds, _ = ctrl.compute_velocity_banded(
+                kplan, res.d_pad.reshape(-1, res.d_pad.shape[-1]), costs, torch.from_numpy(s),
+                torch.from_numpy(q), st0, tol=tol, lane_map=res.lane_map, timer=timer)
+            return res, cmds
+
+        before = kernels.LAUNCHES["banded_pass"]
+        t0 = time.perf_counter()
+        res, cmds = step()
+        sync(device)
+        first_s = time.perf_counter() - t0
+        runs = [{"rounds": res.rounds, "converged": bool(res.converged)}]
+        timer = StageTimer(device)
+        if res.converged:
+            t0 = time.perf_counter()
+            res, cmds = step(timer)
+            sync(device)
+            dt = time.perf_counter() - t0
+            runs.append({"rounds": res.rounds, "converged": bool(res.converged)})
+            stages = timer.totals()
+        else:
+            dt, stages = first_s, {}
+        launches = kernels.LAUNCHES["banded_pass"] - before
+        pot = potential_lanes(kplan, res.d_pad, res.lane_map, [0, 1])
+        err = oracle_reading(native_main, pot, sv2)
+        fields[name] = res.d_pad
+        pipes[name] = {
+            "lanes": main_batch, "atol": max(ATOL, bg.BF16_ATOL) if "bf16" in name else ATOL,
+            "rtol": max(RTOL, bg.BF16_RTOL) if "bf16" in name else RTOL,
+            "runs": runs, "warmup_s": first_s, "timed_s": dt,
+            "solves_per_s": main_batch / dt, "stage_ms": stages,
+            "pass_launches": launches, "oracle_rel_err": err,
+            "commands_finite": bool(torch.isfinite(cmds.linear).all()),
+            "reach_rate": float((res.outcome == 0).float().mean())}
+        res = cmds = None
+    part = pipes[f"scan_steps_{SOLVE_MODES_STEPS}"]
+    if not (part["runs"][-1]["converged"] and part["oracle_rel_err"] < ORACLE_GATE):
+        raise AssertionError(f"solve_modes: the partial-depth pipeline failed its gate: {part}")
+    half, full = fields["bf16"], fields[f"scan_steps_{SOLVE_MODES_STEPS}"]
+    pipes["bf16"].update(
+        note=BF16_NOTE, has_nan=bool(torch.isnan(half).any()),
+        support_equal_f32=bool(torch.equal(torch.isfinite(half), torch.isfinite(full))))
+    if pipes["bf16"]["has_nan"] or not pipes["bf16"]["support_equal_f32"]:
+        raise AssertionError(f"solve_modes: the bf16 field failed its gates: {pipes['bf16']}")
+    del full, fields[f"scan_steps_{SOLVE_MODES_STEPS}"]
+    out["main_pipeline"] = pipes
+
+    # 2. the exact modes on the grid plan: at the main path's tolerance, and
+    # the two that drop sub-tolerance gains again at the reference solve's
+    # default tolerance
+    rng = np.random.default_rng(SEED + 14)
+    gv = torch.from_numpy(rng.integers(0, mesh.num_vertices, batch)).to(device)
+    sv = torch.from_numpy(rng.integers(0, mesh.num_vertices, batch)).to(device)
+    max_rounds = max(planner.config.max_sweeps // 2, 64)
+    modes = {"default": {}, "skip_rows_false": {"skip_rows": False},
+             "scan_dirs_up": {"scan_dirs": "up"},
+             f"scan_steps_{SOLVE_MODES_STEPS}": {"scan_steps": SOLVE_MODES_STEPS}}
+    # (the deferring pass moves a row of progress a round: at 1e-5 it takes
+    # more than the planner's 64 rounds)
+    tight = {f"{name}_tol_1e-5": dict(kw, atol=1e-5, rtol=1e-5, max_rounds=256)
+             for name, kw in modes.items() if name in TOLERANCE_READ_ONLY}
+    exact, ref_field = {}, None
+    native_exact = native_fields(v, f, costs_np, gv[:2].cpu().numpy())
+    sv_exact = sv[:2].cpu().numpy()
+    for name, kw in {**modes, **tight}.items():
+        kw = dict(dict(atol=ATOL, rtol=RTOL, max_rounds=max_rounds), **kw)
+        t0 = time.perf_counter()
+        res = bg.banded_solve_padded(kplan, gv, converge="round", **kw)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {"rounds": res.rounds, "converged": bool(res.converged), "ms": ms,
+               "atol": kw["atol"], "rtol": kw["rtol"]}
+        if ref_field is None:
+            ref_field = res.d_pad
+        elif name in modes:
+            cmp = compare_fields(res.d_pad, ref_field, 2 * ATOL, 2 * RTOL)
+            row["vs_default"] = {k: cmp[k] for k in ("same_finite_support", "max_rel_err",
+                                                     "within_tol", "tol")}
+        row["oracle_rel_err"] = oracle_reading(native_exact, _field_lanes(kplan, res.d_pad, [0, 1]),
+                                               sv_exact)
+        exact[name] = row
+        # the deferring and partial-depth passes drop sub-tolerance gains
+        # the default's scans keep (the deferring down pass writes a row
+        # only where a gain passes the tolerance, and scans nothing), so at a
+        # loose tolerance their quiet round can stop several tolerances
+        # above the fixed point (the reference's own deferring solve stops
+        # 0.33% from the heap Dijkstra on a 32 x 32 terrain at the main
+        # path's tolerance, its default 3e-7): read there, gated at the
+        # reference solve's default tolerance
+        if name in TOLERANCE_READ_ONLY:
+            continue
+        if not (row["converged"] and row["oracle_rel_err"] < ORACLE_GATE
+                and row.get("vs_default", {"within_tol": True})["within_tol"]):
+            raise AssertionError(f"solve_modes: exact mode {name} failed its gates: {row}")
+        res = None
+    out["exact_modes"] = {"lanes": batch, "converge": "round", "modes": exact,
+                          "read_not_gated": list(TOLERANCE_READ_ONLY)}
+
+    # 3. four_dir on the irregular plan
+    iplan = ictx["kplan"]
+    t0 = time.perf_counter()
+    plan_t = bg.transpose_banded_plan(iplan)
+    sync(device)
+    t_transpose_plan = time.perf_counter() - t0
+    irng = np.random.default_rng(SEED + 15)
+    igv = torch.from_numpy(irng.integers(0, iplan.num_vertices, batch)).to(device)
+    isv = torch.from_numpy(irng.integers(0, iplan.num_vertices, batch)).to(device)
+    four = {"plan_t": {"n_rows": plan_t.n_rows, "n_cols": plan_t.n_cols,
+                       "n_cols_pad": plan_t.n_cols_pad, "build_s": t_transpose_plan,
+                       "xlanes_down": [list(x) for x in plan_t.xlanes_down],
+                       "xlanes_up": [list(x) for x in plan_t.xlanes_up],
+                       "dropped": [list(x) for x in plan_t.xlanes_dropped]},
+            "lanes": batch, "atol": IRREGULAR_ATOL, "rtol": IRREGULAR_RTOL}
+    native_irr = native_fields(ictx["v"], ictx["f"], ictx["costs_np"], igv[:2].cpu().numpy())
+    for name, kw in (("two_dir", {}), ("four_dir", {"four_dir": True, "plan_t": plan_t})):
+        timer = StageTimer(device)
+        t0 = time.perf_counter()
+        res = bg.banded_solve_padded(iplan, igv, max_rounds=256, atol=IRREGULAR_ATOL,
+                                     rtol=IRREGULAR_RTOL, timer=timer, **kw)
+        sync(device)
+        row = {"rounds": res.rounds, "converged": bool(res.converged),
+               "ms": (time.perf_counter() - t0) * 1e3, "stage_ms": timer.totals()}
+        row["oracle_rel_err"] = oracle_reading(native_irr, _field_lanes(iplan, res.d_pad, [0, 1]),
+                                               isv[:2].cpu().numpy())
+        four[name] = row
+        if not (row["converged"] and row["oracle_rel_err"] < ORACLE_GATE):
+            raise AssertionError(f"solve_modes: {name} failed its gates: {row}")
+        res = None
+    out["four_dir"] = four
+
+    # 4. the structured tier in bf16
+    W = sweeps.slot_weights_np(mesh, costs_np, cost_limit=2.0, edge_cost_factor=1.0)
+    t0 = time.perf_counter()
+    oplan = planner.prepare_offset_plan(W)
+    sync(device)
+    oplan_s = time.perf_counter() - t0
+    Wt = torch.from_numpy(W).to(device)
+    srng = np.random.default_rng(SEED + 16)
+    sgv = [torch.from_numpy(srng.integers(0, mesh.num_vertices, batch)).to(device)
+           for _ in range(2)]
+    runs = []
+    timer = StageTimer(device)
+    for i, goals in enumerate(sgv):
+        t0 = time.perf_counter()
+        fres = st.batched_field_structured(mesh, Wt, oplan, goals, dtype=bf16,
+                                           max_sweeps=planner.config.max_sweeps,
+                                           block_sweeps=max(planner.config.block_sweeps, 16),
+                                           timer=timer if i else None)
+        sync(device)
+        runs.append({"sweeps": fres.sweeps, "converged": bool(fres.converged),
+                     "ms": (time.perf_counter() - t0) * 1e3})
+        if i == 0:
+            s_err = oracle_reading(native_fields(v, f, costs_np, sgv[0][:2].cpu().numpy()),
+                                   fres.dist[:2].cpu().numpy(), sgv[0][2:4].cpu().numpy())
+        fres = None
+    if not all(r["converged"] for r in runs):
+        raise AssertionError(f"solve_modes: a bf16 structured solve did not converge: {runs}")
+    out["structured_bf16"] = {
+        "lanes": batch, "offset_plan_s": oplan_s, "runs": runs,
+        "solves_per_s": batch / (runs[-1]["ms"] / 1e3), "stage_ms": timer.totals(),
+        "f32_solves_per_s": sp.get("solves_per_s"), "f32_sweeps": sp.get("solves"),
+        "oracle_rel_err": s_err, "note": BF16_NOTE.replace("bf16 distance fields are",
+                                                         "bf16 structured fields are")}
+    launches = {k: kernels.LAUNCHES[k] for k in SOLVE_MODES_KERNELS}
+    out["launches"] = launches
+    if cuda:
+        for k in ("banded_pass_bf16", "banded_pass_partial", "banded_pass_defer",
+                  "banded_pass_noskip", "class_pred_bf16", "fused_sweep_bf16"):
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel mode {k} was not launched in solve_modes")
+
+    # 5. each new kernel mode against its plain version, timed against its bound
+    def want(kw, d):
+        if kw.get("defer"):
+            return "defer"
+        if not kw.get("skip", True):
+            return "noskip"
+        if kw.get("scan_steps"):
+            return "partial"
+        if d.dtype == bf16:
+            return "bf16_dirty" if kw.get("dirty") is not None else "bf16_main"
+        return None
+
+    # the probes' solves run at most PROBE_ROUNDS rounds: a launch's time
+    # does not depend on how many follow it
+    probes = {}
+    gvm = query.nearest_vertex_batch(mesh, planner.grid, torch.from_numpy(g).to(device))[0]
+    order, _ = bg.group_lanes(gvm, mesh.num_vertices)
+    with PassProbe(device, want) as pr:
+        bg.banded_solve_padded(kplan, gvm[order], max_rounds=PROBE_ROUNDS, atol=ATOL, rtol=RTOL,
+                               dtype=bf16)
+    probes["bf16_main"] = pr
+    with PassProbe(device, want) as pr:
+        bg.banded_solve_padded(iplan, igv, max_rounds=PROBE_ROUNDS, atol=IRREGULAR_ATOL,
+                               rtol=IRREGULAR_RTOL, dtype=bf16)
+    probes["bf16_dirty"] = pr
+    for name, kw in (("partial", {"scan_steps": SOLVE_MODES_STEPS}),
+                     ("defer", {"scan_dirs": "up"}), ("noskip", {"skip_rows": False})):
+        with PassProbe(device, want) as pr:
+            bg.banded_solve_padded(kplan, gv, max_rounds=PROBE_ROUNDS, atol=ATOL, rtol=RTOL,
+                                   converge="round", **kw)
+        probes[name] = pr
+    in_columns = [False]
+    col_passes = bg._column_passes
+
+    def marked(*a, **kw):
+        in_columns[0] = True
+        try:
+            return col_passes(*a, **kw)
+        finally:
+            in_columns[0] = False
+
+    bg._column_passes = marked
+    try:
+        with PassProbe(device, lambda kw, d: "transposed" if in_columns[0] else None) as pr:
+            bg.banded_solve_padded(iplan, igv, max_rounds=PROBE_ROUNDS, atol=IRREGULAR_ATOL,
+                                   rtol=IRREGULAR_RTOL, four_dir=True, plan_t=plan_t)
+    finally:
+        bg._column_passes = col_passes
+    probes["transposed"] = pr
+    pass_modes = {}
+    for name, pr in probes.items():
+        summ = pr.summary()
+        if name not in pr.slabs:
+            raise AssertionError(f"solve_modes: no {name} pass launch to hold against plain")
+        pass_modes[name] = dict(summ, slab=pr.slabs[name])
+    detail["pass_modes"] = pass_modes
+
+    d = fields.pop("bf16")
+    Rp, Cp, Bp = d.shape
+    N = Rp * Cp * Bp
+    V = kplan.num_vertices
+    with uncounted():
+        pred = check_pred_pair(kplan, d, max(ATOL, bg.BF16_ATOL), max(RTOL, bg.BF16_RTOL),
+                               tol=1e-2)
+        w8 = bg._w8_planes(kplan, Rp)
+        kw = dict(R=kplan.n_rows, C=kplan.n_cols, V=V, tol=1e-2)
+        pk = dict(kw, check=(bg.BF16_ATOL, bg.BF16_RTOL))
+        ik = dict(kw, as_class=False)
+        time_ms(lambda: bg.class_pred(d, w8, **pk), device)                    # warm
+        pred_ms = time_ms(lambda: bg.class_pred(d, w8, **pk), device, reps=5)
+        ids_ms = time_ms(lambda: bg.class_pred(d, w8, **ik), device, reps=5)
+        pred_plain_ms = time_ms(lambda: bg.class_pred_plain(d, w8, **pk), device)
+        chk = check_flag_pair(d, w8, bg.BF16_ATOL, bg.BF16_RTOL)
+        time_ms(lambda: bg.check(d, w8, atol=bg.BF16_ATOL, rtol=bg.BF16_RTOL), device)
+        check_ms = time_ms(lambda: bg.check(d, w8, atol=bg.BF16_ATOL, rtol=bg.BF16_RTOL),
+                           device, reps=5)
+        check_plain_ms = time_ms(lambda: bg.check_plain(d, w8, atol=bg.BF16_ATOL,
+                                                        rtol=bg.BF16_RTOL), device)
+    pred_bound = max((N * 2 + V * Bp + 8 * Rp * Cp * 4) / HBM_BYTES_PER_S,
+                     PRED_OPS * N / F32_OPS_PER_S) * 1e3
+    ids_bound = max((N * 2 + V * Bp * 4 + 8 * Rp * Cp * 4) / HBM_BYTES_PER_S,
+                    PRED_OPS * N / F32_OPS_PER_S) * 1e3
+    check_bound = max((N * 2 + 8 * Rp * Cp * 4) / HBM_BYTES_PER_S,
+                      CHECK_OPS * N / F32_OPS_PER_S) * 1e3
+    detail["class_pred_bf16"] = {"field": [Rp, Cp, Bp], "pair": pred, "ms": pred_ms,
+                                 "ids_ms": ids_ms, "plain_ms": pred_plain_ms,
+                                 "bound_ms": pred_bound, "ids_bound_ms": ids_bound}
+    detail["check_bf16"] = {"pair": chk, "ms": check_ms, "plain_ms": check_plain_ms,
+                            "bound_ms": check_bound}
+    del d
+
+    tile = st.default_tile(oplan)
+    n_inner = st.default_n_inner(oplan, tile)
+    K = len(oplan.offsets)
+    Vp = -(-V // tile) * tile
+    planes = torch.full((K, Vp), np.inf, dtype=bf16, device=device)
+    planes[:, :V] = oplan.planes.to(bf16)
+    with uncounted():
+        dm = st.seeded_padded(V, sgv[0], tile, bf16)
+        spare = torch.empty_like(dm)
+        for _ in range(STRUCTURED_WAVE_SWEEPS):
+            dm, spare = sg.fused_sweep(dm, planes, oplan.offsets, tile=tile, n_inner=n_inner,
+                                       out=spare), dm
+        sweep_cmp = sweep_pair(dm, planes, oplan.offsets, tile, n_inner)
+        run = lambda: sg.fused_sweep(dm, planes, oplan.offsets, tile=tile,   # noqa: E731
+                                     n_inner=n_inner, out=spare)
+        time_ms(run, device)                                                  # warm
+        sweep_ms = time_ms(run, device, reps=10)
+        sweep_plain_ms = time_ms(lambda: sg._fused_sweep_plain(dm, planes, oplan.offsets, tile,
+                                                               n_inner), device)
+    sweep_bound = max((2 * (Vp + 2 * tile) * batch + K * Vp) * 2 / HBM_BYTES_PER_S,
+                      n_inner * K * 2 * Vp * batch / F32_OPS_PER_S) * 1e3
+    detail["fused_sweep_bf16"] = {"matrix": list(dm.shape), "tile": tile, "n_inner": n_inner,
+                                  "pair": sweep_cmp, "ms": sweep_ms, "plain_ms": sweep_plain_ms,
+                                  "bound_ms": sweep_bound}
+    del dm, spare, planes
+    out["kernel_modes"] = {k: {kk: vv for kk, vv in val.items() if kk != "slab"}
+                           for k, val in pass_modes.items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    entries = {
+        "banded_pass": {name: {k: pm[k] for k in ("ms", "bound_ms", "max_abs_err")}
+                        | {"probe_launches": pm["launches"], "plain_ms": pm["slab"]["plain_ms"],
+                           "plain_shape": pm["slab"]["shape"]}
+                        for name, pm in pass_modes.items()},
+        "class_pred": {"bf16": {"ms": pred_ms, "ids_ms": ids_ms, "bound_ms": pred_bound,
+                                "ids_bound_ms": ids_bound, "plain_ms": pred_plain_ms,
+                                "max_abs_err": float(pred["max_abs_err"])}},
+        "check": {"bf16": {"ms": check_ms, "bound_ms": check_bound, "plain_ms": check_plain_ms,
+                           "max_abs_err": float(chk["abs_err"])}},
+        "fused_sweep": {"bf16": {"ms": sweep_ms, "bound_ms": sweep_bound,
+                                 "plain_ms": sweep_plain_ms,
+                                 "max_abs_err": sweep_cmp["max_abs_err"]}},
+    }
+    for name, e in entries.items():
+        e["launches"] = {k: launches[k] for k in launches if k.startswith(name)}
+    log(f"# solve_modes {out['wall_s']:.1f} s")
+    return out, dict(detail=detail, entries=entries)
+
+
 def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
         eik_small=(40, 36, 16), cvp_batch=CVP_BATCH,
         structured_batch=STRUCTURED_BATCH, full_batch=FULL_BATCH,
@@ -3971,6 +4531,18 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     line[1].update(irregular_launches=ictx["launches"]["class_pred"],
                    irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], ik["pred_max_abs_err"])
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    mo, mctx = solve_modes(device, ctx, grid_kplan, ictx, sp, main_batch=batch)
+    emit(mctx["detail"])
+    emit(mo)
+    for k in line:
+        if k["name"] in mctx["entries"]:
+            k["solve_modes"] = mctx["entries"][k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], *(e["max_abs_err"] for n, e in
+                                                       k["solve_modes"].items()
+                                                       if n != "launches"))
+    del mctx
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     shp, shk = sharded(device, ctx, grid_kplan, ictx, gather_n)

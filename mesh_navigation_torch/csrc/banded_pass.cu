@@ -1,17 +1,26 @@
 // Banded Gauss-Seidel directional pass for Hopper (sm_90a).
 //
 // Replaces: mesh_navigation_tpu/ops/pallas_banded.py::_pass_kernel (:827),
-// launched by _directional_pass_pallas (:1061), with full scan depth, no
-// residual edges and skip=True, in three modes:
+// launched by _directional_pass_pallas (:1061), in every configuration the
+// reference's solve runs:
 // - the main path: no dirty table, `force` on the first down pass of a solve;
 // - DIRTY (use_dirty, :1003-1036): the per-(8-lane block, row) table of rows
-//   whose last scan still improved, used by the warm resolve;
-// - CUT (warm_cut, :864-878), only with DIRTY: the first down pass of a warm
-//   resolve applies the raise-invalidation cut and the seed re-insertion;
+//   whose last scan still improved, used by the warm resolve, partial depth,
+//   residual plans, four_dir and the deferring pass;
+// - CUT (warm_cut, :864-878): the first down pass of a warm resolve applies
+//   the raise-invalidation cut and the seed re-insertion;
 // - XL, with or without DIRTY: the extended lanes of irregular plans
-//   (xlanes, :887-896).
+//   (xlanes, :887-896);
+// - the storage type T of the field, f32 or bf16 (dtype, :867-869): loads
+//   widen to f32, everything is computed in f32, stores round to
+//   nearest-even (__float2bfloat16_rn); the carried rows stay f32;
+// - the row mode: SKIP (skip=True, :995-1040), DEFER (scan_dirs="up", the
+//   scan-deferring down pass, :969-994) or NOSKIP (skip=False, :1041-1048);
+// - the scan depth: the exact block scan (full depth), or `nsteps` doubling
+//   steps a direction on the plan's chain-weight levels (partial depth,
+//   scan_steps, :979-989).
 //
-// What it computes. One pass over every row of the field d[Rp, Cp, Bp] (f32,
+// What it computes. One pass over every row of the field d[Rp, Cp, Bp] (T,
 // lanes contiguous), down (r = 0..Rp-1) or up (reverse). For each row:
 //   cand = min over s in {-1,0,+1} of prev[c+s] + cross[r, s+1, c]
 //   row0 = min(cur, cand)
@@ -19,8 +28,17 @@
 //   need = imp | (force & any(row0 < inf))
 //   need: row = lateral min-plus closure of row0 (forward, then backward)
 //   else: row = cur (left in place)
-// and the row as written is the carry `prev` of the next row. `changed` is
+// and the row as stored is the carry `prev` of the next row. `changed` is
 // the OR of `imp` over all rows and blocks.
+// Partial depth: the lateral closure is replaced by nsteps forward steps
+// row[c] = min(row[c], row[c - 2^s] + a_fwd[r, s, c]), each on the row the
+// step before left, then the same backward with a_bwd on the forward-updated
+// row; with DIRTY a row whose scan still improved stays dirty.
+// DEFER (needs DIRTY): no scan; need = imp | (force & any finite), the row
+// writes need ? row0 : cur and dirty[j, row] = max(dirty[j, row], need).
+// NOSKIP (no DIRTY): every row is scanned from row0 and written, `changed`
+// is the OR of scanned*(1+rtol)+atol < cur, and the carry is the scanned row
+// before it is rounded to T (:1048).
 // DIRTY: need |= dirty[j, row]; a needed row scans base = row0 and writes
 // the scan, simp = any over the block of scanned*(1+rtol)+atol < base, sets
 // dirty[j, row] = simp and changed |= simp; a row that is not needed sets
@@ -43,7 +61,8 @@
 //
 // What bounds it on this card. The field is read once and the rows the pass
 // changes written once: at the main path's 1024 x 1024 x 1024 f32 field that
-// is 4.3 GB to read, about 1.3 ms at 3.35 TB/s, plus the writes. The
+// is 4.3 GB to read, about 1.3 ms at 3.35 TB/s, plus the writes (half of it
+// in bf16). The
 // arithmetic (a few adds and mins per element plus the scan) is far below
 // the f32 rate, so the pass is bound by bytes; what holds it back is the
 // row-after-row chain inside each block (one block per 8 lanes, 16 blocks
@@ -93,12 +112,17 @@
 //   version (directional_pass_plain) sums in this kernel's order, so the
 //   two agree bit for bit: the warm resolve's dirty flags sit at the
 //   tolerance edge by construction, and any other order flips some of them.
+// - Partial depth exchanges the row through one more row of shared memory
+//   (the carried rows' layout), two barriers a step: each step reads the
+//   row the step before published, as the reference's shifted slabs do.
+//   Its levels of a_fwd / a_bwd are read from device memory (L2).
 // - Rows by the Tensor Memory Accelerator: a row of a block touches one
-//   32-byte sector in every column, and moved by the threads those
+//   32-byte sector in every column (16 bytes in bf16), and moved by the threads those
 //   scattered sectors keep the load/store unit busy for most of a row. So
 //   thread 0 moves rows through three shared-memory stages by TMA (a 3-D
 //   tensor map over the field, boxes of 8 lanes x 256 columns, the 32-byte
-//   swizzle) and the row's cross and lateral weights by bulk copies, all
+//   swizzle in f32; in bf16 a box row is 16 bytes, unswizzled, and a stage's
+//   field part half the bytes) and the row's cross and lateral weights by bulk copies, all
 //   counted on the stage's barrier: the next row loads while this one is
 //   processed, and a written row goes back from its stage by a TMA store
 //   at the top of the next row (the third stage lets that store drain
@@ -117,6 +141,7 @@
 #undef NDEBUG
 #include <assert.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -126,13 +151,21 @@
 #define MAX_THREADS 512
 #define MAX_WARPS (MAX_THREADS / 32)
 #define MAX_COLS 4096
-#define MAX_COLS_X2 3584   // with a second carried row (checked below)
+#define MAX_COLS_X2 3584   // with a second row in shared memory (checked below)
+#define MAX_COLS_X3 2304   // with a third (checked below)
 #define MAX_SMEM 232448
 #define PRESCAN_THREADS 256
 #define MAX_XLANES 24      // extended lanes a pass (the plan finds at most 21)
 #define MAX_XDC 4          // |dc| of an extended lane: the prescan's halo
 
+// row modes (ops/banded_gpu.py PASS_MODE_*)
+#define MODE_SKIP 0
+#define MODE_DEFER 1
+#define MODE_NOSKIP 2
+
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 // the extended lanes of a pass: (sel, dc) each, and their weights [Rp, n, Cp]
 struct XLanes {
@@ -141,16 +174,41 @@ struct XLanes {
   signed char sel[MAX_XLANES], dc[MAX_XLANES];
 };
 
-__device__ __forceinline__ void load8(const float* p, float (&v)[LANES]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
+// --- the field's storage type: 4 lanes widened to f32, or rounded from it ---
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  // a bf16 is the top half of its f32: widening is exact
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                                            bf16_bits(v.z) | (bf16_bits(v.w) << 16));
+}
+// x as T stores it, widened back
+template <typename T> __device__ __forceinline__ float stored(float x) { return x; }
+template <> __device__ __forceinline__ float stored<bf16>(float x) {
+  return __uint_as_float(bf16_bits(x) << 16);
+}
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[LANES]) {
+  const float4 a = ld4(p), b = ld4(p + 4);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[LANES]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[LANES]) {
+  st4(p, make_float4(v[0], v[1], v[2], v[3]));
+  st4(p + 4, make_float4(v[4], v[5], v[6], v[7]));
 }
 
 // --- the Tensor Memory Accelerator and its barriers (PTX) ---
@@ -206,10 +264,25 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
-// the 32-byte swizzle of the tensor map: bit 4 of a byte offset from an
+// the 32-byte swizzle of the f32 tensor map: bit 4 of a byte offset from an
 // aligned base XOR its bit 7 (a wider swizzle pads each 32-byte box row to
 // its span, which a probe on the card showed)
 __device__ __forceinline__ unsigned swz(unsigned off) { return off ^ (((off >> 7) & 1u) << 4); }
+
+// lanes 4h..4h+3 of column c of a staged row: f32 rows of 32 bytes under the
+// 32-byte swizzle; bf16 rows of 16 bytes, unswizzled
+__device__ __forceinline__ float4 ld_stage(const float*, const char* base, int c, int h) {
+  return *reinterpret_cast<const float4*>(base + swz(c * 32 + 16 * h));
+}
+__device__ __forceinline__ float4 ld_stage(const bf16*, const char* base, int c, int h) {
+  return ld4(reinterpret_cast<const bf16*>(base + c * 16 + 8 * h));
+}
+__device__ __forceinline__ void st_stage(const float*, char* base, int c, int h, float4 v) {
+  *reinterpret_cast<float4*>(base + swz(c * 32 + 16 * h)) = v;
+}
+__device__ __forceinline__ void st_stage(const bf16*, char* base, int c, int h, float4 v) {
+  st4(reinterpret_cast<bf16*>(base + c * 16 + 8 * h), v);
+}
 
 __device__ __forceinline__ bool below(float x, float cur, float k_rtol, float atol) {
   return __fadd_rn(__fmul_rn(x, k_rtol), atol) < cur;
@@ -239,24 +312,25 @@ __device__ __forceinline__ bool cut8(float (&v)[LANES], float lb, const float* t
 // memory (float4 halves, columns shifted by the halo), so the field is read
 // about once. XL keeps four rows in a ring (the row, the two before it, and
 // the next row's slot, so one barrier a row suffices) with MAX_XDC halo
-// columns each side.
-template <bool CUT, bool XL>
+// columns each side. A dirty row is needed too, except in DEFER, whose need
+// does not read the table.
+template <typename T, bool CUT, bool XL>
 __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
-    float* __restrict__ d, const float* __restrict__ cross, const int* __restrict__ dirty,
+    T* __restrict__ d, const float* __restrict__ cross, const int* __restrict__ dirty,
     unsigned* __restrict__ need_bits, const float* __restrict__ cutlb,
     const float* __restrict__ cutth, const int* __restrict__ seedrc,
     const __grid_constant__ XLanes xl,
-    int Rp, int Cp, int Bp, int reverse, int force, float k_rtol, float atol) {
-  constexpr int T = PRESCAN_THREADS;
+    int Rp, int Cp, int Bp, int reverse, int force, int dirty_need, float k_rtol, float atol) {
+  constexpr int TH = PRESCAN_THREADS;
   constexpr int H = XL ? MAX_XDC : 1;   // halo columns each side
   constexpr int NBUF = XL ? 4 : 2;
-  constexpr int W = T + 2 * H;
+  constexpr int W = TH + 2 * H;
   __shared__ float4 rowbuf[NBUF][2][W];
   __shared__ float s_th[LANES];
   __shared__ int s_sr[LANES], s_sc[LANES];
   __shared__ unsigned s_word;
   const int nb = Bp / LANES;
-  const int nq = (Cp + T - 1) / T;
+  const int nq = (Cp + TH - 1) / TH;
   const int nwords = (Rp + 31) >> 5;
   long long bid = blockIdx.x;
   const int q = (int)(bid % nq);
@@ -264,7 +338,7 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
   const int j = (int)(bid % nb);
   const int w = (int)(bid / nb);
   const int tid = threadIdx.x;
-  const int c = q * T + tid;
+  const int c = q * TH + tid;
   const int k = tid + H;   // this thread's column in a row buffer
   const long long b0 = (long long)j * LANES;
   const long long rs = (long long)Cp * Bp;
@@ -295,12 +369,12 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
   auto halo = [&](int buf, int rr) {
     float v[LANES];
     if (tid < H) {
-      col(rr, q * T - H + tid, v);
+      col(rr, q * TH - H + tid, v);
       put(buf, tid, v);
-    } else if (tid >= T - H) {
-      const int e = tid - (T - H);
-      col(rr, q * T + T + e, v);
-      put(buf, T + H + e, v);
+    } else if (tid >= TH - H) {
+      const int e = tid - (TH - H);
+      col(rr, q * TH + TH + e, v);
+      put(buf, TH + H + e, v);
     }
   };
   // cand from the carried row in buffer b1 (columns k-1, k, k+1)
@@ -394,7 +468,7 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
   }
   if (tid == 0) {
     unsigned word = s_word;
-    if (q == 0)
+    if (q == 0 && dirty_need)
       for (int rr = lo_row; rr < hi_row; ++rr)
         if (dirty[(long long)j * Rp + rr] > 0) word |= 1u << (rr & 31);
     if (word) atomicOr(need_bits + (long long)j * nwords + w, word);
@@ -430,7 +504,7 @@ __device__ int next_needed(const unsigned* bits, int from, int Rp, bool rev) {
 // ---------------------------------------------------------------------------
 
 struct Args {
-  float* d;
+  void* d;
   const float* cross;
   const float* af;
   long long af_rs;
@@ -445,41 +519,51 @@ struct Args {
   float k_rtol, atol;
   XLanes xl;
   int x2;              // a sel-2 lane: two carried rows
+  int mode;            // MODE_SKIP, MODE_DEFER or MODE_NOSKIP
+  int nsteps;          // 0: the exact block scan; else partial depth
 };
 
 #define N_SLOTS 3   // row stages: being read, being loaded, being stored
 
-// shared-memory layout (floats) beside the carried row
+// shared-memory layout (floats) beside the rows
 #define TOT_FLOATS (2 * MAX_WARPS * (1 + LANES))
 
-// floats before the stage: the `ncarry` carried rows of `cols` (threads x
-// CPT) columns, the warp totals and flags, the slots' barriers; then up to
-// 1,024 bytes to align the stage
-__host__ __device__ constexpr long long stage_offset(int cols, int ncarry) {
-  return ((long long)cols * LANES * ncarry + TOT_FLOATS + MAX_WARPS + 4 + 2 * N_SLOTS + 2 + 3) &
+// floats before the stage: `nrows` rows of `cols` (threads x CPT) columns
+// (the carried rows and the partial-depth exchange row), the warp totals and
+// flags, the slots' barriers; then up to 1,024 bytes to align the stage
+__host__ __device__ constexpr long long stage_offset(int cols, int nrows) {
+  return ((long long)cols * LANES * nrows + TOT_FLOATS + MAX_WARPS + 4 + 2 * N_SLOTS + 2 + 3) &
          ~3LL;
 }
-// two carried rows of MAX_COLS_X2 columns fit (8 columns a thread, so a
-// multiple of 256), one more step of 256 does not
+// two rows of MAX_COLS_X2 columns fit (8 columns a thread, so a multiple of
+// 256), one more step of 256 does not; the same for three of MAX_COLS_X3
 static_assert(stage_offset(MAX_COLS_X2, 2) * 4 <= MAX_SMEM &&
                   stage_offset(MAX_COLS_X2 + 256, 2) * 4 > MAX_SMEM,
-              "MAX_COLS_X2 is the widest row whose two carried rows fit");
+              "MAX_COLS_X2 is the widest row of which two fit");
+static_assert(stage_offset(MAX_COLS_X3, 3) * 4 <= MAX_SMEM &&
+                  stage_offset(MAX_COLS_X3 + 256, 3) * 4 > MAX_SMEM,
+              "MAX_COLS_X3 is the widest row of which three fit");
 
-// per slot: the field's row as its TMA boxes land ([n_boxes * boxc][LANES],
-// swizzled), then the tables as they lie in memory (cross [3][Cp], a_fwd,
-// a_bwd [Cp]): with at most 4 columns a thread, thread t's columns are one
-// vector of each; a multiple of 1,024 bytes
-__host__ __device__ __forceinline__ long long slot_floats(int Cp, int n_boxes, int boxc) {
-  return ((long long)n_boxes * boxc * LANES + 5LL * Cp + 255) & ~255LL;
+// per slot: the field's row as its TMA boxes land ([n_boxes * boxc][LANES]
+// of `esize` bytes, swizzled in f32), then the tables as they lie in memory
+// (cross [3][Cp], a_fwd, a_bwd [Cp]): with at most 4 columns a thread,
+// thread t's columns are one vector of each; a multiple of 1,024 bytes
+__host__ __device__ __forceinline__ long long row_floats(int n_boxes, int boxc, int esize) {
+  return (long long)n_boxes * boxc * LANES * esize / 4;
+}
+__host__ __device__ __forceinline__ long long slot_floats(int Cp, int n_boxes, int boxc,
+                                                          int esize) {
+  return (row_floats(n_boxes, boxc, esize) + 5LL * Cp + 255) & ~255LL;
 }
 
-template <bool DIRTY, int CPT, bool XL>
+template <typename T, bool DIRTY, int CPT, bool XL>
 __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
     const __grid_constant__ Args g, const __grid_constant__ CUtensorMap tmap) {
   constexpr int TV = CPT >= 4 ? 4 : CPT;   // floats a thread reads of a table row
+  const T* const tag = nullptr;            // selects the stage layout of T
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* const d = g.d;
+  T* const d = reinterpret_cast<T*>(g.d);
   const float* const cross = g.cross;
   const float* const af = g.af;
   const float* const ab = g.ab;
@@ -487,6 +571,10 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
   const int Rp = g.Rp, Cp = g.Cp, Bp = g.Bp;
   const bool staged = g.staged != 0;
   const float k_rtol = g.k_rtol, atol = g.atol;
+  const int mode = g.mode, nsteps = g.nsteps;
+  // the exact block scan starts before the block knows `need`; partial
+  // depth and DEFER leave row0 in place until then
+  const bool exact = nsteps == 0 && mode != MODE_DEFER;
   const int NT = blockDim.x;
   const int nw = NT >> 5;
   const int tid = threadIdx.x;
@@ -496,22 +584,25 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
   // 4h..4h+3 at (2i + h) NT + t, so a warp's accesses are consecutive. With a
   // sel-2 lane a second one follows: the two are a ring, prev4 the row
   // before, prev2_4 the one before it; a row is written over prev2_4 and the
-  // two swap at the row's end.
+  // two swap at the row's end. Partial depth's exchange row follows them.
   const bool two_rows = XL && g.x2 != 0;
   const int ncarry = two_rows ? 2 : 1;
+  const int nrows = ncarry + (nsteps > 0 ? 1 : 0);
   float4* prev4 = smem4;
   float4* prev2_4 = smem4 + 2 * CPT * NT;
-  float* tot = smem + (long long)NT * CPT * LANES * ncarry;   // [2][MAX_WARPS][1 + LANES]
+  float4* const xb4 = smem4 + 2 * CPT * NT * ncarry;
+  float* tot = smem + (long long)NT * CPT * LANES * nrows;   // [2][MAX_WARPS][1 + LANES]
   int* wflag = reinterpret_cast<int*>(tot + TOT_FLOATS);   // [MAX_WARPS]
   int* sflag = wflag + MAX_WARPS;                          // [N_SLOTS] staged dirty flags
   uint64_t* mbar = reinterpret_cast<uint64_t*>(
       (reinterpret_cast<uintptr_t>(sflag + 4) + 7) & ~uintptr_t(7));   // [N_SLOTS]
   float* stage = reinterpret_cast<float*>(
-      (reinterpret_cast<uintptr_t>(smem + stage_offset(NT * CPT, ncarry)) + 1023) &
+      (reinterpret_cast<uintptr_t>(smem + stage_offset(NT * CPT, nrows)) + 1023) &
       ~uintptr_t(1023));
   const int boxc = g.boxc, n_boxes = g.n_boxes;
-  const long long slot_f = slot_floats(Cp, n_boxes, boxc);
-  const long long d_floats = (long long)n_boxes * boxc * LANES;   // the d part of a slot
+  const long long slot_f = slot_floats(Cp, n_boxes, boxc, (int)sizeof(T));
+  const long long d_floats = row_floats(n_boxes, boxc, (int)sizeof(T));   // the d part of a slot
+  const long long box_f = row_floats(1, boxc, (int)sizeof(T));
 
   const int c0 = tid * CPT;
   const bool thr_ok = c0 < Cp;          // Cp % CPT == 0: all or none of the columns
@@ -524,15 +615,11 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
   const unsigned* bits = DIRTY ? g.need_bits + (long long)j * ((Rp + 31) >> 5) : nullptr;
   const float4 inf4 = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
 
-  // pointers of row r's data for this thread: staged or in device memory
-  auto cur_ptr = [&](int r, int slot) -> float* {
-    return staged ? stage + slot * slot_f : d + r * rs + (long long)c0 * Bp + b0;
-  };
-  // cur value of column i, lanes 4h..4h+3
-  auto ld_cur = [&](const float* p, int i, int h) -> float4 {
-    return staged ? *reinterpret_cast<const float4*>(
-                        reinterpret_cast<const char*>(p) + swz((c0 + i) * 32 + 16 * h))
-                  : reinterpret_cast<const float4*>(p + (long long)i * Bp)[h];
+  // cur value of column c0 + i of row r, lanes 4h..4h+3: staged or in
+  // device memory
+  auto ld_cur = [&](int r, int slot, int i, int h) -> float4 {
+    return staged ? ld_stage(tag, reinterpret_cast<const char*>(stage + slot * slot_f), c0 + i, h)
+                  : ld4(d + r * rs + (long long)(c0 + i) * Bp + b0 + 4 * h);
   };
   // table s (0..2 cross, 3 a_fwd, 4 a_bwd) of row r from column c
   auto tab_src = [&](int s, int r, int c) -> const float* {
@@ -561,7 +648,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
     float* base = stage + slot * slot_f;
     mbar_expect_tx(mbar + slot, (unsigned)((d_floats + 5LL * Cp) * 4));
     for (int k = 0; k < n_boxes; ++k)
-      tma_load(base + (long long)k * boxc * LANES, &tmap, (int)b0, k * boxc, r, mbar + slot);
+      tma_load(base + k * box_f, &tmap, (int)b0, k * boxc, r, mbar + slot);
     bulk_load(base + d_floats, cross + (long long)r * 3 * Cp, 12u * Cp, mbar + slot);
     bulk_load(base + d_floats + 3LL * Cp, af + r * af_rs, 4u * Cp, mbar + slot);
     bulk_load(base + d_floats + 4LL * Cp, ab + r * ab_rs, 4u * Cp, mbar + slot);
@@ -604,10 +691,9 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         if (sel != 0)
           X = p4[(2 * ii + h) * NT + t];
         else if (staged)
-          X = *reinterpret_cast<const float4*>(reinterpret_cast<const char*>(srow) +
-                                               swz(cs * 32 + 16 * h));
+          X = ld_stage(tag, reinterpret_cast<const char*>(srow), cs, h);
         else
-          X = reinterpret_cast<const float4*>(d + r * rs + (long long)cs * Bp + b0)[h];
+          X = ld4(d + r * rs + (long long)cs * Bp + b0 + 4 * h);
         cd[4 * h + 0] = fminf(cd[4 * h + 0], X.x + wx);
         cd[4 * h + 1] = fminf(cd[4 * h + 1], X.y + wx);
         cd[4 * h + 2] = fminf(cd[4 * h + 2], X.z + wx);
@@ -644,6 +730,42 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       p4[(2 * i + 1) * NT + tid] = make_float4(v[4], v[5], v[6], v[7]);
     }
   };
+  // partial depth: `nsteps` doubling steps a direction on the chain-weight
+  // levels of row r, each on the row the step before published
+  auto doubling_scan = [&](int r, float (&v)[CPT][LANES]) {
+    for (int dir = 0; dir < 2; ++dir) {
+      const float* a = dir == 0 ? af + r * af_rs : ab + r * ab_rs;
+      for (int s = 0; s < nsteps; ++s) {
+        if (thr_ok) {
+          #pragma unroll
+          for (int i = 0; i < CPT; ++i) {
+            xb4[(2 * i) * NT + tid] = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+            xb4[(2 * i + 1) * NT + tid] = make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
+          }
+        }
+        __syncthreads();
+        const int k = dir == 0 ? -(1 << s) : (1 << s);
+        if (thr_ok) {
+          #pragma unroll
+          for (int i = 0; i < CPT; ++i) {
+            const int cs = c0 + i + k;
+            if (cs < 0 || cs >= Cp) continue;
+            const float w = __ldg(a + (long long)s * Cp + c0 + i);
+            const int t = cs / CPT, ii = cs - t * CPT;
+            #pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 X = xb4[(2 * ii + h) * NT + t];
+              v[i][4 * h + 0] = fminf(v[i][4 * h + 0], X.x + w);
+              v[i][4 * h + 1] = fminf(v[i][4 * h + 1], X.y + w);
+              v[i][4 * h + 2] = fminf(v[i][4 * h + 2], X.z + w);
+              v[i][4 * h + 3] = fminf(v[i][4 * h + 3], X.w + w);
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+  };
 
   // staged: a written row goes back through its stage slot and leaves by
   // TMA at the top of the next row (thread 0 commits one bulk group a row,
@@ -657,8 +779,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
   auto store_pending = [&]() {   // thread 0
     if (store_row >= 0)
       for (int k = 0; k < n_boxes; ++k)
-        tma_store(&tmap, (int)b0, k * boxc, store_row,
-                  stage + store_slot * slot_f + (long long)k * boxc * LANES);
+        tma_store(&tmap, (int)b0, k * boxc, store_row, stage + store_slot * slot_f + k * box_f);
     bulk_commit();
   };
 
@@ -674,6 +795,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
   bool carried = false;   // DIRTY: walk on (a carried row this pass wrote)
   bool last_need = false; // the row before was needed (two_rows: walk on)
   int changed = 0, n_walked = 0;
+  int t_changed = 0;      // NOSKIP: this thread's scanned columns improved
   float* tf = tot;                         // forward totals
   float* tb = tot + MAX_WARPS * (1 + LANES);   // backward totals
 
@@ -726,7 +848,6 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       }
       wait_slot(slot);
     }
-    const float* cp = cur_ptr(r, slot);
     const float* srow = stage + slot * slot_f;
     ++n_walked;
 
@@ -744,7 +865,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       #pragma unroll
       for (int l = 0; l < LANES; ++l) v[i][l] = CUDART_INF_F;
       if (thr_ok) {
-        const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
+        const float4 ca = ld_cur(r, slot, i, 0), cb = ld_cur(r, slot, i, 1);
         const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
         float cd[LANES];
         cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
@@ -761,142 +882,154 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
     float A[CPT];
     #pragma unroll
     for (int i = 0; i < CPT; ++i) A[i] = 0.f;
-    if (thr_ok) ld_tabs(3, r, slot, A);
-    #pragma unroll
-    for (int i = 1; i < CPT; ++i) {
+    float ta = 0.f, tbv[LANES];
+    if (exact) {
+      if (thr_ok) ld_tabs(3, r, slot, A);
       #pragma unroll
-      for (int l = 0; l < LANES; ++l) v[i][l] = fminf(v[i][l], v[i - 1][l] + A[i]);
-      A[i] = A[i - 1] + A[i];
-    }
-    float ta = A[CPT - 1], tbv[LANES];
-    #pragma unroll
-    for (int l = 0; l < LANES; ++l) tbv[l] = v[CPT - 1][l];
-    #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float ao = __shfl_up_sync(FULL_MASK, ta, off);
-      #pragma unroll
-      for (int l = 0; l < LANES; ++l) {
-        const float bo = __shfl_up_sync(FULL_MASK, tbv[l], off);
-        if (lane >= off) tbv[l] = fminf(tbv[l], bo + ta);
+      for (int i = 1; i < CPT; ++i) {
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) v[i][l] = fminf(v[i][l], v[i - 1][l] + A[i]);
+        A[i] = A[i - 1] + A[i];
       }
-      if (lane >= off) ta = ao + ta;
+      ta = A[CPT - 1];
+      #pragma unroll
+      for (int l = 0; l < LANES; ++l) tbv[l] = v[CPT - 1][l];
+      #pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float ao = __shfl_up_sync(FULL_MASK, ta, off);
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) {
+          const float bo = __shfl_up_sync(FULL_MASK, tbv[l], off);
+          if (lane >= off) tbv[l] = fminf(tbv[l], bo + ta);
+        }
+        if (lane >= off) ta = ao + ta;
+      }
     }
     const int wbits = __reduce_or_sync(FULL_MASK, bitsf);
     if (lane == 31) {
-      tf[warp * (1 + LANES)] = ta;
-      #pragma unroll
-      for (int l = 0; l < LANES; ++l) tf[warp * (1 + LANES) + 1 + l] = tbv[l];
+      if (exact) {
+        tf[warp * (1 + LANES)] = ta;
+        #pragma unroll
+        for (int l = 0; l < LANES; ++l) tf[warp * (1 + LANES) + 1 + l] = tbv[l];
+      }
       wflag[warp] = wbits;
     }
     __syncthreads();
     int fl = 0;
     for (int w = 0; w < nw; ++w) fl |= wflag[w];
     const int any_imp = fl & 1;
-    const int dflag = DIRTY ? (staged ? sflag[slot] : drow[r]) : 0;
-    const bool need = any_imp || dflag > 0 || (g.force && (fl & 2));
-    changed |= any_imp;
+    const int dflag = DIRTY && mode == MODE_SKIP ? (staged ? sflag[slot] : drow[r]) : 0;
+    const bool need = mode == MODE_NOSKIP || any_imp || dflag > 0 || (g.force && (fl & 2));
+    if (mode != MODE_NOSKIP) changed |= any_imp;
 
     if (need) {
-      // forward: scan of the warp totals (every warp alike) and the fold
-      {
-        float wa = lane < nw ? tf[lane * (1 + LANES)] : 0.f;
-        float wb[LANES];
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l)
-          wb[l] = lane < nw ? tf[lane * (1 + LANES) + 1 + l] : CUDART_INF_F;
-        for (int off = 1; off < nw; off <<= 1) {
-          const float ao = __shfl_up_sync(FULL_MASK, wa, off);
+      if (nsteps > 0) {
+        doubling_scan(r, v);
+      } else if (exact) {
+        // forward: scan of the warp totals (every warp alike) and the fold
+        {
+          float wa = lane < nw ? tf[lane * (1 + LANES)] : 0.f;
+          float wb[LANES];
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l)
+            wb[l] = lane < nw ? tf[lane * (1 + LANES) + 1 + l] : CUDART_INF_F;
+          for (int off = 1; off < nw; off <<= 1) {
+            const float ao = __shfl_up_sync(FULL_MASK, wa, off);
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l) {
+              const float bo = __shfl_up_sync(FULL_MASK, wb[l], off);
+              if (lane >= off) wb[l] = fminf(wb[l], bo + wa);
+            }
+            if (lane >= off) wa = ao + wa;
+          }
+          float P[LANES];   // the previous warps' prefix
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l)
+            P[l] = warp > 0 ? __shfl_sync(FULL_MASK, wb[l], warp - 1) : CUDART_INF_F;
+          float bh[LANES];  // this thread's inclusive value over the block
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) bh[l] = warp > 0 ? fminf(tbv[l], P[l] + ta) : tbv[l];
           #pragma unroll
           for (int l = 0; l < LANES; ++l) {
-            const float bo = __shfl_up_sync(FULL_MASK, wb[l], off);
-            if (lane >= off) wb[l] = fminf(wb[l], bo + wa);
+            const float up = __shfl_up_sync(FULL_MASK, bh[l], 1);
+            const float E = lane > 0 ? up : P[l];
+            #pragma unroll
+            for (int i = 0; i < CPT - 1; ++i) v[i][l] = fminf(v[i][l], E + A[i]);
+            v[CPT - 1][l] = bh[l];
           }
-          if (lane >= off) wa = ao + wa;
         }
-        float P[LANES];   // the previous warps' prefix
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l)
-          P[l] = warp > 0 ? __shfl_sync(FULL_MASK, wb[l], warp - 1) : CUDART_INF_F;
-        float bh[LANES];  // this thread's inclusive value over the block
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l) bh[l] = warp > 0 ? fminf(tbv[l], P[l] + ta) : tbv[l];
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l) {
-          const float up = __shfl_up_sync(FULL_MASK, bh[l], 1);
-          const float E = lane > 0 ? up : P[l];
+        // backward: the same from the right
+        {
           #pragma unroll
-          for (int i = 0; i < CPT - 1; ++i) v[i][l] = fminf(v[i][l], E + A[i]);
-          v[CPT - 1][l] = bh[l];
+          for (int i = 0; i < CPT; ++i) A[i] = 0.f;
+          if (thr_ok) ld_tabs(4, r, slot, A);
+          #pragma unroll
+          for (int i = CPT - 2; i >= 0; --i) {
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l) v[i][l] = fminf(v[i][l], v[i + 1][l] + A[i]);
+            A[i] = A[i + 1] + A[i];
+          }
+          float ba = A[0], bb[LANES];
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) bb[l] = v[0][l];
+          #pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const float ao = __shfl_down_sync(FULL_MASK, ba, off);
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l) {
+              const float bo = __shfl_down_sync(FULL_MASK, bb[l], off);
+              if (lane + off < 32) bb[l] = fminf(bb[l], bo + ba);
+            }
+            if (lane + off < 32) ba = ao + ba;
+          }
+          if (lane == 0) {
+            tb[warp * (1 + LANES)] = ba;
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l) tb[warp * (1 + LANES) + 1 + l] = bb[l];
+          }
+          __syncthreads();
+          float wa = lane < nw ? tb[lane * (1 + LANES)] : 0.f;
+          float wb[LANES];
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l)
+            wb[l] = lane < nw ? tb[lane * (1 + LANES) + 1 + l] : CUDART_INF_F;
+          for (int off = 1; off < nw; off <<= 1) {
+            const float ao = __shfl_down_sync(FULL_MASK, wa, off);
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l) {
+              const float bo = __shfl_down_sync(FULL_MASK, wb[l], off);
+              if (lane + off < 32) wb[l] = fminf(wb[l], bo + wa);
+            }
+            if (lane + off < 32) wa = ao + wa;
+          }
+          float P[LANES];   // the following warps' suffix
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l)
+            P[l] = warp < nw - 1 ? __shfl_sync(FULL_MASK, wb[l], warp + 1) : CUDART_INF_F;
+          float bh[LANES];
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) bh[l] = warp < nw - 1 ? fminf(bb[l], P[l] + ba) : bb[l];
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) {
+            const float dn = __shfl_down_sync(FULL_MASK, bh[l], 1);
+            const float E = lane < 31 ? dn : P[l];
+            #pragma unroll
+            for (int i = 1; i < CPT; ++i) v[i][l] = fminf(v[i][l], E + A[i]);
+            v[0][l] = bh[l];
+          }
         }
       }
-      // backward: the same from the right
-      {
-        #pragma unroll
-        for (int i = 0; i < CPT; ++i) A[i] = 0.f;
-        if (thr_ok) ld_tabs(4, r, slot, A);
-        #pragma unroll
-        for (int i = CPT - 2; i >= 0; --i) {
-          #pragma unroll
-          for (int l = 0; l < LANES; ++l) v[i][l] = fminf(v[i][l], v[i + 1][l] + A[i]);
-          A[i] = A[i + 1] + A[i];
-        }
-        float ba = A[0], bb[LANES];
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l) bb[l] = v[0][l];
-        #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float ao = __shfl_down_sync(FULL_MASK, ba, off);
-          #pragma unroll
-          for (int l = 0; l < LANES; ++l) {
-            const float bo = __shfl_down_sync(FULL_MASK, bb[l], off);
-            if (lane + off < 32) bb[l] = fminf(bb[l], bo + ba);
-          }
-          if (lane + off < 32) ba = ao + ba;
-        }
-        if (lane == 0) {
-          tb[warp * (1 + LANES)] = ba;
-          #pragma unroll
-          for (int l = 0; l < LANES; ++l) tb[warp * (1 + LANES) + 1 + l] = bb[l];
-        }
-        __syncthreads();
-        float wa = lane < nw ? tb[lane * (1 + LANES)] : 0.f;
-        float wb[LANES];
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l)
-          wb[l] = lane < nw ? tb[lane * (1 + LANES) + 1 + l] : CUDART_INF_F;
-        for (int off = 1; off < nw; off <<= 1) {
-          const float ao = __shfl_down_sync(FULL_MASK, wa, off);
-          #pragma unroll
-          for (int l = 0; l < LANES; ++l) {
-            const float bo = __shfl_down_sync(FULL_MASK, wb[l], off);
-            if (lane + off < 32) wb[l] = fminf(wb[l], bo + wa);
-          }
-          if (lane + off < 32) wa = ao + wa;
-        }
-        float P[LANES];   // the following warps' suffix
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l)
-          P[l] = warp < nw - 1 ? __shfl_sync(FULL_MASK, wb[l], warp + 1) : CUDART_INF_F;
-        float bh[LANES];
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l) bh[l] = warp < nw - 1 ? fminf(bb[l], P[l] + ba) : bb[l];
-        #pragma unroll
-        for (int l = 0; l < LANES; ++l) {
-          const float dn = __shfl_down_sync(FULL_MASK, bh[l], 1);
-          const float E = lane < 31 ? dn : P[l];
-          #pragma unroll
-          for (int i = 1; i < CPT; ++i) v[i][l] = fminf(v[i][l], E + A[i]);
-          v[0][l] = bh[l];
-        }
-      }
-      if (DIRTY) {
+      if (DIRTY && mode == MODE_DEFER) {
+        // dirty = max(dirty_in, need): the up pass scans the row
+        if (tid == 0) drow[r] = 1;
+      } else if (DIRTY) {
         // base = row0, recomputed from the row and the carry (both still in
         // place); thread-padding columns are left out
         int simp = 0;
         if (thr_ok) {
           #pragma unroll
           for (int i = 0; i < CPT; ++i) {
-            const float4 ca = ld_cur(cp, i, 0), cb = ld_cur(cp, i, 1);
+            const float4 ca = ld_cur(r, slot, i, 0), cb = ld_cur(r, slot, i, 1);
             const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
             float cd[LANES];
             cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
@@ -913,15 +1046,26 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         char* sd = reinterpret_cast<char*>(stage + slot * slot_f);
         #pragma unroll
         for (int i = 0; i < CPT; ++i) {
-          if (staged) {
-            *reinterpret_cast<float4*>(sd + swz((c0 + i) * 32)) =
-                make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
-            *reinterpret_cast<float4*>(sd + swz((c0 + i) * 32 + 16)) =
-                make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
-          } else {
-            store8(d + r * rs + (long long)(c0 + i) * Bp + b0, v[i]);
+          float vs[LANES];   // the row as T stores it
+          #pragma unroll
+          for (int l = 0; l < LANES; ++l) vs[l] = stored<T>(v[i][l]);
+          if (mode == MODE_NOSKIP) {
+            const float4 ca = ld_cur(r, slot, i, 0), cb = ld_cur(r, slot, i, 1);
+            const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+            #pragma unroll
+            for (int l = 0; l < LANES; ++l) t_changed |= below(v[i][l], cur[l], k_rtol, atol);
           }
-          put_prev(i, v[i]);
+          if (staged) {
+            st_stage(tag, sd, c0 + i, 0, make_float4(vs[0], vs[1], vs[2], vs[3]));
+            st_stage(tag, sd, c0 + i, 1, make_float4(vs[4], vs[5], vs[6], vs[7]));
+          } else {
+            store8(d + r * rs + (long long)(c0 + i) * Bp + b0, vs);
+          }
+          // NOSKIP carries the scanned row before it is rounded (:1048)
+          if (mode == MODE_NOSKIP)
+            put_prev(i, v[i]);
+          else
+            put_prev(i, vs);
         }
       }
       if (staged) {   // the TMA store reads what the threads wrote
@@ -930,13 +1074,13 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         store_slot = slot;
       }
     } else {
-      if (DIRTY && tid == 0) drow[r] = 0;
+      if (DIRTY && mode == MODE_SKIP && tid == 0) drow[r] = 0;
       if (thr_ok) {
         float4* nx4 = two_rows ? prev2_4 : prev4;
         #pragma unroll
         for (int i = 0; i < CPT; ++i) {
-          nx4[(2 * i) * NT + tid] = ld_cur(cp, i, 0);
-          nx4[(2 * i + 1) * NT + tid] = ld_cur(cp, i, 1);
+          nx4[(2 * i) * NT + tid] = ld_cur(r, slot, i, 0);
+          nx4[(2 * i + 1) * NT + tid] = ld_cur(r, slot, i, 1);
         }
       }
     }
@@ -960,6 +1104,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       bulk_wait_all();
     }
   }
+  if (t_changed) atomicOr(g.chg, 1);
   if (tid == 0) {
     if (changed) atomicOr(g.chg, 1);
     if (g.walked != nullptr) atomicAdd(g.walked, n_walked);
@@ -970,12 +1115,12 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
 // reference's flat scan), then 4 (8 warps at 1,024), then 8
 int cols_per_thread(int Cp) { return Cp <= 32 ? 1 : (Cp <= 1024 ? 4 : 8); }
 
-size_t walker_smem(int NT, int CPT, const Args& g) {
-  const int ncarry = g.x2 ? 2 : 1;
-  if (!g.staged) return (size_t)stage_offset(NT * CPT, ncarry) * sizeof(float);
+size_t walker_smem(int NT, int CPT, const Args& g, int esize) {
+  const int nrows = (g.x2 ? 2 : 1) + (g.nsteps > 0 ? 1 : 0);
+  if (!g.staged) return (size_t)stage_offset(NT * CPT, nrows) * sizeof(float);
   // slot_floats, and 1,024 bytes to align the stage
-  const long long slot = slot_floats(g.Cp, g.n_boxes, g.boxc);
-  return (size_t)(stage_offset(NT * CPT, ncarry) + 256 + N_SLOTS * slot) * sizeof(float);
+  const long long slot = slot_floats(g.Cp, g.n_boxes, g.boxc, esize);
+  return (size_t)(stage_offset(NT * CPT, nrows) + 256 + N_SLOTS * slot) * sizeof(float);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -984,9 +1129,10 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // the [Rp, Cp, Bp] field as a 3-D tensor map with boxes of 8 lanes x boxc
-// columns x 1 row and the 32-byte swizzle; the encoder is looked up through
-// the runtime (cudaGetDriverEntryPoint), so nothing links against libcuda
-int field_map(CUtensorMap* m, float* d, int Rp, int Cp, int Bp, int boxc) {
+// columns x 1 row: f32 with the 32-byte swizzle, bf16 (16-byte box rows)
+// unswizzled; the encoder is looked up through the runtime
+// (cudaGetDriverEntryPoint), so nothing links against libcuda
+int field_map(CUtensorMap* m, void* d, int bf16_field, int Rp, int Cp, int Bp, int boxc) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -997,20 +1143,22 @@ int field_map(CUtensorMap* m, float* d, int Rp, int Cp, int Bp, int boxc) {
     if (q != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const cuuint64_t es = bf16_field ? 2 : 4;
   const cuuint64_t dims[3] = {(cuuint64_t)Bp, (cuuint64_t)Cp, (cuuint64_t)Rp};
-  const cuuint64_t strides[2] = {(cuuint64_t)Bp * 4, (cuuint64_t)Cp * Bp * 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)Bp * es, (cuuint64_t)Cp * Bp * es};
   const cuuint32_t box[3] = {LANES, (cuuint32_t)boxc, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, d, dims, strides, box, estr,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(
+      m, bf16_field ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, d,
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bf16_field ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <bool DIRTY, int CPT, bool XL>
+template <typename T, bool DIRTY, int CPT, bool XL>
 int launch_walker(const Args& g, const CUtensorMap& m, int NT, size_t smem, cudaStream_t s) {
-  auto kern = banded_pass_kernel<DIRTY, CPT, XL>;
+  auto kern = banded_pass_kernel<T, DIRTY, CPT, XL>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1018,60 +1166,24 @@ int launch_walker(const Args& g, const CUtensorMap& m, int NT, size_t smem, cuda
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// The kernel's limits, for the wrapper: the widest row, with one and with
-// two carried rows.
-extern "C" int banded_pass_max_cols() { return MAX_COLS; }
-extern "C" int banded_pass_max_cols_x2() { return MAX_COLS_X2; }
-
-// `dirty` null: no dirty table (then `need_bits` null too); with it,
-// `need_bits` is a zeroed [Bp / 8][ceil(Rp / 32)] uint32 table the prescan
-// fills. `cutlb`, `cutth`, `seedrc` all null: no cut. A cut needs the dirty
-// table. `walked` (nullable) gains the rows the blocks walked. `n_x` extended
-// lanes: `xl` holds (sel, dc) for each (host memory), `xcross` their
-// [Rp, n_x, Cp] weights.
-extern "C" int banded_pass_launch(
-    float* d, const float* cross, const float* af, long long af_rs,
-    const float* ab, long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
-    const float* cutlb, const float* cutth, const int* seedrc,
-    const float* xcross, int n_x, const int* xl,
-    int Rp, int Cp, int Bp, int reverse, int force, float k_rtol, float atol,
-    void* stream) {
-  if (Cp < 1 || Cp > MAX_COLS || Bp < LANES || Bp % LANES != 0 || Rp < 1)
-    return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch_typed(T* d, const float* cross, const float* af, long long af_rs, const float* ab,
+                 long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
+                 const float* cutlb, const float* cutth, const int* seedrc, const XLanes& xs,
+                 int x2, int Rp, int Cp, int Bp, int reverse, int force, int mode, int nsteps,
+                 float k_rtol, float atol, cudaStream_t s) {
   const int CPT = cols_per_thread(Cp);
-  if (Cp % CPT != 0) return (int)cudaErrorInvalidValue;
   const bool cut = cutlb != nullptr;
-  if (cut != (cutth != nullptr) || cut != (seedrc != nullptr) || (cut && dirty == nullptr) ||
-      (dirty == nullptr) != (need_bits == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const unsigned long long al = (unsigned long long)d | (unsigned long long)cross |
-                                (unsigned long long)af | (unsigned long long)ab;
-  if (al % 16 != 0 || af_rs % 4 != 0 || ab_rs % 4 != 0) return (int)cudaErrorInvalidValue;
-  XLanes xs = {};
-  xs.w = xcross;
-  xs.n = n_x;
-  int x2 = 0;
-  if (n_x < 0 || n_x > MAX_XLANES || (n_x > 0 && (xcross == nullptr || xl == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_x; ++i) {
-    const int sel = xl[2 * i], dc = xl[2 * i + 1];
-    if (sel < 0 || sel > 2 || dc < -MAX_XDC || dc > MAX_XDC) return (int)cudaErrorInvalidValue;
-    xs.sel[i] = (signed char)sel;
-    xs.dc[i] = (signed char)dc;
-    x2 |= sel == 2;
-  }
-  if (x2 && Cp > MAX_COLS_X2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  const int n_x = xs.n;
   if (dirty != nullptr) {
     const long long nq = (Cp + PRESCAN_THREADS - 1) / PRESCAN_THREADS;
     const long long n = (long long)((Rp + 31) / 32) * (Bp / LANES) * nq;
     if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int dirty_need = mode == MODE_SKIP;
 #define PRESCAN(CT, XT)                                                                      \
-  banded_prescan_kernel<CT, XT><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(                     \
-      d, cross, dirty, need_bits, cutlb, cutth, seedrc, xs, Rp, Cp, Bp, reverse, force, k_rtol, \
-      atol)
+  banded_prescan_kernel<T, CT, XT><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(                  \
+      d, cross, dirty, need_bits, cutlb, cutth, seedrc, xs, Rp, Cp, Bp, reverse, force,      \
+      dirty_need, k_rtol, atol)
     if (cut) {
       if (n_x) PRESCAN(true, true); else PRESCAN(true, false);
     } else {
@@ -1083,30 +1195,33 @@ extern "C" int banded_pass_launch(
   }
   const int NT = ((Cp / CPT) + 31) / 32 * 32;
   const int boxc = Cp < 256 ? (Cp + 31) / 32 * 32 : 256;
-  Args g = {d, cross, af, af_rs, ab, ab_rs, chg, dirty, need_bits, walked,
-            Rp, Cp, Bp, reverse, force, 1, boxc, (Cp + boxc - 1) / boxc, k_rtol, atol, xs, x2};
+  // NOSKIP walks every row with no table (the prescan above, if any, was
+  // for the cut alone)
+  const bool walk_dirty = dirty != nullptr && mode != MODE_NOSKIP;
+  Args g = {d, cross, af, af_rs, ab, ab_rs, chg, walk_dirty ? dirty : nullptr,
+            walk_dirty ? need_bits : nullptr, walked, Rp, Cp, Bp, reverse, force, 1, boxc,
+            (Cp + boxc - 1) / boxc, k_rtol, atol, xs, x2, mode, nsteps};
   // staged: rows by TMA, at most 4 columns a thread (the tables' own layout)
   // and rows of whole 16-byte pieces; else rows read and written in place
   g.staged = CPT <= 4 && Cp % 4 == 0;
-  size_t smem = walker_smem(NT, CPT, g);
+  size_t smem = walker_smem(NT, CPT, g, (int)sizeof(T));
   if (smem > MAX_SMEM) {
     g.staged = 0;
-    smem = walker_smem(NT, CPT, g);
+    smem = walker_smem(NT, CPT, g, (int)sizeof(T));
     if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   }
   CUtensorMap m = {};
   if (g.staged) {
-    const int err = field_map(&m, d, Rp, Cp, Bp, boxc);
+    const int err = field_map(&m, d, sizeof(T) == 2, Rp, Cp, Bp, boxc);
     if (err != 0) return err;
   }
 #define WALK(DT, XT)                                                    \
   switch (CPT) {                                                        \
-    case 1: return launch_walker<DT, 1, XT>(g, m, NT, smem, s);         \
-    case 2: return launch_walker<DT, 2, XT>(g, m, NT, smem, s);         \
-    case 4: return launch_walker<DT, 4, XT>(g, m, NT, smem, s);         \
-    case 8: return launch_walker<DT, 8, XT>(g, m, NT, smem, s);         \
+    case 1: return launch_walker<T, DT, 1, XT>(g, m, NT, smem, s);      \
+    case 4: return launch_walker<T, DT, 4, XT>(g, m, NT, smem, s);      \
+    case 8: return launch_walker<T, DT, 8, XT>(g, m, NT, smem, s);      \
   }
-  if (dirty != nullptr) {
+  if (walk_dirty) {
     if (n_x) {
       WALK(true, true)
     } else {
@@ -1121,4 +1236,69 @@ extern "C" int banded_pass_launch(
   }
 #undef WALK
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The kernel's limits, for the wrapper: the widest row, with two and with
+// three rows in shared memory.
+extern "C" int banded_pass_max_cols() { return MAX_COLS; }
+extern "C" int banded_pass_max_cols_x2() { return MAX_COLS_X2; }
+extern "C" int banded_pass_max_cols_x3() { return MAX_COLS_X3; }
+
+// `d` is f32, or bf16 where `bf16_field` is set. `dirty` null: no dirty table
+// (then `need_bits` null too); with it, `need_bits` is a zeroed
+// [Bp / 8][ceil(Rp / 32)] uint32 table the prescan fills. `cutlb`, `cutth`,
+// `seedrc` all null: no cut. A cut needs a dirty table: in NOSKIP a zeroed
+// one, which only runs the prescan for the cut. `walked` (nullable) gains the
+// rows the blocks walked. `n_x` extended lanes: `xl` holds (sel, dc) for each
+// (host memory), `xcross` their [Rp, n_x, Cp] weights. `mode`: MODE_SKIP,
+// MODE_DEFER (needs the dirty table, nsteps 0) or MODE_NOSKIP; `nsteps` > 0:
+// partial depth, that many levels of af / ab (rows of af_rs, levels of Cp).
+extern "C" int banded_pass_launch(
+    void* d, int bf16_field, const float* cross, const float* af, long long af_rs,
+    const float* ab, long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
+    const float* cutlb, const float* cutth, const int* seedrc,
+    const float* xcross, int n_x, const int* xl,
+    int Rp, int Cp, int Bp, int reverse, int force, int mode, int nsteps, float k_rtol,
+    float atol, void* stream) {
+  if (Cp < 1 || Cp > MAX_COLS || Bp < LANES || Bp % LANES != 0 || Rp < 1)
+    return (int)cudaErrorInvalidValue;
+  if (Cp % cols_per_thread(Cp) != 0) return (int)cudaErrorInvalidValue;
+  const bool cut = cutlb != nullptr;
+  if (cut != (cutth != nullptr) || cut != (seedrc != nullptr) || (cut && dirty == nullptr) ||
+      (dirty == nullptr) != (need_bits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (mode < MODE_SKIP || mode > MODE_NOSKIP || nsteps < 0 ||
+      (mode == MODE_DEFER && (dirty == nullptr || nsteps > 0)))
+    return (int)cudaErrorInvalidValue;
+  const unsigned long long al = (unsigned long long)d | (unsigned long long)cross |
+                                (unsigned long long)af | (unsigned long long)ab;
+  if (al % 16 != 0 || af_rs % 4 != 0 || ab_rs % 4 != 0 || af_rs < (long long)nsteps * Cp ||
+      ab_rs < (long long)nsteps * Cp)
+    return (int)cudaErrorInvalidValue;
+  XLanes xs = {};
+  xs.w = xcross;
+  xs.n = n_x;
+  int x2 = 0;
+  if (n_x < 0 || n_x > MAX_XLANES || (n_x > 0 && (xcross == nullptr || xl == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_x; ++i) {
+    const int sel = xl[2 * i], dc = xl[2 * i + 1];
+    if (sel < 0 || sel > 2 || dc < -MAX_XDC || dc > MAX_XDC) return (int)cudaErrorInvalidValue;
+    xs.sel[i] = (signed char)sel;
+    xs.dc[i] = (signed char)dc;
+    x2 |= sel == 2;
+  }
+  const int nrows = (x2 ? 2 : 1) + (nsteps > 0 ? 1 : 0);
+  if (Cp > (nrows == 1 ? MAX_COLS : (nrows == 2 ? MAX_COLS_X2 : MAX_COLS_X3)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16_field)
+    return launch_typed(reinterpret_cast<bf16*>(d), cross, af, af_rs, ab, ab_rs, chg, dirty,
+                        need_bits, walked, cutlb, cutth, seedrc, xs, x2, Rp, Cp, Bp, reverse,
+                        force, mode, nsteps, k_rtol, atol, s);
+  return launch_typed(reinterpret_cast<float*>(d), cross, af, af_rs, ab, ab_rs, chg, dirty,
+                      need_bits, walked, cutlb, cutth, seedrc, xs, x2, Rp, Cp, Bp, reverse, force,
+                      mode, nsteps, k_rtol, atol, s);
 }

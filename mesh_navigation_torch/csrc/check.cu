@@ -4,8 +4,9 @@
 // launched by _check_pallas_padded (:2352) from check_converged_banded
 // (:2429) -- the converge="check" loop of the warm resolve (:1992-2028).
 //
-// What it computes. For every element (r, c, b) of d[Rp, Cp, Bp] (f32, lanes
-// contiguous): best = min over the 8 banded in-edge classes k of
+// What it computes. For every element (r, c, b) of d[Rp, Cp, Bp] (f32 or
+// bf16, lanes contiguous; a bf16 label is widened to f32 and all is computed
+// in f32): best = min over the 8 banded in-edge classes k of
 // src_k + w8[r, k, c], with sources in class order (r,c-1), (r,c+1),
 // (r-1,c-1), (r-1,c), (r-1,c+1), (r+1,c-1), (r+1,c), (r+1,c+1). Columns
 // outside the row read +inf; rows outside the field are clamped to the edge
@@ -16,7 +17,7 @@
 //
 // What bounds it on this card. One read of the field plus the 8 weight
 // planes: 537 MB + 33.5 MB at the replan shape 1024 x 1024 x 128, about
-// 0.17 ms at 3.35 TB/s. About 19 operations per element are far below the
+// 0.17 ms at 3.35 TB/s (half the field's bytes in bf16). About 19 operations per element are far below the
 // f32 rate: bound by bytes.
 //
 // What the design does about it. There is no row order, so the grid is
@@ -31,6 +32,7 @@
 // __fmul_rn/__fadd_rn, so no multiply-add is fused and the flag equals the
 // plain PyTorch version's on the same field.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -42,12 +44,20 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// 4 bf16 lanes widened to f32 (a bf16 is the top half of its f32: exact)
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ float get(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
 // columns c-1, c, c+1 of one row at the thread's 4 lanes (+inf off the row)
-__device__ __forceinline__ void load_row(const float* p, int Bp, bool has_l,
+template <typename T>
+__device__ __forceinline__ void load_row(const T* p, int Bp, bool has_l,
                                          bool has_r, float4 (&o)[3]) {
   const float4 inf4 = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
                                   CUDART_INF_F);
@@ -56,8 +66,9 @@ __device__ __forceinline__ void load_row(const float* p, int Bp, bool has_l,
   o[2] = has_r ? ld4(p + Bp) : inf4;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256) check_kernel(
-    const float* __restrict__ d, const float* __restrict__ w8,
+    const T* __restrict__ d, const float* __restrict__ w8,
     int* __restrict__ viol, int Rp, int Cp, int Bp, float k_rtol,
     float atol) {
   const int q4 = Bp / 4;
@@ -67,7 +78,7 @@ __global__ void __launch_bounds__(256) check_kernel(
     const int c = (int)(e / q4);
     const int q = (int)(e % q4);
     const long long rs = (long long)Cp * Bp;
-    const float* base = d + (long long)c * Bp + 4 * q;
+    const T* base = d + (long long)c * Bp + 4 * q;
     const bool has_l = c > 0, has_r = c + 1 < Cp;
     const int r0 = blockIdx.y * RB;
     const int r1 = min(r0 + RB, Rp);
@@ -103,7 +114,8 @@ __global__ void __launch_bounds__(256) check_kernel(
 
 }  // namespace
 
-extern "C" int check_launch(const float* d, const float* w8, int* viol,
+// `d` is f32, or bf16 where `bf16_field` is set.
+extern "C" int check_launch(const void* d, int bf16_field, const float* w8, int* viol,
                             int Rp, int Cp, int Bp, float k_rtol, float atol,
                             void* stream) {
   const int n_rb = (Rp + RB - 1) / RB;
@@ -112,7 +124,11 @@ extern "C" int check_launch(const float* d, const float* w8, int* viol,
   const long long n = (long long)Cp * (Bp / 4);
   const int threads = 256;
   const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)n_rb);
-  check_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      d, w8, viol, Rp, Cp, Bp, k_rtol, atol);
+  if (bf16_field)
+    check_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const __nv_bfloat16*>(d), w8, viol, Rp, Cp, Bp, k_rtol, atol);
+  else
+    check_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float*>(d), w8, viol, Rp, Cp, Bp, k_rtol, atol);
   return (int)cudaGetLastError();
 }

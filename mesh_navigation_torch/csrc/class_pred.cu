@@ -8,7 +8,9 @@
 // and as_class=False, the int32 real-id table of predecessors_banded_pallas
 // (:2463) behind the full banded plan result.
 //
-// What it computes. For every element (r, c, b) of the field d[Rp, Cp, Bp]:
+// What it computes. For every element (r, c, b) of the field d[Rp, Cp, Bp]
+// (f32, or bf16 widened to f32 as it is read from shared memory; everything
+// is computed in f32):
 // best = min over the 8 banded in-edge classes k of src_k + w8[r, k, c],
 // taken with strict < in class order 0..7 (sources (r,c-1), (r,c+1),
 // (r-1,c-1), (r-1,c), (r-1,c+1), (r+1,c-1), (r+1,c), (r+1,c+1); columns
@@ -51,6 +53,9 @@
 // multiply-add is fused, and the table and flag match the plain PyTorch
 // version bit for bit.
 //
+// A bf16 field moves as 8-byte pieces of 4 lanes into a ring of half the
+// bytes; the layout and the schedule are the f32 ones.
+//
 // Ring discipline. Row position p of a run (p = 0 is the row above it) goes
 // to slot p % SLOTS. Step t computes rows r0 + 2t and r0 + 2t + 1 from
 // positions 2t .. 2t+3 and first issues the copies of positions 2t+DEPTH+2
@@ -60,6 +65,7 @@
 // positions: the slots are free. One barrier every two rows. The ring
 // (45 KB) is dynamic shared memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -72,7 +78,8 @@
 #define SLOT_F4 ((THREADS + 2 * MAX_LT) * VEC)  // (SC + 2) columns x LT x VEC
 #define MAX_SC (THREADS / 4)                  // the strip at LT = 4
 #define SLOT_W4 (2 * MAX_SC)                   // a slot's weights, float4
-#define SMEM_BYTES (SLOTS * (SLOT_F4 + SLOT_W4) * 16)
+// bytes of the ring of a field whose 4 lanes take `u` bytes
+#define SMEM_BYTES(u) (SLOTS * (SLOT_F4 * (u) + SLOT_W4 * 16))
 #define RUN 64                                 // rows a block walks
 
 namespace {
@@ -90,6 +97,27 @@ __device__ __forceinline__ void cp_async4(unsigned smem, const void* gmem, int o
                ::"r"(smem), "l"(gmem), "r"(on));
 }
 
+__device__ __forceinline__ void cp_async8(unsigned smem, const void* gmem, int on) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+               " @p cp.async.ca.shared.global [%0], [%1], 8;\n}\n"
+               ::"r"(smem), "l"(gmem), "r"(on));
+}
+
+// 4 lanes of the field as they lie in shared memory: a float4, or 4 bf16
+template <typename T> struct Unit { typedef float4 type; };
+template <> struct Unit<__nv_bfloat16> { typedef uint2 type; };
+
+__device__ __forceinline__ float4 widen(const float4& v) { return v; }
+__device__ __forceinline__ float4 widen(const uint2& u) {
+  // a bf16 is the top half of its f32: widening is exact
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void inf_unit(float4& v) {
+  v = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+}
+__device__ __forceinline__ void inf_unit(uint2& u) { u = make_uint2(0x7f807f80u, 0x7f807f80u); }
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -105,17 +133,17 @@ __device__ __forceinline__ float get(const float4& v, int i) {
 // 4 lanes of one row: rows r-1, r, r+1 at columns c-1, c, c+1 (`up`, `mid`,
 // `dn` point at column c-1 of the lanes in their slots; `cs` float4 from a
 // column to the next) and the row's 8 weights.
-template <bool AS_CLASS, bool CHECK, int cs>
+template <bool AS_CLASS, bool CHECK, int cs, typename U>
 __device__ __forceinline__ void pred_lanes(
-    const float4* up, const float4* mid, const float4* dn, const float (&w)[8],
+    const U* up, const U* mid, const U* dn, const float (&w)[8],
     int self, int C, float k_tol, float tol, float k_rtol, float atol, int& bad,
     int (&res)[4]) {
-  const float4* src[8] = {mid, mid + 2 * cs, up, up + cs, up + 2 * cs, dn, dn + cs, dn + 2 * cs};
+  const U* src[8] = {mid, mid + 2 * cs, up, up + cs, up + 2 * cs, dn, dn + cs, dn + 2 * cs};
   float best[4] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
   int rel[4] = {0, 0, 0, 0};
   #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float4 sk = *src[k];
+    const float4 sk = widen(*src[k]);
     #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float cand = get(sk, i) + w[k];
@@ -127,7 +155,7 @@ __device__ __forceinline__ void pred_lanes(
       asm volatile("" : "+r"(rel[i]));
     }
   }
-  const float4 cur4 = mid[cs];
+  const float4 cur4 = widen(mid[cs]);
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float cur = get(cur4, i);
@@ -150,15 +178,19 @@ __device__ __forceinline__ void store_lanes(void* p, const int (&res)[4]) {
     *reinterpret_cast<int4*>(p) = make_int4(res[0], res[1], res[2], res[3]);
 }
 
-template <bool AS_CLASS, bool CHECK, int LT>
+template <typename T, bool AS_CLASS, bool CHECK, int LT>
 __global__ void __launch_bounds__(THREADS) class_pred_kernel(
-    const float* __restrict__ d, const float* __restrict__ w8,
+    const T* __restrict__ d, const float* __restrict__ w8,
     void* __restrict__ out, int* __restrict__ viol,
     int R, int C, int Rp, int Cp, int Bp, int V,
     int n_lg, int n_strips, float k_tol, float tol, float k_rtol, float atol) {
+  typedef typename Unit<T>::type U;
+  constexpr int UB = (int)sizeof(U);           // bytes of 4 lanes
   extern __shared__ float4 smem[];
-  float4* const ring = smem;                   // [SLOTS][SLOT_F4] field rows
-  float4* const wring = smem + SLOTS * SLOT_F4;  // [SLOTS][SLOT_W4] weights, [column][8]
+  U* const ring = reinterpret_cast<U*>(smem);  // [SLOTS][SLOT_F4] field rows
+  // [SLOTS][SLOT_W4] weights, [column][8]
+  float4* const wring = reinterpret_cast<float4*>(reinterpret_cast<char*>(smem) +
+                                                  SLOTS * SLOT_F4 * UB);
   constexpr int G = LT * VEC;                  // float4 of a column in a slot
   constexpr int SC = THREADS / LT;             // columns of the strip
   const int q4 = Bp >> 2;
@@ -184,6 +216,8 @@ __global__ void __launch_bounds__(THREADS) class_pred_kernel(
   // of each; halo columns off the row are +inf in every row, written once
   // here. Columns past Cp and lanes past Bp are never read.
   const int n_elem = (SC + 2) * G;
+  U inf_u;
+  inf_unit(inf_u);
   const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
   const unsigned wring_s = (unsigned)__cvta_generic_to_shared(wring);
   const char* f_src[3];                        // row 0's source of each copy
@@ -199,9 +233,7 @@ __global__ void __launch_bounds__(THREADS) class_pred_kernel(
     f_src[h] = reinterpret_cast<const char*>(d + (f_on[h] ? (long long)gc * Bp + 4 * gq : 0));
     if (x < n_elem && !on_row) {
       #pragma unroll
-      for (int sl = 0; sl < SLOTS; ++sl)
-        ring[sl * SLOT_F4 + x] = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
-                                             CUDART_INF_F);
+      for (int sl = 0; sl < SLOTS; ++sl) ring[sl * SLOT_F4 + x] = inf_u;
     }
   }
   #pragma unroll
@@ -211,17 +243,22 @@ __global__ void __launch_bounds__(THREADS) class_pred_kernel(
     w_src[h] = reinterpret_cast<const char*>(
         w8 + (w_on[h] ? (long long)(x & 7) * Cp + c0 + (x >> 3) : 0));
   }
-  const long long row_bytes = rs * 4, wrow_bytes = 32LL * Cp;
+  const long long row_bytes = rs * (long long)sizeof(T), wrow_bytes = 32LL * Cp;
   // the row of the next position to copy, and its slot
   int next_row = r0 - 1, next_slot = 0, issued = 0;
   auto issue = [&]() {
     if (issued < n_pos) {
       const int row = min(max(next_row, 0), Rp - 1);
       const long long fo = row * row_bytes, wo = row * wrow_bytes;
-      const unsigned fs = ring_s + next_slot * (SLOT_F4 * 16) + threadIdx.x * 16;
+      const unsigned fs = ring_s + next_slot * (SLOT_F4 * UB) + threadIdx.x * UB;
       const unsigned ws = wring_s + next_slot * (SLOT_W4 * 16) + threadIdx.x * 4;
       #pragma unroll
-      for (int h = 0; h < 3; ++h) cp_async16(fs + h * THREADS * 16, f_src[h] + fo, f_on[h]);
+      for (int h = 0; h < 3; ++h) {
+        if constexpr (UB == 16)
+          cp_async16(fs + h * THREADS * UB, f_src[h] + fo, f_on[h]);
+        else
+          cp_async8(fs + h * THREADS * UB, f_src[h] + fo, f_on[h]);
+      }
       #pragma unroll
       for (int h = 0; h < 2; ++h) cp_async4(ws + h * THREADS * 4, w_src[h] + wo, w_on[h]);
     }
@@ -261,9 +298,9 @@ __global__ void __launch_bounds__(THREADS) class_pred_kernel(
         const int su = h ? s1 : sl, sm = h ? s2 : s1, sd = h ? s3 : s2;
         const float4 wa = wring[sm * SLOT_W4 + 2 * j], wb = wring[sm * SLOT_W4 + 2 * j + 1];
         const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-        const float4* up = ring + su * SLOT_F4 + e;
-        const float4* mid = ring + sm * SLOT_F4 + e;
-        const float4* dn = ring + sd * SLOT_F4 + e;
+        const U* up = ring + su * SLOT_F4 + e;
+        const U* mid = ring + sm * SLOT_F4 + e;
+        const U* dn = ring + sd * SLOT_F4 + e;
         char* o = o8 + h * orow;
         int res[4];
         if (act0) {
@@ -290,9 +327,9 @@ __global__ void __launch_bounds__(THREADS) class_pred_kernel(
 }  // namespace
 
 // The lane group is 8 threads (64 lanes) wherever Bp > 32, else 4; a run is
-// RUN rows.
+// RUN rows. `d` is f32, or bf16 where `bf16_field` is set.
 extern "C" int class_pred_launch(
-    const float* d, const float* w8, void* out, int* viol,
+    const void* d, int bf16_field, const float* w8, void* out, int* viol,
     int R, int C, int Rp, int Cp, int Bp, int V, int as_class,
     float k_tol, float tol, float k_rtol, float atol, void* stream) {
   if (Bp % 4 != 0 || Bp < 4 || Rp < 1 || Cp < 1) return (int)cudaErrorInvalidValue;
@@ -305,23 +342,39 @@ extern "C" int class_pred_launch(
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
-  auto launch = [&](auto kernel) {
+  auto launch = [&](auto kernel, auto field, int unit_bytes) {
+    const int smem = SMEM_BYTES(unit_bytes);
     const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return attr;
-    kernel<<<grid, THREADS, SMEM_BYTES, st>>>(d, w8, out, viol, R, C, Rp, Cp, Bp, V,
-                                              (int)n_lg, (int)n_strips, k_tol, tol, k_rtol, atol);
+    kernel<<<grid, THREADS, smem, st>>>(field, w8, out, viol, R, C, Rp, Cp, Bp, V,
+                                        (int)n_lg, (int)n_strips, k_tol, tol, k_rtol, atol);
     return cudaGetLastError();
   };
   const int mode = (as_class ? 4 : 0) + (viol ? 2 : 0) + (LT == 8 ? 1 : 0);
+  if (bf16_field) {
+    typedef __nv_bfloat16 H;
+    const H* f = reinterpret_cast<const H*>(d);
+    switch (mode) {
+      case 0: return (int)launch(class_pred_kernel<H, false, false, 4>, f, 8);
+      case 1: return (int)launch(class_pred_kernel<H, false, false, 8>, f, 8);
+      case 2: return (int)launch(class_pred_kernel<H, false, true, 4>, f, 8);
+      case 3: return (int)launch(class_pred_kernel<H, false, true, 8>, f, 8);
+      case 4: return (int)launch(class_pred_kernel<H, true, false, 4>, f, 8);
+      case 5: return (int)launch(class_pred_kernel<H, true, false, 8>, f, 8);
+      case 6: return (int)launch(class_pred_kernel<H, true, true, 4>, f, 8);
+      default: return (int)launch(class_pred_kernel<H, true, true, 8>, f, 8);
+    }
+  }
+  const float* f = reinterpret_cast<const float*>(d);
   switch (mode) {
-    case 0: return (int)launch(class_pred_kernel<false, false, 4>);
-    case 1: return (int)launch(class_pred_kernel<false, false, 8>);
-    case 2: return (int)launch(class_pred_kernel<false, true, 4>);
-    case 3: return (int)launch(class_pred_kernel<false, true, 8>);
-    case 4: return (int)launch(class_pred_kernel<true, false, 4>);
-    case 5: return (int)launch(class_pred_kernel<true, false, 8>);
-    case 6: return (int)launch(class_pred_kernel<true, true, 4>);
-    default: return (int)launch(class_pred_kernel<true, true, 8>);
+    case 0: return (int)launch(class_pred_kernel<float, false, false, 4>, f, 16);
+    case 1: return (int)launch(class_pred_kernel<float, false, false, 8>, f, 16);
+    case 2: return (int)launch(class_pred_kernel<float, false, true, 4>, f, 16);
+    case 3: return (int)launch(class_pred_kernel<float, false, true, 8>, f, 16);
+    case 4: return (int)launch(class_pred_kernel<float, true, false, 4>, f, 16);
+    case 5: return (int)launch(class_pred_kernel<float, true, false, 8>, f, 16);
+    case 6: return (int)launch(class_pred_kernel<float, true, true, 4>, f, 16);
+    default: return (int)launch(class_pred_kernel<float, true, true, 8>, f, 16);
   }
 }

@@ -6,7 +6,9 @@ problem (prepare_padded, :1332), the solve loop (banded_solve_padded,
 :1413, converge="pred", "round" and "check", the warm incremental
 resolve with its row-slab window, and the init_pad propagation mode; on
 irregular plans the extended lanes and the residual scatter-min,
-:1530-1678), lane grouping (:2041), the int8 class predecessor table
+:1530-1678; the options: bfloat16 fields, skip_rows, partial scan depth,
+the deferring pass and four_dir's column passes on the transposed plan,
+transpose_banded_plan, :3014), lane grouping (:2041), the int8 class predecessor table
 (:2531) with its residual reconcile (:2588) and the int32 real-id table
 with its residual post-pass (predecessors_banded_pallas, :2463), the
 class-decoding path walk with the class-9 decode (:2644), the walk over a
@@ -19,10 +21,12 @@ Three kernels carry the solve; each has a plain PyTorch version beside it
 with the same semantics (row order, carry, gated writes, class order):
 
 - `directional_pass` — csrc/banded_pass.cu, replacing `_pass_kernel`, with
-  its dirty-table, warm-cut and extended-lane modes;
+  its dirty-table, warm-cut, extended-lane, partial-depth, deferring and
+  unskipped modes, on f32 or bfloat16 fields;
 - `class_pred` — csrc/class_pred.cu, replacing `_pred_kernel` in both of its
   modes (int8 classes with the certificate; int32 real ids);
-- `check` — csrc/check.cu, replacing `_check_kernel`.
+- `check` — csrc/check.cu, replacing `_check_kernel`;
+the last two read f32 or bfloat16 fields and compute in f32.
 
 A wrapper runs the plain version only for a tensor on the CPU. On a CUDA
 tensor it launches the kernel or raises; there is no fallback.
@@ -57,6 +61,10 @@ PASS_MAX_COLS = 512 * PASS_WIDE_COLS
 # MAX_COLS_X2, 14 x 256 columns). Wider plans with such lanes take the
 # structured tier.
 PASS_MAX_COLS_X2 = 3584
+# with a third row (the partial-depth scan's exchange row beside two carried
+# rows): csrc/banded_pass.cu MAX_COLS_X3, 9 x 256 columns. Without a sel-2
+# lane the partial-depth pass takes PASS_MAX_COLS_X2 columns.
+PASS_MAX_COLS_X3 = 2304
 # the widest column shift of an extended lane (the prescan's halo)
 PASS_MAX_XDC = 4
 
@@ -138,6 +146,9 @@ class BandedKernelPlan:
     l2_bwd: torch.Tensor = None
     wback_fwd: torch.Tensor = None
     wback_bwd: torch.Tensor = None
+    # transpose_banded_plan only: the transposed lanes (dr_t, dc_t) left out
+    # (|dr_t| > 2); their edges stay on the residual list
+    xlanes_dropped: tuple = ()
     # the [Rp, 8, Cp] class-order weight stacks of _w8_planes, by Rp; a
     # refreshed plan (dataclasses.replace) starts with none
     w8_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
@@ -423,6 +434,78 @@ def build_banded_kernel_plan(
     )
 
 
+def transpose_banded_plan(plan: BandedKernelPlan) -> BandedKernelPlan:
+    """The same relaxation system on the transposed [C, R] grid
+    (pallas_banded.py:3014-3104): the column-direction passes of four_dir.
+    A source offset (dr, dc) maps to (dc, dr): the transposed lateral planes
+    are the original down / up planes of s = 0, T-down = [down s=-1,
+    lat_fwd, up s=-1], T-up = [down s=+1, lat_bwd, up s=+1]; each plane
+    [R, Cp] becomes [C, Rt] (Rt = R rounded up to 8, +inf past R). Chain
+    weights come from the transposed planes at depth ceil(log2 R), with no
+    two-level tables. Extended lanes transpose by the same rule, except
+    that a transposed lane two rows or more away, |dr_t| = |dc| > 2, is
+    left out and listed in xlanes_dropped: the pass carries two rows and
+    relaxes no lane farther, and every extended-lane edge stays on the
+    plan's residual list, which the round's scatter-min relaxes (the
+    reference keeps such a lane and its kernel reads it as an own-row lane
+    at the transposed column offset, pallas_banded.py:890-896: a lane
+    (|dr_t| > 2, 0) relaxes nothing, another relaxes from the wrong
+    source). Residual ids are remapped to the transposed padded grid.
+    Solve-only: slot tables are the original plan's."""
+    R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
+    Rt = _round_up(R, 8)
+
+    def T(p):  # [R, Cp] -> [C, Rt]
+        out = torch.full((C, Rt), INF, dtype=torch.float32, device=p.device)
+        out[:, :R] = p[:, :C].T
+        return out
+
+    lat_fwd_t = T(plan.down[:, 1])
+    lat_bwd_t = T(plan.up[:, 1])
+    down_t = torch.stack([T(plan.down[:, 0]), T(plan.lat_fwd), T(plan.up[:, 0])], dim=1)
+    up_t = torch.stack([T(plan.down[:, 2]), T(plan.lat_bwd), T(plan.up[:, 2])], dim=1)
+    n_scan_t = max(1, int(np.ceil(np.log2(max(R, 2)))))
+    lf_eff, lb_eff = _effective_laterals(lat_fwd_t, lat_bwd_t, down_t, up_t)
+    a_fwd_t, a_bwd_t = _chain_weights(lf_eff, lb_eff, n_scan_t)
+
+    lanes = [(-sel, dc, plan.xdown[:, i]) for i, (sel, dc) in enumerate(plan.xlanes_down)]
+    lanes += [(sel, dc, plan.xup[:, i]) for i, (sel, dc) in enumerate(plan.xlanes_up) if sel]
+    xl_down, xp_down, xl_up, xp_up, dropped = [], [], [], [], []
+    for dr, dc, p in lanes:
+        dr_t, dc_t = dc, dr
+        if abs(dr_t) > 2:
+            dropped.append((dr_t, dc_t))
+            continue
+        pt = T(p)
+        if dr_t <= 0:
+            xl_down.append((abs(dr_t), dc_t))
+            xp_down.append(pt)
+        if dr_t >= 0:
+            xl_up.append((abs(dr_t), dc_t))
+            xp_up.append(pt)
+
+    def xstack(ps):
+        if ps:
+            return torch.stack(ps, dim=1)
+        return torch.full((C, 1, Rt), INF, dtype=torch.float32, device=plan.device)
+
+    def remap(ids):
+        return ((ids % Cp) * Rt + ids // Cp).to(ids.dtype)
+
+    return BandedKernelPlan(
+        n_rows=C, n_cols=R, n_cols_pad=Rt, n_scan=n_scan_t, coverage=plan.coverage,
+        num_vertices=plan.num_vertices, n_residual=plan.n_residual,
+        down=down_t, up=up_t, a_fwd=a_fwd_t.contiguous(), a_bwd=a_bwd_t.contiguous(),
+        res_dst=remap(plan.res_dst), res_src=remap(plan.res_src), res_w=plan.res_w,
+        slot_map=plan.slot_map, res_slot=plan.res_slot,
+        lat_fwd=lat_fwd_t, lat_bwd=lat_bwd_t,
+        xlanes_down=tuple(xl_down), xlanes_up=tuple(xl_up),
+        xdown=xstack(xp_down), xup=xstack(xp_up),
+        xslot_down=plan.xslot_down, xslot_up=plan.xslot_up,
+        xlanes_dropped=tuple(dropped),
+    )
+
+
 # --------------------------------------------------------------------------
 # padded problem
 # --------------------------------------------------------------------------
@@ -431,7 +514,7 @@ def build_banded_kernel_plan(
 class PaddedProblem:
     """Seeded [Rp, Cp, Bp] field + row-padded planes for the directional
     pass (padding rows and lanes stay all +inf)."""
-    d0: torch.Tensor | None   # [Rp, Cp, Bp] f32
+    d0: torch.Tensor | None   # [Rp, Cp, Bp] f32 or bfloat16
     down: torch.Tensor    # [Rp, 3, Cp]
     up: torch.Tensor      # [Rp, 3, Cp]
     a_fwd: torch.Tensor   # [Rp, S, Cp]
@@ -452,11 +535,13 @@ def _pad_rows(p: torch.Tensor, Rp: int, fill=INF) -> torch.Tensor:
 
 def prepare_padded(
     plan: BandedKernelPlan, seeds: torch.Tensor, *, rb: int = 1, bb: int = PASS_LANES,
-    seeded: bool = True,
+    seeded: bool = True, dtype=torch.float32,
 ) -> PaddedProblem:
     """Pad the planes to a multiple of `rb` rows and seed the padded field
     (lanes padded to a multiple of `bb`). The CUDA pass has no row blocks
     (rb=1) and runs 8-lane blocks; the reference's interpreter runs rb=2.
+    The field takes the storage `dtype` (f32 or bfloat16); every plane
+    stays f32 (pallas_banded.py:1355-1358).
     seeded=False leaves d0 None (a warm resolve starts from its own field).
     The extended-lane planes are padded where the plan has lanes
     (pallas_banded.py:1385-1386), else left None."""
@@ -468,7 +553,7 @@ def prepare_padded(
     if seeded:
         seeds = seeds.long()
         flat_pad = (seeds // C) * Cp + seeds % C
-        d0 = torch.full((Rp * Cp, Bp), INF, dtype=torch.float32, device=plan.device)
+        d0 = torch.full((Rp * Cp, Bp), INF, dtype=dtype, device=plan.device)
         d0[flat_pad, torch.arange(B, device=plan.device)] = 0.0
         d0 = d0.view(Rp, Cp, Bp)
     return PaddedProblem(
@@ -499,6 +584,8 @@ def _shift_cols(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 _WARP = 32
+# the pass kernel's row modes (csrc/banded_pass.cu MODE_*)
+PASS_MODE_SKIP, PASS_MODE_DEFER, PASS_MODE_NOSKIP = 0, 1, 2
 
 
 def _warp_pair_scan(a: torch.Tensor, b: torch.Tensor, fwd: bool):
@@ -576,11 +663,43 @@ def _scan_row(row: torch.Tensor, af: torch.Tensor, ab: torch.Tensor) -> torch.Te
     return b[:Cp]
 
 
-def _require_dirty_for_cut(dirty, warm_cut) -> None:
-    """The warm cut is the first pass of a warm resolve, which always keeps
-    the dirty table (pallas_banded.py:1545-1547)."""
-    if warm_cut is not None and dirty is None:
+def _doubling_scan(row: torch.Tensor, af: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    """Partial-depth lateral scan of row [Cp, B] (pallas_banded.py:979-989):
+    for each level s of af [S, Cp] in order, row[c] = min(row[c],
+    row[c - 2^s] + af[s, c]) on the row as the step before left it, then the
+    same backward with ab on the forward-updated row. A chain longer than
+    2^S - 1 columns is not closed: the dirty table rescans the row."""
+    for s in range(af.shape[0]):
+        row = torch.minimum(row, _shift_cols(row, 1 << s) + af[s][:, None])
+    for s in range(ab.shape[0]):
+        row = torch.minimum(row, _shift_cols(row, -(1 << s)) + ab[s][:, None])
+    return row
+
+
+def pass_scan_depth(n_cols: int, n_scan: int, scan_steps: int = 0) -> int:
+    """Doubling steps a direction of the pass's lateral scan: 0 (the exact
+    block scan) at full depth, else the plan's n_scan cut to scan_steps
+    (pallas_banded.py:1519-1528, :1544)."""
+    full = max(1, int(math.ceil(math.log2(max(n_cols, 2)))))
+    depth = min(n_scan, scan_steps) if scan_steps > 0 else n_scan
+    return 0 if depth >= full else depth
+
+
+def _require_dirty_for_cut(dirty, warm_cut, skip: bool = True) -> None:
+    """The warm cut is the first pass of a warm resolve, which keeps the
+    dirty table (pallas_banded.py:1545-1547) unless its rows are not
+    skipped (skip_rows=False: every row is walked, no table)."""
+    if warm_cut is not None and dirty is None and skip:
         raise ValueError("directional_pass: warm_cut needs the dirty table")
+
+
+def _check_modes(dirty, skip: bool, defer: bool) -> None:
+    """The unskipped pass keeps no dirty table (use_dirty needs skip,
+    pallas_banded.py:1545); the deferring pass needs it (:1089)."""
+    if not skip and (dirty is not None or defer):
+        raise ValueError("directional_pass: skip=False takes no dirty table and no defer")
+    if defer and dirty is None:
+        raise ValueError("directional_pass: defer needs the dirty table")
 
 
 def _check_xlanes(xcross, xlanes, shape) -> None:
@@ -603,15 +722,22 @@ def pass_needs_two_rows(xlanes) -> bool:
     return any(sel == 2 for sel, _ in xlanes)
 
 
+def pass_max_cols(two_rows: bool, partial: bool) -> int:
+    """The widest row the CUDA pass takes: the rows it keeps in shared
+    memory are the carried row, a second one with a sel-2 lane, and the
+    exchange row of the partial-depth scan."""
+    return (PASS_MAX_COLS, PASS_MAX_COLS_X2, PASS_MAX_COLS_X3)[int(two_rows) + int(partial)]
+
+
 def directional_pass_plain(
     d: torch.Tensor, cross: torch.Tensor, a_fwd: torch.Tensor, a_bwd: torch.Tensor,
     *, reverse: bool, bb: int, atol: float, rtol: float, force: bool = False,
     dirty: torch.Tensor | None = None, warm_cut: tuple | None = None,
     rows_walked: torch.Tensor | None = None, xcross: torch.Tensor | None = None,
-    xlanes: tuple = (),
+    xlanes: tuple = (), skip: bool = True, scan_steps: int = 0, defer: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the pass, in place on d [Rp, Cp, Bp]: the
-    full-depth configurations of _pass_kernel (skip=True).
+    """Plain PyTorch version of the pass, in place on d [Rp, Cp, Bp] (f32
+    or bfloat16 storage): the configurations of _pass_kernel.
     Rows run in order, the carried row is the row as written, `imp` is an
     any over each block of `bb` lanes and writes gate on
     need = imp | (force & any finite).
@@ -631,24 +757,44 @@ def directional_pass_plain(
     both compound along the chains a warm resolve re-solves (ROADMAP queue
     C), so the port keeps them. A full-depth scan leaves the row at its
     lateral fixed point, so no row is left off it unflagged.
+    `scan_steps` > 0 scans by that many doubling steps a direction on the
+    chain-weight levels a_fwd[r, :scan_steps] / a_bwd[r, :scan_steps] in
+    the reference's order (_doubling_scan; partial depth, :979-989); 0 is
+    the exact block scan from level 0. A partial scan that still improved
+    leaves its row dirty, so it is scanned again.
+    `defer` (scan_dirs="up", :969-996; needs `dirty`): the cross relaxation
+    only, no scan; need = imp | (force & any finite) (the dirty entry is
+    not read), the row writes need ? row0 : cur and dirty[j, row] =
+    max(dirty[j, row], need).
+    skip=False (:1041-1048; no dirty table, no defer): every row is scanned
+    from row0 and written, and `changed` flags scanned*(1+rtol)+atol < cur.
+    A bfloat16 field is widened to f32 at load, computed in f32 and rounded
+    to nearest-even at store; the carry is the row as stored in the skip
+    branches (:994, :1040), the unrounded scanned row without skip (:1048).
     With `warm_cut` = (cutlb [Rp, Cp], cutth [Bp], seedrc [2, Bp] int32)
-    (:864-878), which needs `dirty`, each row is cut at load: labels >=
-    cutlb[row, c] + cutth[lane] become +inf and each lane's seed (row, col)
-    becomes 0.
+    (:864-878), which needs `dirty` unless skip=False, each row is cut at
+    load: labels >= cutlb[row, c] + cutth[lane] become +inf and each lane's
+    seed (row, col) becomes 0.
     `rows_walked` (int [1], optional) gains the rows the kernel's blocks
     walk, summed over the blocks: every row without `dirty`; with it the
     rows that are needed or follow a needed row, or one of the two rows
     after it where a lane has sel 2 (the kernel jumps over the others, whose
     need its prescan reads from memory).
     Returns the changed flag (any imp, and with `dirty` any simp), int32 [1]."""
-    _require_dirty_for_cut(dirty, warm_cut)
+    _require_dirty_for_cut(dirty, warm_cut, skip)
+    _check_modes(dirty, skip, defer)
     Rp, Cp, Bp = d.shape
     _check_xlanes(xcross, xlanes, (Rp, Cp))
     two = pass_needs_two_rows(xlanes)
     nb = Bp // bb
     k = 1.0 + rtol
-    prev = prev2 = torch.full((Cp, Bp), INF, dtype=d.dtype, device=d.device)
+    f32 = torch.float32
+    prev = prev2 = torch.full((Cp, Bp), INF, dtype=f32, device=d.device)
     changed = torch.zeros((), dtype=torch.bool, device=d.device)
+    if scan_steps > 0:
+        scan = lambda row, r: _doubling_scan(row, a_fwd[r, :scan_steps], a_bwd[r, :scan_steps])  # noqa: E731
+    else:
+        scan = lambda row, r: _scan_row(row, a_fwd[r], a_bwd[r])  # noqa: E731
 
     def block_any(x):      # [Cp, Bp] -> [nb]
         return x.view(Cp, nb, bb).any(dim=2).any(dim=0)
@@ -662,7 +808,8 @@ def directional_pass_plain(
     walked = torch.zeros((), dtype=torch.int64, device=d.device)
     prev_need = prev2_need = torch.zeros(nb, dtype=torch.bool, device=d.device)
     for r in (range(Rp - 1, -1, -1) if reverse else range(Rp)):
-        cur = orig = d[r]
+        orig = d[r]
+        cur = orig.to(f32)
         if warm_cut is not None:
             cur = torch.where(cur >= cutlb[r][:, None] + cutth[None, :], INF, cur)
             hit = (seedrc[0][None, :] == r) & (seedrc[1][None, :] == cols)
@@ -682,25 +829,37 @@ def directional_pass_plain(
         row0 = torch.minimum(cur, cand)
         imp = block_any(cand * k + atol < cur)
         need = imp
-        if dirty is not None:
+        if not skip:
+            scanned = scan(row0, r)
+            changed |= (scanned * k + atol < cur).any()
+            d[r] = scanned.to(d.dtype)
+            prev2, prev = prev, scanned
+            walked += int(nb)
+            continue
+        if dirty is not None and not defer:
             need = need | (dirty[:, r] > 0)
         if force:
             need = need | block_any(row0 < INF)
         changed |= imp.any()
         new = cur
-        if dirty is not None:
+        if defer:
+            if bool(need.any()):
+                new = torch.where(lanes(need), row0, cur)
+            dirty[:, r] = torch.maximum(dirty[:, r], need.to(torch.int32))
+        elif dirty is not None:
             simp = torch.zeros_like(need)
             if bool(need.any()):
-                scanned = _scan_row(row0, a_fwd[r], a_bwd[r])
+                scanned = scan(row0, r)
                 simp = block_any(scanned * k + atol < row0) & need
                 new = torch.where(lanes(need), scanned, cur)
             dirty[:, r] = simp.to(torch.int32)
             changed |= simp.any()
         elif bool(need.any()):
-            new = torch.where(lanes(need), _scan_row(row0, a_fwd[r], a_bwd[r]), cur)
-        if new is not orig:
-            d[r] = new
-        prev2, prev = prev, new
+            new = torch.where(lanes(need), scan(row0, r), cur)
+        if new is not cur or warm_cut is not None:
+            d[r] = new.to(d.dtype)
+        stored = d[r].to(f32)
+        prev2, prev = prev, stored
         if dirty is None:
             walked += int(nb)
         else:
@@ -716,14 +875,16 @@ def directional_pass(
     *, reverse: bool, bb: int = PASS_LANES, atol: float, rtol: float,
     force: bool = False, dirty: torch.Tensor | None = None,
     warm_cut: tuple | None = None, rows_walked: torch.Tensor | None = None,
-    xcross: torch.Tensor | None = None, xlanes: tuple = (),
+    xcross: torch.Tensor | None = None, xlanes: tuple = (), skip: bool = True,
+    scan_steps: int = 0, defer: bool = False,
 ) -> torch.Tensor:
     """One directional Gauss-Seidel pass over every row of d, in place, with
-    the optional dirty table, warm cut and extended lanes of
-    directional_pass_plain. CPU tensors run directional_pass_plain; CUDA
-    tensors launch the csrc/banded_pass.cu kernel (8-lane blocks, with the
-    dirty table after its prescan) or raise. Rows take at most
-    PASS_MAX_COLS columns, PASS_MAX_COLS_X2 with a lane of sel 2.
+    the optional dirty table, warm cut, extended lanes, partial scan depth,
+    deferring and unskipped modes of directional_pass_plain. d is f32 or
+    bfloat16 (the storage type; every plane stays f32). CPU tensors run
+    directional_pass_plain; CUDA tensors launch the csrc/banded_pass.cu
+    kernel (8-lane blocks, with the dirty table after its prescan) or
+    raise. Rows take at most pass_max_cols(...) columns.
     `rows_walked` (int32 [1] on d's device, optional) gains the rows the
     kernel's blocks walked. Returns the changed flag as an int32 [1] tensor
     on d's device."""
@@ -732,21 +893,27 @@ def directional_pass(
         return directional_pass_plain(
             d, cross, a_fwd, a_bwd, reverse=reverse, bb=bb, atol=atol,
             rtol=rtol, force=force, dirty=dirty, warm_cut=warm_cut, rows_walked=rows_walked,
-            xcross=xcross, xlanes=xlanes,
+            xcross=xcross, xlanes=xlanes, skip=skip, scan_steps=scan_steps, defer=defer,
         )
     if d.device.type != "cuda":
         raise ValueError(f"directional_pass: unsupported device {d.device}")
-    _require_dirty_for_cut(dirty, warm_cut)
+    _require_dirty_for_cut(dirty, warm_cut, skip)
+    _check_modes(dirty, skip, defer)
     Rp, Cp, Bp = d.shape
     _check_xlanes(xcross, xlanes, (Rp, Cp))
     if bb != PASS_LANES or Bp % PASS_LANES:
         raise ValueError(f"the CUDA pass runs {PASS_LANES}-lane blocks (bb={bb}, Bp={Bp})")
-    max_cols = PASS_MAX_COLS_X2 if pass_needs_two_rows(xlanes) else PASS_MAX_COLS
+    if d.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"directional_pass: the field must be f32 or bfloat16, got {d.dtype}")
+    if scan_steps < 0 or scan_steps > min(a_fwd.shape[1], a_bwd.shape[1]):
+        raise ValueError(f"directional_pass: scan_steps={scan_steps} exceeds the chain weights' "
+                         f"{a_fwd.shape[1]} levels")
+    max_cols = pass_max_cols(pass_needs_two_rows(xlanes), scan_steps > 0 and not defer)
     if Cp > max_cols or Cp % pass_cols_per_thread(Cp):
         raise ValueError(f"the CUDA pass takes rows of at most {max_cols} columns, a "
                          f"multiple of pass_cols_per_thread past 32; got {Cp}")
     checks = [
-        ("d", d, (Rp, Cp, Bp), torch.float32), ("cross", cross, (Rp, 3, Cp), torch.float32),
+        ("d", d, (Rp, Cp, Bp), d.dtype), ("cross", cross, (Rp, 3, Cp), torch.float32),
         ("a_fwd", a_fwd, (Rp, a_fwd.shape[1], Cp), torch.float32),
         ("a_bwd", a_bwd, (Rp, a_bwd.shape[1], Cp), torch.float32),
     ]
@@ -763,7 +930,8 @@ def directional_pass(
         if t.device != d.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"directional_pass: bad {name} {tuple(t.shape)} {t.dtype} {t.device}")
     if not (all(t.is_contiguous() for name, t, _, _ in checks if name not in ("a_fwd", "a_bwd"))
-            and a_fwd.stride(2) == 1 and a_bwd.stride(2) == 1):
+            and a_fwd.stride(2) == 1 and a_bwd.stride(2) == 1
+            and a_fwd.stride(1) == Cp and a_bwd.stride(1) == Cp):
         raise ValueError("directional_pass: d, cross and the mode tables must be contiguous")
     if (any(t.data_ptr() % 16 for t in (d, cross, a_fwd, a_bwd))
             or a_fwd.stride(0) % 4 or a_bwd.stride(0) % 4):
@@ -771,24 +939,34 @@ def directional_pass(
     if rows_walked is not None and (rows_walked.device != d.device or rows_walked.numel() != 1
                                     or rows_walked.dtype != torch.int32):
         raise ValueError("directional_pass: rows_walked must be one int32 on d's device")
-    ptr = lambda t: None if t is None else t.data_ptr()
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     cutlb, cutth, seedrc = warm_cut if warm_cut is not None else (None, None, None)
     chg = torch.zeros(1, dtype=torch.int32, device=d.device)
-    need_bits = (None if dirty is None else
+    # an unskipped pass with the warm cut runs the prescan for the cut alone,
+    # on a scratch table of clean rows
+    table = dirty
+    if table is None and warm_cut is not None:
+        table = torch.zeros((Bp // PASS_LANES, Rp), dtype=torch.int32, device=d.device)
+    need_bits = (None if table is None else
                  torch.zeros((Bp // PASS_LANES, -(-Rp // 32)), dtype=torch.int32, device=d.device))
     xl = (ctypes.c_int * max(1, 2 * len(xlanes)))(*(v for lane in xlanes for v in lane))
+    mode = PASS_MODE_DEFER if defer else (PASS_MODE_SKIP if skip else PASS_MODE_NOSKIP)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = kernels.launcher("banded_pass")(
-        d.data_ptr(), cross.data_ptr(), a_fwd.data_ptr(), a_fwd.stride(0),
-        a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(dirty), ptr(need_bits),
-        ptr(rows_walked), ptr(cutlb), ptr(cutth), ptr(seedrc),
+        d.data_ptr(), int(d.dtype == torch.bfloat16), cross.data_ptr(), a_fwd.data_ptr(),
+        a_fwd.stride(0), a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(table),
+        ptr(need_bits), ptr(rows_walked), ptr(cutlb), ptr(cutth), ptr(seedrc),
         ptr(xcross) if xlanes else None, len(xlanes), xl, Rp, Cp, Bp,
-        int(reverse), int(force), 1.0 + rtol, atol, stream,
+        int(reverse), int(force), mode, 0 if defer else scan_steps, 1.0 + rtol, atol, stream,
     )
     kernels.check("banded_pass", err)
     kernels.LAUNCHES["banded_pass"] += 1
-    if dirty is not None:
-        kernels.LAUNCHES["banded_pass_dirty"] += 1
+    for key, on in (("banded_pass_dirty", dirty is not None),
+                    ("banded_pass_bf16", d.dtype == torch.bfloat16),
+                    ("banded_pass_partial", scan_steps > 0 and not defer),
+                    ("banded_pass_defer", defer), ("banded_pass_noskip", not skip)):
+        if on:
+            kernels.LAUNCHES[key] += 1
     return chg
 
 
@@ -816,7 +994,7 @@ def _class_sources(d: torch.Tensor, r0: int, r1: int):
     outside the row): (cur [n, Cp, Bp], (src_0, ..., src_7))."""
     Rp = d.shape[0]
     idx = torch.arange(r0 - 1, r1 + 1, device=d.device).clamp(0, Rp - 1)
-    blk = d[idx]                                       # [n+2, Cp, Bp]
+    blk = d[idx].to(torch.float32)                     # [n+2, Cp, Bp]
     cur, upr, dnr = blk[1:-1], blk[:-2], blk[2:]
     sh = lambda x, k: _shift_cols(x.transpose(0, 1), k).transpose(0, 1)
     return cur, (sh(cur, 1), sh(cur, -1), sh(upr, 1), upr, sh(upr, -1),
@@ -827,9 +1005,9 @@ def class_pred_plain(
     d: torch.Tensor, w8: torch.Tensor, *, R: int, C: int, V: int, tol: float,
     check: tuple | None = None, as_class: bool = True, row_chunk: int = 64,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Plain PyTorch version of the class-pred pass over d [Rp, Cp, Bp]:
-    argmin over the 8 classes with strict < in class order, halo rows
-    clamped at the field's edges. as_class: the int8 class, 8 = self;
+    """Plain PyTorch version of the class-pred pass over d [Rp, Cp, Bp] (f32,
+    or bfloat16 widened to f32): argmin over the 8 classes with strict < in
+    class order, halo rows clamped at the field's edges. as_class: the int8 class, 8 = self;
     else the int32 real id r*C + c + off_real[class], r*C + c for self
     (_pred_kernel's two modes). Rows go in chunks so the temporaries stay
     small. Returns (table [V, Bp], violation bool [] with check=(atol,
@@ -872,11 +1050,12 @@ def class_pred(
     d: torch.Tensor, w8: torch.Tensor, *, R: int, C: int, V: int, tol: float,
     check: tuple | None = None, as_class: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Predecessor table [V, Bp] of a padded field (int8 classes, or int32
-    real ids with as_class=False) and, with check=(atol, rtol), the
-    fixed-point violation flag. CPU tensors run class_pred_plain; CUDA
-    tensors launch csrc/class_pred.cu or raise. The flag is a [1] int32
-    (CUDA) or [] bool (CPU) tensor; test it with bool()."""
+    """Predecessor table [V, Bp] of a padded field (f32 or bfloat16, computed
+    in f32; int8 classes, or int32 real ids with as_class=False) and, with
+    check=(atol, rtol), the fixed-point violation flag. CPU tensors run
+    class_pred_plain; CUDA tensors launch csrc/class_pred.cu or raise. The
+    flag is a [1] int32 (CUDA) or [] bool (CPU) tensor; test it with
+    bool()."""
     if d.device.type == "cpu":
         return class_pred_plain(d, w8, R=R, C=C, V=V, tol=tol, check=check, as_class=as_class)
     if d.device.type != "cuda":
@@ -884,8 +1063,9 @@ def class_pred(
     Rp, Cp, Bp = d.shape
     if Bp % 4:
         raise ValueError(f"class_pred: lanes must be a multiple of 4, got {Bp}")
-    if not (d.is_contiguous() and d.dtype == torch.float32) or d.data_ptr() % 16:
-        raise ValueError("class_pred: d must be contiguous 16-byte aligned f32")
+    if (not d.is_contiguous() or d.dtype not in (torch.float32, torch.bfloat16)
+            or d.data_ptr() % 16):
+        raise ValueError("class_pred: d must be contiguous 16-byte aligned f32 or bfloat16")
     if (tuple(w8.shape) != (Rp, 8, Cp) or w8.dtype != torch.float32
             or not w8.is_contiguous() or w8.device != d.device):
         raise ValueError(f"class_pred: bad w8 {tuple(w8.shape)}")
@@ -895,12 +1075,16 @@ def class_pred(
     viol = None if check is None else torch.zeros(1, dtype=torch.int32, device=d.device)
     atol, rtol = check if check is not None else (0.0, 0.0)
     stream = torch.cuda.current_stream(d.device).cuda_stream
+    bf16 = d.dtype == torch.bfloat16
     err = kernels.launcher("class_pred")(
-        d.data_ptr(), w8.data_ptr(), out.data_ptr(), None if viol is None else viol.data_ptr(),
+        d.data_ptr(), int(bf16), w8.data_ptr(), out.data_ptr(),
+        None if viol is None else viol.data_ptr(),
         R, C, Rp, Cp, Bp, V, int(as_class), 1.0 + tol, tol, 1.0 + rtol, atol, stream,
     )
     kernels.check("class_pred", err)
     kernels.LAUNCHES["class_pred" if as_class else "class_pred_ids"] += 1
+    if bf16:
+        kernels.LAUNCHES["class_pred_bf16"] += 1
     return out, viol
 
 
@@ -1018,7 +1202,8 @@ def predecessors_banded_ids(
 def check_plain(
     d: torch.Tensor, w8: torch.Tensor, *, atol: float, rtol: float, row_chunk: int = 64,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the certificate over d [Rp, Cp, Bp]: True
+    """Plain PyTorch version of the certificate over d [Rp, Cp, Bp] (f32, or
+    bfloat16 widened to f32): True
     (bool []) when some element has best*(1+rtol)+atol < cur, best the min
     over the 8 class in-edges (halo rows clamped, as in class_pred_plain).
     Rows go in chunks so the temporaries stay small."""
@@ -1037,9 +1222,10 @@ def check_plain(
 
 
 def check(d: torch.Tensor, w8: torch.Tensor, *, atol: float, rtol: float) -> torch.Tensor:
-    """Fixed-point violation flag of a padded field: CPU tensors run
-    check_plain; CUDA tensors launch csrc/check.cu or raise. The flag is a
-    [1] int32 (CUDA) or [] bool (CPU) tensor; test it with bool()."""
+    """Fixed-point violation flag of a padded field (f32 or bfloat16,
+    computed in f32): CPU tensors run check_plain; CUDA tensors launch
+    csrc/check.cu or raise. The flag is a [1] int32 (CUDA) or [] bool (CPU)
+    tensor; test it with bool()."""
     if d.device.type == "cpu":
         return check_plain(d, w8, atol=atol, rtol=rtol)
     if d.device.type != "cuda":
@@ -1047,18 +1233,23 @@ def check(d: torch.Tensor, w8: torch.Tensor, *, atol: float, rtol: float) -> tor
     Rp, Cp, Bp = d.shape
     if Bp % 4:
         raise ValueError(f"check: lanes must be a multiple of 4, got {Bp}")
-    if not (d.is_contiguous() and d.dtype == torch.float32):
-        raise ValueError("check: d must be contiguous f32")
+    if (not d.is_contiguous() or d.dtype not in (torch.float32, torch.bfloat16)
+            or d.data_ptr() % 16):
+        raise ValueError("check: d must be contiguous 16-byte aligned f32 or bfloat16")
     if (tuple(w8.shape) != (Rp, 8, Cp) or w8.dtype != torch.float32
             or not w8.is_contiguous() or w8.device != d.device):
         raise ValueError(f"check: bad w8 {tuple(w8.shape)}")
     viol = torch.zeros(1, dtype=torch.int32, device=d.device)
     stream = torch.cuda.current_stream(d.device).cuda_stream
+    bf16 = d.dtype == torch.bfloat16
     err = kernels.launcher("check")(
-        d.data_ptr(), w8.data_ptr(), viol.data_ptr(), Rp, Cp, Bp, 1.0 + rtol, atol, stream,
+        d.data_ptr(), int(bf16), w8.data_ptr(), viol.data_ptr(), Rp, Cp, Bp, 1.0 + rtol, atol,
+        stream,
     )
     kernels.check("check", err)
     kernels.LAUNCHES["check"] += 1
+    if bf16:
+        kernels.LAUNCHES["check_bf16"] += 1
     return viol
 
 
@@ -1122,6 +1313,9 @@ class BandedPaddedResult:
     window: WindowRecord | None = None
 
 
+BF16_ATOL, BF16_RTOL = 1e-3, 4e-3   # the bfloat16 solve's tolerance floors (pallas_banded.py:1484-1486)
+
+
 def banded_solve_padded(
     plan: BandedKernelPlan,
     seeds: torch.Tensor,
@@ -1131,6 +1325,12 @@ def banded_solve_padded(
     rtol: float = 1e-5,
     converge: str = "round",
     timer=None,
+    dtype=torch.float32,
+    skip_rows: bool | None = None,
+    scan_steps: int = 0,
+    four_dir: bool | None = None,
+    plan_t: BandedKernelPlan | None = None,
+    scan_dirs: str = "both",
     warm_d: torch.Tensor | None = None,
     warm_changed: torch.Tensor | None = None,
     warm_raised: torch.Tensor | None = None,
@@ -1146,6 +1346,30 @@ def banded_solve_padded(
     the loop ends on a round with no supra-tolerance improvement. One host
     read of a flag per round.
 
+    The reference's solver options (pallas_banded.py:1413-1545):
+    - `dtype` torch.bfloat16 stores the field in bfloat16 (every plane and
+      chain weight stays f32; the passes compute in f32 and round to
+      nearest-even at store), with atol / rtol raised to at least
+      BF16_ATOL / BF16_RTOL. The result's d_pad stays bfloat16.
+    - skip_rows=False (None: True) scans and writes every row of every
+      pass, with no dirty table.
+    - `scan_steps` (0: the plan's depth) cuts the lateral scan to that many
+      doubling steps a direction (pass_scan_depth); below full depth the
+      passes keep the dirty table, so a row whose scan still improved is
+      scanned again.
+    - scan_dirs="up" (with skip_rows): the down pass relaxes the cross
+      edges only and defers each written row's scan to the up pass of the
+      same round through the dirty table.
+    - four_dir=True (None: False, :1532-1537) adds the column passes each
+      round, on the field transposed under `plan_t` (default:
+      transpose_banded_plan(plan)), after the row passes and before the
+      residual scatter-min; each orientation's dirty table takes the lines
+      the other changed (:1611-1625, :1647-1653). converge="pred" excludes
+      it (:1963).
+    The passes keep the dirty table (with skip_rows) wherever a scanned row
+    can be left off its lateral fixed point: residual edges, partial
+    depth, four_dir, the deferring pass, a warm resolve (:1545-1547).
+
     `warm_d` ([Rp, Cp, Bp], the previous solve's field for the same seeds)
     with `warm_changed` / `warm_raised` ([R, Cp] bool planes of changed /
     raised costs) and `warm_pos` (position_planes) is the incremental warm
@@ -1158,8 +1382,9 @@ def banded_solve_padded(
     `warm_window` (rows, a positive multiple of 128) runs the warm resolve's
     rounds on a slab of that many rows around the rows it affects
     (pallas_banded.py:1790-1944, with two faults of the reference repaired;
-    see _warm_window), where the plan has no residual edges and the window
-    is shorter than the field. The result's `window` records what it did.
+    see _warm_window), where the plan has no residual edges, neither
+    four_dir nor the deferring pass runs, and the window is shorter than
+    the field (:1804-1808). The result's `window` records what it did.
 
     `init_pad` ([R', Cp, B'] padded field) is the propagation mode
     (pallas_banded.py:1437-1448, :1499-1517): the field starts from a copy
@@ -1169,53 +1394,72 @@ def banded_solve_padded(
     point of the graph constraints from there. init_pad is unchanged.
 
     On an irregular plan (residual edges; pallas_banded.py:1530-1678) the
-    passes keep the dirty table and relax the plan's extended lanes, and
-    each round ends with the residual scatter-min (_residual_round):
-    converge="round" and "check" work there, "pred" does not (class tables
-    cannot hold residual predecessors).
-
-    Only full-depth plans; four_dir, scan_steps and bfloat16 of the
-    reference are not ported."""
+    passes relax the plan's extended lanes, and each round ends with the
+    residual scatter-min (_residual_round): converge="round" and "check"
+    work there, "pred" does not (class tables cannot hold residual
+    predecessors)."""
     if converge not in ("pred", "round", "check"):
         raise NotImplementedError(f"converge={converge!r}")
-    full = max(1, int(math.ceil(math.log2(max(plan.n_cols, 2)))))
-    if plan.n_scan < full:
-        raise NotImplementedError("partial scan depth")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the banded solve stores f32 or bfloat16 fields, not {dtype}")
+    if scan_dirs not in ("both", "up"):
+        raise ValueError(f"scan_dirs must be 'both' or 'up', got {scan_dirs!r}")
+    if dtype == torch.bfloat16:
+        atol, rtol = max(atol, BF16_ATOL), max(rtol, BF16_RTOL)
     check_warm_window(warm_window)
+    skip = True if skip_rows is None else bool(skip_rows)
+    four_dir = bool(four_dir)
+    defer = scan_dirs == "up" and skip
+    depth = pass_scan_depth(plan.n_cols, plan.n_scan, scan_steps)
     warm = warm_d is not None
     if warm and init_pad is not None:
         raise ValueError("init_pad and warm_d exclude each other")
-    prob = prepare_padded(plan, seeds, seeded=not warm and init_pad is None)
+    use_dirty = skip and (bool(plan.n_residual) or depth > 0 or four_dir or defer or warm)
+    prob = prepare_padded(plan, seeds, seeded=not warm and init_pad is None, dtype=dtype)
     Rp = prob.down.shape[0]
+    Cp = plan.n_cols_pad
     dirty = cut = None
     if warm:
         assert converge == "check", "warm resolve requires converge='check'"
         with _stage(timer, "warm_setup"):
             d, dirty, cut = _warm_start(
                 plan, seeds, warm_d, warm_changed, warm_raised, warm_pos,
-                Rp=Rp, bb=prob.bb, atol=atol, rtol=rtol,
+                Rp=Rp, bb=prob.bb, atol=atol, rtol=rtol, dtype=dtype,
             )
+        if not use_dirty:
+            dirty = None
     elif init_pad is not None:
-        d = conform_padded(init_pad, Rp, plan.n_cols_pad, _round_up(seeds.shape[0], prob.bb))
+        d = conform_padded(init_pad, Rp, Cp, _round_up(seeds.shape[0], prob.bb), dtype)
     else:
         d = prob.d0
-    if plan.n_residual and dirty is None:
-        dirty = torch.zeros((d.shape[2] // prob.bb, Rp), dtype=torch.int32, device=d.device)
+    nb = d.shape[2] // prob.bb
+    if use_dirty and dirty is None:
+        dirty = torch.zeros((nb, Rp), dtype=torch.int32, device=d.device)
+    cols = _columns_problem(plan, plan_t, Rp, nb, use_dirty, scan_steps) if four_dir else None
+    if four_dir and converge == "pred":
+        raise ValueError("converge='pred' excludes four_dir (pallas_banded.py:1963)")
+    pass_kw = dict(atol=atol, rtol=rtol, skip=skip)
 
     def one_round(force: bool = False, cut=None, force_up: bool = False) -> torch.Tensor:
         with _stage(timer, "solve"):
+            start = d.clone() if cols is not None and use_dirty and not force else None
             c_dn = directional_pass(
-                d, prob.down, prob.a_fwd, prob.a_bwd, reverse=False,
-                atol=atol, rtol=rtol, force=force, dirty=dirty, warm_cut=cut,
-                xcross=prob.xdown, xlanes=plan.xlanes_down,
+                d, prob.down, prob.a_fwd, prob.a_bwd, reverse=False, force=force, dirty=dirty,
+                warm_cut=cut, xcross=prob.xdown, xlanes=plan.xlanes_down,
+                scan_steps=0 if defer else depth, defer=defer, **pass_kw,
             )
             c_up = directional_pass(
-                d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True, atol=atol, rtol=rtol,
-                force=force_up, dirty=dirty, xcross=prob.xup, xlanes=plan.xlanes_up,
+                d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True, force=force_up, dirty=dirty,
+                xcross=prob.xup, xlanes=plan.xlanes_up, scan_steps=depth, **pass_kw,
             )
             changed = c_dn | c_up
-            if plan.n_residual:
-                changed = changed | _residual_round(plan, d, dirty, prob.bb, atol, rtol)
+        if cols is not None:
+            changed = changed | _column_passes(d, start, dirty, cols, force, timer, **pass_kw)
+        if plan.n_residual:
+            with _stage(timer, "solve"):
+                changed = changed | _residual_round(
+                    plan, d, dirty, prob.bb, atol, rtol,
+                    dirty_t=None if cols is None else cols["dirty"])
         return changed
 
     if converge == "pred":
@@ -1256,10 +1500,11 @@ def banded_solve_padded(
                 return check_converged_banded(plan, d, atol=atol, rtol=rtol, w8=w8)
 
         window = None
-        if warm and warm_window is not None and not plan.n_residual and warm_window < Rp:
+        if (warm and warm_window is not None and not plan.n_residual and not four_dir
+                and not defer and warm_window < Rp):
             window = _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, warm_window,
                                   max_rounds=min(WINDOW_MAX_ROUNDS, max_rounds), atol=atol,
-                                  rtol=rtol, timer=timer)
+                                  rtol=rtol, timer=timer, skip=skip, depth=depth)
         if window is not None and window.done:
             return BandedPaddedResult(d_pad=d, rounds=window.slab_rounds, converged=True,
                                       window=window)
@@ -1291,27 +1536,90 @@ def banded_solve_padded(
     return BandedPaddedResult(d_pad=d, rounds=rounds, converged=not changed)
 
 
-def _residual_round(plan, d, dirty, bb: int, atol: float, rtol: float) -> torch.Tensor:
+def _columns_problem(plan, plan_t, Rp: int, nb: int, use_dirty: bool, scan_steps: int) -> dict:
+    """The column passes' planes and dirty table (pallas_banded.py:1552-1582):
+    the transposed plan's planes padded to Cp rows (the field's padded
+    columns; rows past its n_rows are +inf), the transposed field's width
+    its n_cols_pad (the plan's rows rounded up to 8, >= Rp), its own scan
+    depth, and a [nb, Cp] dirty table."""
+    pt = transpose_banded_plan(plan) if plan_t is None else plan_t
+    Cp = plan.n_cols_pad
+    if pt.n_rows != plan.n_cols or pt.n_cols != plan.n_rows or pt.n_cols_pad < Rp:
+        raise ValueError("plan_t is not this plan's transpose")
+    pad = lambda p: _pad_rows(p, Cp).contiguous()   # noqa: E731
+    return dict(
+        plan=pt, down=pad(pt.down), up=pad(pt.up), a_fwd=pad(pt.a_fwd), a_bwd=pad(pt.a_bwd),
+        xdown=pad(pt.xdown) if pt.xlanes_down else None,
+        xup=pad(pt.xup) if pt.xlanes_up else None,
+        depth=pass_scan_depth(pt.n_cols, pt.n_scan, scan_steps),
+        dirty=torch.zeros((nb, Cp), dtype=torch.int32, device=pt.device) if use_dirty else None,
+    )
+
+
+def _column_passes(d, start, dirty, cols: dict, force: bool, timer, **pass_kw) -> torch.Tensor:
+    """The column passes of a four_dir round (pallas_banded.py:1607-1656), in
+    place on d [Rp, Cp, Bp]: the column dirty table takes every column a
+    row pass changed since `start` (every column on a forced round), the
+    field is transposed to [Cp, Rt, Bp], passed down (forced on a forced
+    round) and up under the transposed plan, the row dirty table takes
+    every row a column pass changed, and the field is transposed back.
+    Returns the column passes' changed flag."""
+    pt, dirty_t = cols["plan"], cols["dirty"]
+    Rp, Cp, Bp = d.shape
+    nb = Bp // PASS_LANES if dirty_t is None else dirty_t.shape[0]
+    with _stage(timer, "transpose"):
+        if dirty_t is not None:
+            if force:
+                dirty_t.fill_(1)
+            else:
+                colj = (d != start).any(dim=0).view(Cp, nb, -1).any(dim=2)      # [Cp, nb]
+                torch.maximum(dirty_t, colj.T.to(torch.int32), out=dirty_t)
+        dt = torch.full((Cp, pt.n_cols_pad, Bp), INF, dtype=d.dtype, device=d.device)
+        dt[:, :Rp] = d.transpose(0, 1)
+        before = dt.clone() if dirty is not None else None
+    with _stage(timer, "solve"):
+        c_l = directional_pass(dt, cols["down"], cols["a_fwd"], cols["a_bwd"], reverse=False,
+                               force=force, dirty=dirty_t, xcross=cols["xdown"],
+                               xlanes=pt.xlanes_down, scan_steps=cols["depth"], **pass_kw)
+        c_r = directional_pass(dt, cols["up"], cols["a_fwd"], cols["a_bwd"], reverse=True,
+                               dirty=dirty_t, xcross=cols["xup"], xlanes=pt.xlanes_up,
+                               scan_steps=cols["depth"], **pass_kw)
+    with _stage(timer, "transpose"):
+        if dirty is not None:
+            rowj = (dt[:, :Rp] != before[:, :Rp]).any(dim=0).view(Rp, nb, -1).any(dim=2)
+            torch.maximum(dirty, rowj.T.to(torch.int32), out=dirty)
+            del before
+        d.copy_(dt[:, :Rp].transpose(0, 1))
+    return c_l | c_r
+
+
+def _residual_round(plan, d, dirty, bb: int, atol: float, rtol: float,
+                    dirty_t: torch.Tensor | None = None) -> torch.Tensor:
     """The residual scatter-min that ends a round on an irregular plan
     (pallas_banded.py:1655-1676), in place on d: cand = d[src] + w, the
     ungated write d[dst] = min(d[dst], cand) (sub-tolerance gains are kept,
     unlike the passes), and where a candidate improved by more than the
-    tolerance, its destination row is marked dirty for its 8-lane block.
-    Plain torch, as the reference's is XLA code outside any Pallas kernel.
-    Returns the improved flag (bool [1] tensor)."""
+    tolerance, its destination row is marked dirty for its 8-lane block
+    (and, with the column passes' table `dirty_t`, its column). A bfloat16
+    field adds in bfloat16 (the weights rounded to it first) and compares
+    the improvement in f32. Plain torch, as the reference's is XLA code
+    outside any Pallas kernel. Returns the improved flag (bool [1] tensor)."""
     Rp, Cp, Bp = d.shape
     dst, src, w = _residual_edges(plan)
     flat = d.view(Rp * Cp, Bp)
-    cand = flat.index_select(0, src) + w[:, None]
-    imp = cand * (1.0 + rtol) + atol < flat.index_select(0, dst)
+    cand = flat.index_select(0, src) + w.to(d.dtype)[:, None]
+    imp = cand.float() * (1.0 + rtol) + atol < flat.index_select(0, dst).float()
     flat.index_reduce_(0, dst, cand, "amin")
-    impj = imp.view(-1, Bp // bb, bb).any(dim=2).T.to(torch.int32)     # [nb, n]
-    dirty.index_reduce_(1, dst // Cp, impj, "amax")
+    if dirty is not None:
+        impj = imp.view(-1, Bp // bb, bb).any(dim=2).T.to(torch.int32)     # [nb, n]
+        dirty.index_reduce_(1, dst // Cp, impj, "amax")
+        if dirty_t is not None:
+            dirty_t.index_reduce_(1, dst % Cp, impj, "amax")
     return imp.any().reshape(1)
 
 
 def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
-                Rp: int, bb: int, atol: float, rtol: float):
+                Rp: int, bb: int, atol: float, rtol: float, dtype=torch.float32):
     """Start of the incremental warm resolve (pallas_banded.py:1686-1789):
     (field copy, dirty table [Bp // bb, Rp] int32, warm cut args).
 
@@ -1335,11 +1643,11 @@ def _warm_start(plan, seeds, warm_d, warm_changed, warm_raised, warm_pos, *,
     mask_p = _pad_rows(_dilate_changed(plan, warm_changed), Rp, False)
     raise_p = (mask_p if warm_raised is None
                else _pad_rows(_dilate_changed(plan, warm_raised), Rp, False))
-    d = warm_d.to(torch.float32, copy=True)
+    d = warm_d.to(dtype, copy=True)
     rows = torch.nonzero(raise_p.any(dim=1)).flatten().tolist()
     if rows:
         a, b = rows[0], rows[-1] + 1
-        thresh = torch.where(raise_p[a:b, :, None], d[a:b], INF).amin(dim=(0, 1))
+        thresh = torch.where(raise_p[a:b, :, None], warm_d[a:b].float(), INF).amin(dim=(0, 1))
     else:
         thresh = torch.full((Bp,), INF, dtype=torch.float32, device=dev)
     thresh = thresh * (1.0 - 2.0 * rtol) - 2.0 * atol
@@ -1371,7 +1679,8 @@ _WINDOW_SCAN_ROWS = 128   # rows a step of the window's footprint scan reads
 
 
 def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
-                 max_rounds: int, atol: float, rtol: float, timer=None) -> WindowRecord:
+                 max_rounds: int, atol: float, rtol: float, timer=None, skip: bool = True,
+                 depth: int = 0) -> WindowRecord:
     """The windowed warm resolve (pallas_banded.py:1790-1944), in place on
     the warm copy d and its dirty table, after _warm_start.
 
@@ -1407,7 +1716,8 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
     is forced, the slab's first round rescans every interior row in both
     passes, through the dirty table: the force flag would rescan the ghost
     rows too and rewrite them by sub-tolerance gains, which the seam test
-    reads as a crossing."""
+    reads as a crossing. With skip=False (no dirty table) every slab pass
+    scans every slab row; `depth` is the passes' partial scan depth."""
     Rp, Cp, Bp = d.shape
     GH = WINDOW_GHOST
     lb, thresh, seedrc = cut
@@ -1444,7 +1754,8 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
     # the first round marks every interior row before each pass (the
     # affected rows all lie there); a ghost row is walked only where a gain
     # crosses the seam, so a seed at 0 in it is not rescanned
-    dirty_s = torch.zeros((dirty.shape[0], W), dtype=torch.int32, device=dev)
+    dirty_s = (None if dirty is None else
+               torch.zeros((dirty.shape[0], W), dtype=torch.int32, device=dev))
     planes = [(prob.down[sl], prob.xdown[sl] if prob.xdown is not None else None,
                plan.xlanes_down, False),
               (prob.up[sl], prob.xup[sl] if prob.xup is not None else None, plan.xlanes_up, True)]
@@ -1454,11 +1765,11 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
     def slab_round(warm_cut=None):
         with _stage(timer, "solve"):
             for cross, xcross, xlanes, reverse in planes:
-                if warm_cut is not None:
+                if warm_cut is not None and dirty_s is not None:
                     dirty_s[:, interior] = 1
                 directional_pass(d_s, cross, a_fwd, a_bwd, reverse=reverse, atol=atol, rtol=rtol,
                                  dirty=dirty_s, warm_cut=None if reverse else warm_cut,
-                                 xcross=xcross, xlanes=xlanes)
+                                 xcross=xcross, xlanes=xlanes, skip=skip, scan_steps=depth)
 
     def state():
         """(violates, seam broken), one host read."""
@@ -1479,20 +1790,21 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
         rounds += 1
         violates, seam = state()
     done = not violates and not seam
-    if not done:
+    if not done and dirty is not None:
         dirty[:, sl] = 1
     return WindowRecord(fit=True, slab_rounds=rounds, seam_abort=seam, done=done)
 
 
-def conform_padded(x: torch.Tensor, rows: int, cols: int, lanes: int) -> torch.Tensor:
-    """A new [rows, cols, lanes] f32 field from a padded field x [R', cols,
-    B']: rows and lanes that x lacks are +inf, those it has in excess are
-    cut (pallas_banded.py:1499-1517)."""
+def conform_padded(x: torch.Tensor, rows: int, cols: int, lanes: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    """A new [rows, cols, lanes] field of `dtype` from a padded field x [R',
+    cols, B']: rows and lanes that x lacks are +inf, those it has in excess
+    are cut (pallas_banded.py:1499-1517)."""
     if x.dim() != 3 or x.shape[1] != cols:
         raise ValueError(f"padded field {tuple(x.shape)} does not have {cols} padded columns")
     if tuple(x.shape) == (rows, cols, lanes):
-        return x.to(torch.float32, copy=True)
-    out = torch.full((rows, cols, lanes), INF, dtype=torch.float32, device=x.device)
+        return x.to(dtype, copy=True)
+    out = torch.full((rows, cols, lanes), INF, dtype=dtype, device=x.device)
     r, b = min(rows, x.shape[0]), min(lanes, x.shape[2])
     out[:r, :, :b] = x[:r, :, :b]
     return out

@@ -11,6 +11,12 @@ they launch and nowhere else. The pass
 kernel's launches in its dirty-table mode (the warm resolve) are also
 counted apart, under "banded_pass_dirty"; the class-pred kernel's launches
 in its int32-id mode are counted under "class_pred_ids", not "class_pred".
+The instantiations and modes of the solver's opt-in options are counted
+apart too, beside the kernel's own count: a bfloat16 field under
+"<kernel>_bf16" (banded_pass, class_pred and class_pred_ids alike under
+"class_pred_bf16", check, fused_sweep), and the pass's partial scan depth,
+deferring and unskipped modes under "banded_pass_partial",
+"banded_pass_defer" and "banded_pass_noskip".
 """
 
 from __future__ import annotations
@@ -37,9 +43,12 @@ NVCC_FLAGS = [
 # per-source additions: the eikonal pass rounds as its plain PyTorch version
 # does only without multiply-add contraction
 EXTRA_FLAGS = {"eik_pass": ["--fmad=false"]}
-LAUNCHES: dict[str, int] = {
-    name: 0 for name in (*SOURCES, "banded_pass_dirty", "class_pred_ids")
-}
+MODE_COUNTS = (
+    "banded_pass_dirty", "class_pred_ids", "banded_pass_bf16", "banded_pass_partial",
+    "banded_pass_defer", "banded_pass_noskip", "class_pred_bf16", "check_bf16",
+    "fused_sweep_bf16",
+)
+LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *MODE_COUNTS)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -50,20 +59,21 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "banded_pass": ("banded_pass_launch",
-                    [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                     _I, _I, _I, _I, _I, _F, _F, _P]),
+                    [_P, _I, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
     "class_pred": ("class_pred_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
-    "check": ("check_launch", [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
+                   [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
+    "check": ("check_launch", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P]),
     "eik_pass": ("eik_pass_launch",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _F, _F, _P]),
-    "fused_sweep": ("fused_sweep_launch", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
+    "fused_sweep": ("fused_sweep_launch", [_P, _I, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
 }
 # launch-shape queries a kernel's library also exports (the first is the
 # kernel's default query)
 _QUERIES = {"eik_pass": (("eik_pass_grid", [_I, _I, _I, _I, _P]),),
-            "banded_pass": (("banded_pass_max_cols", []), ("banded_pass_max_cols_x2", []))}
+            "banded_pass": (("banded_pass_max_cols", []), ("banded_pass_max_cols_x2", []),
+                            ("banded_pass_max_cols_x3", []))}
 
 
 def reset_launches() -> None:

@@ -141,12 +141,12 @@ def default_n_inner(plan: OffsetPlan, tile: int) -> int:
     return int(np.clip(-(-tile // max(max_off, 1)), 2, 12))
 
 
-def seeded_padded(V: int, seeds: torch.Tensor, tile: int) -> torch.Tensor:
-    """The [T + Vp + T, B] start matrix: 0 at each lane's seed vertex, +inf
-    elsewhere, Vp the vertex count rounded up to the tile."""
+def seeded_padded(V: int, seeds: torch.Tensor, tile: int, dtype=torch.float32) -> torch.Tensor:
+    """The [T + Vp + T, B] start matrix of `dtype`: 0 at each lane's seed
+    vertex, +inf elsewhere, Vp the vertex count rounded up to the tile."""
     B = seeds.shape[0]
     Vp = -(-V // tile) * tile
-    dp = torch.full((tile + Vp + tile, B), INF, dtype=torch.float32, device=seeds.device)
+    dp = torch.full((tile + Vp + tile, B), INF, dtype=dtype, device=seeds.device)
     dp[seeds.long() + tile, torch.arange(B, device=seeds.device)] = 0.0
     return dp
 
@@ -179,9 +179,17 @@ def batched_field_structured(
     were run. `tile` / `n_inner` (0: default_tile / default_n_inner) set the
     schedule. Three [T + Vp + T, B] buffers live during the loop: the
     block's input and two that the sweeps alternate between. `timer`
-    records the solve, solve_check and pred stages."""
-    if dtype != torch.float32:
-        raise NotImplementedError("the bfloat16 structured solve")
+    records the solve, solve_check and pred stages.
+
+    dtype=torch.bfloat16 is the approximate mode (structured.py:156-162,
+    :200-245): the matrix, the weight planes and the residual weights are
+    all bfloat16 and every add is a bfloat16 add; the field comes out as
+    f32 and its predecessors are recovered in f32 at tol 1e-2. A monotone
+    rounded min-plus operator iterated from +inf stops at the greatest
+    fixed point below the start under any schedule, so the field equals
+    the reference's roll path bit for bit."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the structured solve stores f32 or bfloat16 fields, not {dtype}")
     V, _ = weights_vd.shape
     B = seeds.shape[0]
     if max_sweeps <= 0:
@@ -194,13 +202,13 @@ def batched_field_structured(
     T = tile
     Vp = -(-V // T) * T
     dev = weights_vd.device
-    planes_p = torch.full((len(plan.offsets), Vp), INF, dtype=torch.float32, device=dev)
-    planes_p[:, :V] = plan.planes
+    planes_p = torch.full((len(plan.offsets), Vp), INF, dtype=dtype, device=dev)
+    planes_p[:, :V] = plan.planes.to(dtype)
     has_residual = plan.has_residual
     if has_residual:
         res_src = plan.res_src.long() + T
         res_idx = (plan.res_dst.long() + T)[:, None].expand(-1, B)
-        res_w = plan.res_w[:, None]
+        res_w = plan.res_w.to(dtype)[:, None]
 
     def sweep(d, out):
         d = sweep_gpu.fused_sweep(d, planes_p, plan.offsets, tile=T, n_inner=n_inner, out=out)
@@ -209,7 +217,7 @@ def batched_field_structured(
         return d
 
     with _stage(timer, "solve"):
-        d0 = seeded_padded(V, seeds.to(dev), T)
+        d0 = seeded_padded(V, seeds.to(dev), T, dtype)
         d = sweep(d0, None)
         bufs = [d0, torch.empty_like(d)]
     sweeps, changed = 1, True
@@ -224,9 +232,10 @@ def batched_field_structured(
         # the next block's first sweep must not write over its own input
         bufs = [d, bufs[block_sweeps % 2]]
         d = new
-    dist = d[T:T + V]
+    dist = d[T:T + V].to(torch.float32)
     with _stage(timer, "pred"):
-        pred = predecessors_from_field(mesh, weights_vd, dist, tol=1e-6)
+        pred = predecessors_from_field(mesh, weights_vd, dist,
+                                       tol=1e-6 if dtype == torch.float32 else 1e-2)
     return StructuredFieldResult(dist=dist.T, pred=pred.T, sweeps=sweeps, converged=not changed)
 
 

@@ -6,7 +6,8 @@ relaxed `n_inner` times against its neighbour tiles as they were at the
 sweep's input. `fused_sweep` launches csrc/fused_sweep.cu for a CUDA tensor
 and runs `_fused_sweep_plain`, the plain PyTorch version, for a CPU tensor.
 Both write a buffer apart from their input, and agree bit for bit: every
-value is one f32 add and a min.
+value is one add and a min, in f32 or, for a bfloat16 matrix and planes, in
+bfloat16 (the f32 sum of two bfloat16 values rounded to nearest-even).
 """
 
 from __future__ import annotations
@@ -87,8 +88,8 @@ def _fused_sweep_plain(
 
 
 def fused_sweep(
-    dist_padded: torch.Tensor,   # [T + Vp + T, B] f32, one +inf tile each end
-    planes: torch.Tensor,        # [K, Vp] f32 per-class weights (+inf = no edge)
+    dist_padded: torch.Tensor,   # [T + Vp + T, B] f32 or bf16, one +inf tile each end
+    planes: torch.Tensor,        # [K, Vp] per-class weights of the same type (+inf = no edge)
     offsets: tuple[int, ...],
     tile: int = 512,
     n_inner: int = 1,
@@ -106,9 +107,12 @@ def fused_sweep(
     if dist_padded.device.type != "cuda":
         raise ValueError(f"fused_sweep: unsupported device {dist_padded.device}")
     _check_args(dist_padded, planes, offsets, tile, n_inner, out)
+    dtype = dist_padded.dtype
     for name, t in (("dist_padded", dist_padded), ("planes", planes)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dist_padded.device:
-            raise ValueError(f"fused_sweep: {name} must be contiguous f32 on {dist_padded.device}")
+        if (t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16)
+                or not t.is_contiguous() or t.device != dist_padded.device):
+            raise ValueError(f"fused_sweep: {name} must be contiguous f32 or bfloat16, of one "
+                             f"type with the matrix, on {dist_padded.device}")
     K, Vp = planes.shape
     B = dist_padded.shape[1]
     if out is None:
@@ -117,15 +121,18 @@ def fused_sweep(
     out[tile + Vp:] = INF
     offs = (ctypes.c_int * max(K, 1))(*offsets)
     stream = torch.cuda.current_stream(dist_padded.device).cuda_stream
+    bf16 = dtype == torch.bfloat16
     err = kernels.launcher("fused_sweep")(
-        dist_padded.data_ptr(), planes.data_ptr(), out.data_ptr(), ctypes.addressof(offs),
-        K, Vp, tile, B, n_inner, stream,
+        dist_padded.data_ptr(), int(bf16), planes.data_ptr(), out.data_ptr(),
+        ctypes.addressof(offs), K, Vp, tile, B, n_inner, stream,
     )
     if err == _NO_FIT:
         raise ValueError(f"fused_sweep: the window of tile {tile} and offsets {offsets} "
                          "does not fit in a block's shared memory")
     kernels.check("fused_sweep", err)
     kernels.LAUNCHES["fused_sweep"] += 1
+    if bf16:
+        kernels.LAUNCHES["fused_sweep_bf16"] += 1
     return out
 
 

@@ -170,9 +170,19 @@ class DijkstraPlanner:
         light: bool = True,
         atol: float = 1e-5,
         rtol: float = 1e-5,
+        dtype=torch.float32,
+        scan_steps: int = 0,
         timer=None,
     ) -> PlanResult:
         """Batch planning via banded GS fast sweeping.
+
+        dtype=torch.bfloat16 opts into the approximate solve with the field
+        stored in bfloat16 (banded_solve_padded; tolerance floors 1e-3 /
+        4e-3); `scan_steps` cuts the lateral scan depth (0: full). Both
+        paths take them as the reference's does (dijkstra.py:170-245). A
+        bfloat16 solve ends on a quiet round, not on the class-pred
+        certificate, and its predecessors are read at tol 1e-2 (light: the
+        class table; full: the id table); the unpadded potential is f32.
 
         light=True: the result has no vector map, predecessor map or [B, V]
         potential; predecessors come from an int8 class table: the solve's
@@ -194,11 +204,13 @@ class DijkstraPlanner:
         ids differ only where two in-edges tie (ROADMAP queue C). `timer`
         records the snap, solve, pred, vector_map, extract and pose
         stages."""
+        bf16 = dtype == torch.bfloat16
         if not light:
             return self._plan_batch_banded_full(kernel_plan, starts, goals, atol=atol,
-                                                rtol=rtol, timer=timer)
+                                                rtol=rtol, dtype=dtype, scan_steps=scan_steps,
+                                                timer=timer)
         plan = kernel_plan
-        if not (atol > 0 or rtol > 0):
+        if not (atol > 0 or rtol > 0 or bf16):
             raise ValueError("the banded light path needs a positive tolerance")
         starts = starts.to(self.device, torch.float32)
         goals = goals.to(self.device, torch.float32)
@@ -209,20 +221,24 @@ class DijkstraPlanner:
             goal_s = goal_v[order]
             start_s = start_v[order]
         max_rounds = max(self.config.max_sweeps // 2, 64)
+        tol = 1e-2 if bf16 else max(1e-5, 3.0 * rtol)
+        use_pred_conv = not plan.n_residual and not bf16
         res = _bg.banded_solve_padded(
             plan, goal_s, max_rounds=max_rounds, atol=atol, rtol=rtol,
-            converge="round" if plan.n_residual else "pred", timer=timer,
+            converge="pred" if use_pred_conv else "round", timer=timer, dtype=dtype,
+            scan_steps=scan_steps,
         )
         C, Cp = plan.n_cols, plan.n_cols_pad
         B = start_v.shape[0]
         cls, decode = res.cls, {}
         if plan.n_residual:
             with _stage(timer, "pred"):
-                cls, choice = _bg.predecessors_banded_classes_residual(
-                    plan, res.d_pad, tol=max(1e-5, 3.0 * rtol)
-                )
+                cls, choice = _bg.predecessors_banded_classes_residual(plan, res.d_pad, tol=tol)
             decode = dict(res_row_map=plan.res_row_map, res_jump=plan.res_jump,
                           res_choice=choice)
+        elif not use_pred_conv:
+            with _stage(timer, "pred"):
+                cls = _bg.predecessors_banded_classes(plan, res.d_pad, tol=tol)
         with _stage(timer, "extract"):
             path, valid = _bg.extract_paths_cls(
                 cls, start_s, goal_s, self.max_path_len, C, **decode
@@ -254,7 +270,8 @@ class DijkstraPlanner:
             )
         return result
 
-    def _plan_batch_banded_full(self, plan, starts, goals, *, atol, rtol, timer):
+    def _plan_batch_banded_full(self, plan, starts, goals, *, atol, rtol, dtype, scan_steps,
+                                timer):
         starts = starts.to(self.device, torch.float32)
         goals = goals.to(self.device, torch.float32)
         with _stage(timer, "snap"):
@@ -263,12 +280,15 @@ class DijkstraPlanner:
         max_rounds = max(self.config.max_sweeps // 2, 64)
         res = _bg.banded_solve_padded(
             plan, goal_v, max_rounds=max_rounds, atol=atol, rtol=rtol, converge="round",
-            timer=timer,
+            timer=timer, dtype=dtype, scan_steps=scan_steps,
         )
         R, C, V, B = plan.n_rows, plan.n_cols, plan.num_vertices, start_v.shape[0]
+        # pallas_banded.py:3007: a bfloat16 field's predecessors at tol 1e-2
+        pred_tol = 1e-2 if dtype == torch.bfloat16 else max(atol, 1e-6)
         with _stage(timer, "pred"):
-            dist = res.d_pad[:R, :C, :B].reshape(R * C, B)[:V].T.contiguous()   # [B, V]
-            ids = _bg.predecessors_banded_ids(plan, res.d_pad, tol=max(atol, 1e-6))
+            dist = res.d_pad[:R, :C, :B].reshape(R * C, B)[:V].T.to(torch.float32)   # [B, V]
+            dist = dist.contiguous()
+            ids = _bg.predecessors_banded_ids(plan, res.d_pad, tol=pred_tol)
             pred = ids[:, :B].T.contiguous()
             del ids
         return self._finish_batch(dist, pred, start_v, goal_v, rounds=res.rounds,
@@ -348,4 +368,4 @@ def potential_lanes(
     R, C, V = plan.n_rows, plan.n_cols, plan.num_vertices
     cols = lane_map[torch.as_tensor(robots, device=lane_map.device)]
     sub = d_pad[:R, :C, :][..., cols]                       # [R, C, k]
-    return sub.reshape(R * C, -1)[:V].T.cpu().numpy()
+    return sub.reshape(R * C, -1)[:V].T.float().cpu().numpy()

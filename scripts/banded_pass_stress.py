@@ -12,22 +12,33 @@ scripts/banded_jump_stress.py stresses:
   end;
 - the dirty mode's second read of the carried row (row0 recomputed for
   the flag of a needed row's scan), which the block's vote on that flag
-  must finish before any thread writes its row into the carry.
+  must finish before any thread writes its row into the carry;
+- the bf16 field's stage ring (TMA boxes of 16-byte rows, the stage's byte
+  count on its barrier) and stores rounded to bf16;
+- the partial-depth exchange row: each doubling step every thread
+  publishes its columns, and after a barrier reads its neighbour's 2^s
+  columns away, and a second barrier frees the row for the next step;
+- the deferring and unskipped row modes.
 
 Launches the shipped kernel many times, then a lagging copy
 (scripts/lagging_copy.py) in which, row by row in turn, one warp sleeps
 ~80 us before the stage wait, another before it reads the carried rows,
 another before the dirty mode's second read of them, another before it
-writes its row into the carry, and thread 0 before it
-re-arms the next stage, with the stage barrier's assertion cut to ~2 s of
-the SM's cycles; and holds the first, the last and every `--every`-th
+writes its row into the carry, another before it publishes to and another
+before it reads from the partial-depth exchange row, and thread 0 before
+it re-arms the next stage, with the stage barrier's assertion cut to ~2 s
+of the SM's cycles; and holds the first, the last and every `--every`-th
 result (field, dirty table, flag, rows walked) against the plain version,
 bit for bit. Inputs: a 256 x 1,024 terrain with 128 lanes (eight-warp
 blocks, rows staged by TMA): a forced down pass from the seeds, an up pass
 from its result, and a dirty-table pass with every row dirty on the
-converged field; extended lanes of all three kinds on random 64-row fields
-of 1,024 columns (staged, two carried rows) and 2,048 columns (eight
-columns a thread, rows from device memory), forced and dirty-driven.
+converged field; the same three in bf16; a partial-depth (5 steps)
+dirty-driven down pass, in f32 and bf16, a deferring down pass and an
+unskipped up pass, on the same terrain; extended lanes of all three kinds
+on random 64-row fields of 1,024 columns (staged, two carried rows) and
+2,048 columns (eight columns a thread, rows from device memory), forced
+and dirty-driven, and at 1,024 columns with partial depth (three rows in
+shared memory: rows from device memory).
 
 Run from the tree's root on a machine with the card:
 
@@ -52,7 +63,7 @@ from mesh_navigation_torch.ops import sweeps  # noqa: E402
 ATOL, RTOL = 1e-4, 2e-3
 XLANES = ((2, 0), (2, -1), (1, 2), (1, -2), (0, -3), (0, 2), (0, 4), (0, -4))
 PATCHES = [
-    ("      wait_slot(slot);\n    }\n    const float* cp = cur_ptr(r, slot);",
+    ("      wait_slot(slot);\n    }\n    const float* srow = stage + slot * slot_f;",
      "      " + lc.lag("((warp + r) & 7) == 3")),
     ("      if (pre && tid == 0) {\n        bulk_wait_read<1>();",
      "      " + lc.lag("tid == 0 && (r & 3) == 1")),
@@ -64,6 +75,10 @@ PATCHES = [
      "        " + lc.lag("((warp + r) & 7) == 6")),
     ("    if (staged_row >= 0) wait_slot(slot);   // a prefetch no row took",
      "    " + lc.lag("(warp & 1) == 1")),
+    ("        if (thr_ok) {\n          #pragma unroll\n          for (int i = 0; i < CPT; ++i) {\n"
+     "            xb4[", "        " + lc.lag("((warp + r + s) & 7) == 4")),
+    ("        const int k = dir == 0 ? -(1 << s) : (1 << s);",
+     "        " + lc.lag("((warp + r + s) & 7) == 1")),
 ]
 REPLACE = [("clock64() - t0 <= 40000000000LL", "clock64() - t0 <= 4000000000LL")]
 
@@ -94,7 +109,7 @@ def pass_case(d_in, cross, prob, *, dirty=None, xcross=None, xlanes=(), **kw):
     return launch, same, d_p, dirty_p
 
 
-def terrain_cases(device):
+def terrain_cases(device, dtype=torch.float32):
     v, f = synthetic.terrain_mesh(256, 1024, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
     mesh = build_mesh(v, f, device=device)
     costs = np.arccos(np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0))
@@ -103,16 +118,28 @@ def terrain_cases(device):
     plan = bg.build_banded_kernel_plan(mesh, W)
     seeds = torch.from_numpy(np.random.default_rng(3).integers(0, plan.num_vertices, 128))
     seeds = seeds.to(device)
-    prob = bg.prepare_padded(plan, seeds)
+    prob = bg.prepare_padded(plan, seeds, dtype=dtype)
+    tag = "terrain256x1024x128" + ("_bf16" if dtype == torch.bfloat16 else "")
     launch, same, d_down, _ = pass_case(prob.d0, prob.down, prob, reverse=False, force=True)
-    yield "terrain256x1024x128_down_forced", launch, same
+    yield f"{tag}_down_forced", launch, same
     launch, same, _, _ = pass_case(d_down, prob.up, prob, reverse=True)
-    yield "terrain256x1024x128_up", launch, same
-    d_conv = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL, converge="check").d_pad
+    yield f"{tag}_up", launch, same
+    d_conv = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL, converge="check",
+                                    dtype=dtype).d_pad
     every_row = torch.ones((d_conv.shape[2] // bg.PASS_LANES, d_conv.shape[0]),
                            dtype=torch.int32, device=device)
     launch, same, _, _ = pass_case(d_conv, prob.down, prob, reverse=False, dirty=every_row)
-    yield "terrain256x1024x128_dirty_every_row", launch, same
+    yield f"{tag}_dirty_every_row", launch, same
+    clean = torch.zeros_like(every_row)
+    launch, same, _, _ = pass_case(prob.d0, prob.down, prob, reverse=False, force=True,
+                                   dirty=clean, scan_steps=5)
+    yield f"{tag}_partial5_down_forced", launch, same
+    if dtype == torch.float32:
+        launch, same, _, _ = pass_case(d_down, prob.down, prob, reverse=False, dirty=clean,
+                                       defer=True)
+        yield f"{tag}_defer_down", launch, same
+        launch, same, _, _ = pass_case(d_down, prob.up, prob, reverse=True, skip=False)
+        yield f"{tag}_noskip_up", launch, same
 
 
 class _Chains:
@@ -159,6 +186,10 @@ def xl_cases(device):
         launch, same, _, _ = pass_case(d1, up, prob, reverse=True, dirty=dirty1, xcross=xup,
                                        xlanes=XLANES)
         yield f"xlanes{Rp}x{Cp}x{Bp}_up_dirty", launch, same
+        if Cp == 1024:
+            launch, same, _, _ = pass_case(d1, up, prob, reverse=True, dirty=dirty1,
+                                           xcross=xup, xlanes=XLANES, scan_steps=5)
+            yield f"xlanes{Rp}x{Cp}x{Bp}_up_dirty_partial5", launch, same
 
 
 def main() -> int:
@@ -170,7 +201,7 @@ def main() -> int:
 
     def run(out):
         dev = torch.device("cuda")
-        all_cases = [*terrain_cases(dev), *xl_cases(dev)]
+        all_cases = [*terrain_cases(dev), *terrain_cases(dev, torch.bfloat16), *xl_cases(dev)]
         for name, launch, same in all_cases:
             out[name] = {"shipped": lc.run_launches(launch, same, a.launches, a.every)}
         copy = lc.build("banded_pass", PATCHES, REPLACE)

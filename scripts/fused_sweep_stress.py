@@ -12,7 +12,9 @@ first, the last and every `--every`-th result against the plain version,
 bit for bit. The shapes take each streaming layout: the structured path's
 own (tile 1,280, 128 lanes, the 1M terrain's offsets), 24 lanes on the
 same offsets, one plane buffer (tile 4,096) and no spare ring rows (tile
-5,632).
+5,632); and the bfloat16 instantiation's: the structured path's shape and
+24 lanes (lane groups of 16 bf16, 32-byte rows) and 3 lanes (2-byte
+copies, which are plain stores).
 
 Run from the tree's root on a machine with the card:
 
@@ -33,12 +35,15 @@ from mesh_navigation_torch.ops import structured as st  # noqa: E402
 from mesh_navigation_torch.ops import sweep_gpu as sg  # noqa: E402
 
 GRID_1M = (1, -1, 1024, -1024, 1025, -1025)
-# (tile, V, lanes, n_inner, offsets)
+# (tile, V, lanes, n_inner, offsets, dtype)
 SHAPES = (
-    (1280, 200_000, 128, 2, GRID_1M),
-    (1280, 400_000, 24, 2, GRID_1M),
-    (4096, 40_960, 2, 2, (1, -1, 4095, -4095, 4096, -4096)),
-    (5632, 56_320, 1, 2, (1, -1, 5631, -5631, 5632, -5632)),
+    (1280, 200_000, 128, 2, GRID_1M, torch.float32),
+    (1280, 400_000, 24, 2, GRID_1M, torch.float32),
+    (4096, 40_960, 2, 2, (1, -1, 4095, -4095, 4096, -4096), torch.float32),
+    (5632, 56_320, 1, 2, (1, -1, 5631, -5631, 5632, -5632), torch.float32),
+    (1280, 200_000, 128, 2, GRID_1M, torch.bfloat16),
+    (1280, 400_000, 24, 2, GRID_1M, torch.bfloat16),
+    (4096, 40_960, 3, 2, (1, -1, 4095, -4095, 4096, -4096), torch.bfloat16),
 )
 WARP_TILE = "(((threadIdx.x >> 5) + (int)t) & 15) == "
 PATCHES = [
@@ -68,15 +73,17 @@ def inputs(tile, V, B, offsets, device, seed):
 
 
 def cases(device):
-    for tile, V, B, n_inner, offsets in SHAPES:
+    for tile, V, B, n_inner, offsets, dtype in SHAPES:
         d, planes = inputs(tile, V, B, offsets, device, seed=V + B)
+        d, planes = d.to(dtype), planes.to(dtype)
         want = sg._fused_sweep_plain(d, planes, offsets, tile, n_inner)
         out = torch.empty_like(d)
 
         def launch(d=d, planes=planes, offsets=offsets, tile=tile, n_inner=n_inner, out=out):
             return sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=n_inner, out=out)
 
-        yield f"tile{tile}_V{V}_B{B}", launch, (lambda got, want=want: torch.equal(got, want))
+        name = f"tile{tile}_V{V}_B{B}" + ("_bf16" if dtype == torch.bfloat16 else "")
+        yield name, launch, (lambda got, want=want: torch.equal(got, want))
 
 
 def main() -> int:

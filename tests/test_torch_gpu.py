@@ -8,6 +8,8 @@ need not have). Shapes are small and irregular on purpose: row widths that
 are not a multiple of 32 leave idle threads in the pass kernel's blocks.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -77,7 +79,8 @@ def _pred_pair(d, w8, kw) -> bool:
             assert tk.dtype == (torch.int8 if as_class else torch.int32)
             assert torch.equal(tk, tp), (as_class, check, int((tk != tp).sum()))
             assert kernels.LAUNCHES[name] == before[name] + 1
-            assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+            bf16 = d.dtype == torch.bfloat16        # counted under class_pred_bf16 too
+            assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1 + bf16
             if check is None:
                 assert fk is None and fp is None
             else:
@@ -256,21 +259,22 @@ def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
 
 
 def _pass_pair(d_k, d_p, cross, prob, *, reverse, force=False, dirty=None, cut=None,
-               xcross=None, xlanes=()):
+               xcross=None, xlanes=(), **modes):
     """One pass through the kernel on (d_k, dirty) and through the plain
-    version on (d_p, a copy of dirty): fields, dirty tables, flags and rows
-    walked equal. Returns (the plain side's dirty table, rows walked)."""
+    version on (d_p, a copy of dirty), with the row and scan `modes`
+    (skip, scan_steps, defer): fields, dirty tables, flags and rows walked
+    equal. Returns (the plain side's dirty table, rows walked)."""
     dirty_p = None if dirty is None else dirty.clone()
     wk = torch.zeros(1, dtype=torch.int32, device=d_k.device)
     wp = torch.zeros(1, dtype=torch.int64, device=d_k.device)
     kw = dict(reverse=reverse, atol=ATOL, rtol=RTOL, force=force, warm_cut=cut,
-              xcross=xcross, xlanes=xlanes)
+              xcross=xcross, xlanes=xlanes, **modes)
     ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, dirty=dirty, rows_walked=wk, **kw)
     cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, bb=8, dirty=dirty_p,
                                    rows_walked=wp, **kw)
     torch.cuda.synchronize()
     assert bool(ck.item()) == bool(cp.item())
-    assert torch.equal(d_k, d_p), float((d_k - d_p).abs().nan_to_num(0.0).max())
+    assert torch.equal(d_k, d_p), float((d_k.float() - d_p.float()).abs().nan_to_num(0.0).max())
     if dirty is not None:
         assert torch.equal(dirty, dirty_p)
     assert int(wk.item()) == int(wp.item())
@@ -1392,3 +1396,230 @@ def test_sharded_banded_solve_nccl_one_rank_a_card(cuda):
     d_nccl, ref = _sharded_pair(cuda, "nccl", None)
     d_gloo, _ = _sharded_pair(cuda, "gloo", "cuda:0")
     assert torch.equal(d_nccl, d_gloo)
+
+
+# ---------------------------------------------------------------------------
+# the solver's opt-in modes: bfloat16 fields, partial scan depth, the
+# deferring and unskipped passes, the column passes of four_dir
+# ---------------------------------------------------------------------------
+
+# (nx, ny, B): one column a thread (16 columns), staged rows (40 and 1,024
+# columns; 1,024 with eight-warp blocks), and eight columns a thread with
+# rows from device memory (1,500)
+MODE_SHAPES = [(20, 16, 16), (33, 40, 24), (12, 1024, 16), (8, 1500, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nx,ny,B", MODE_SHAPES)
+def test_pass_modes_match_plain_bit_for_bit(cuda, nx, ny, B, dtype):
+    """Every row and scan mode of the pass, kernel against plain bit for bit
+    (fields, dirty tables, flags, rows walked): a forced and an unforced
+    pass of the main mode; partial depth (2 and 5 steps, 3 on rows of 16
+    columns) with the dirty
+    table, forced, then dirty-driven; the deferring down pass, then the
+    dirty-driven up pass it leaves rows to; the unskipped pass, with and
+    without the warm cut. Each counted under its mode."""
+    mesh, plan = _plan(nx, ny, cuda)
+    seeds = torch.from_numpy(np.random.default_rng(ny).integers(0, mesh.num_vertices, B))
+    prob = bg.prepare_padded(plan, seeds.to(cuda), dtype=dtype)
+    Rp = prob.d0.shape[0]
+    clean = lambda: torch.zeros((B // 8, Rp), dtype=torch.int32, device=cuda)   # noqa: E731
+    d_k, d_p = prob.d0.clone(), prob.d0.clone()
+    before = dict(kernels.LAUNCHES)
+    _pass_pair(d_k, d_p, prob.down, prob, reverse=False, force=True)
+    _pass_pair(d_k, d_p, prob.up, prob, reverse=True)
+    for steps in (2, min(5, plan.n_scan - 1)):     # below full depth
+        d_k, d_p = prob.d0.clone(), prob.d0.clone()
+        dirty, _ = _pass_pair(d_k, d_p, prob.down, prob, reverse=False, force=True,
+                              dirty=clean(), scan_steps=steps)
+        _pass_pair(d_k, d_p, prob.up, prob, reverse=True, dirty=dirty, scan_steps=steps)
+    d_k, d_p = prob.d0.clone(), prob.d0.clone()
+    dirty, _ = _pass_pair(d_k, d_p, prob.down, prob, reverse=False, force=True, dirty=clean(),
+                          defer=True)
+    assert bool(dirty.any())
+    _pass_pair(d_k, d_p, prob.up, prob, reverse=True, dirty=dirty)
+    d_k, d_p = prob.d0.clone(), prob.d0.clone()
+    _pass_pair(d_k, d_p, prob.down, prob, reverse=False, skip=False)
+    Cp = prob.d0.shape[1]
+    cut = (torch.zeros((Rp, Cp), device=cuda), torch.full((B,), 5.0, device=cuda),
+           torch.stack([seeds % Rp, seeds % Cp]).to(cuda, torch.int32))
+    _pass_pair(d_k, d_p, prob.up, prob, reverse=True, skip=False, cut=cut)
+    n = 10
+    assert kernels.LAUNCHES["banded_pass"] == before["banded_pass"] + n
+    assert kernels.LAUNCHES["banded_pass_partial"] == before["banded_pass_partial"] + 4
+    assert kernels.LAUNCHES["banded_pass_defer"] == before["banded_pass_defer"] + 1
+    assert kernels.LAUNCHES["banded_pass_noskip"] == before["banded_pass_noskip"] + 2
+    assert kernels.LAUNCHES["banded_pass_bf16"] == before["banded_pass_bf16"] + (
+        n if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Cp", [32, 1024, 2048])
+def test_extended_lane_pass_modes_match_plain_bit_for_bit(cuda, Cp, dtype):
+    """The extended lanes with a bf16 field and with partial depth (three
+    rows in shared memory: from device memory past the staged budget),
+    forced then dirty-driven, and unskipped: kernel against plain bit for
+    bit."""
+    Rp, Bp = 40, 16
+    d, down, up, a_fwd, a_bwd, xdown, xup = _xl_problem(Rp, Cp, Bp, XLANES, cuda, seed=Cp + 1)
+    prob = _XLProb(a_fwd, a_bwd)
+    d = d.to(dtype)
+    for steps in (0, 3):
+        d_k, d_p = d.clone(), d.clone()
+        dirty = torch.zeros((Bp // 8, Rp), dtype=torch.int32, device=cuda)
+        dirty, _ = _pass_pair(d_k, d_p, down, prob, reverse=False, force=True, dirty=dirty,
+                              xcross=xdown, xlanes=XLANES, scan_steps=steps)
+        _pass_pair(d_k, d_p, up, prob, reverse=True, dirty=dirty, xcross=xup, xlanes=XLANES,
+                   scan_steps=steps)
+    d_k, d_p = d.clone(), d.clone()
+    _pass_pair(d_k, d_p, down, prob, reverse=False, xcross=xdown, xlanes=XLANES, skip=False)
+
+
+def test_pass_wrapper_and_kernel_agree_on_the_partial_depth_column_limits(cuda):
+    """Partial depth keeps a third row in shared memory: PASS_MAX_COLS_X2
+    columns without a sel-2 lane, PASS_MAX_COLS_X3 with one, the kernel's
+    own limits; wider rows raise, and so does a depth past the chain
+    weights' levels."""
+    assert kernels.query("banded_pass", "banded_pass_max_cols_x3")() == bg.PASS_MAX_COLS_X3
+    assert kernels.query("banded_pass", "banded_pass_max_cols_x2")() == bg.PASS_MAX_COLS_X2
+    for Cp, xlanes in ((bg.PASS_MAX_COLS_X2 + 256, ()), (bg.PASS_MAX_COLS_X3 + 256, ((2, 0),))):
+        d = torch.full((2, Cp, 8), torch.inf, device=cuda)
+        cross = torch.zeros((2, 3, Cp), device=cuda)
+        a = torch.zeros((2, 3, Cp), device=cuda)
+        x = torch.zeros((2, len(xlanes), Cp), device=cuda) if xlanes else None
+        with pytest.raises(ValueError, match="at most"):
+            bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL,
+                                scan_steps=2, xcross=x, xlanes=xlanes)
+        bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL, xcross=x,
+                            xlanes=xlanes)       # full depth takes the row
+    with pytest.raises(ValueError, match="levels"):
+        bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL, scan_steps=4)
+
+
+@pytest.mark.parametrize("Rp,Cp,Bp", [(1, 37, 8), (45, 3000, 8), (70, 33, 128),
+                                      (33, 300, 1024), (130, 70, 1024), (65, 17, 32)])
+def test_bf16_class_pred_and_check_match_plain(cuda, Rp, Cp, Bp):
+    """The class-pred kernel (int8 with and without the certificate, int32
+    ids) and the check kernel on bf16 fields: tables identical, flags equal
+    to the plain versions', and counted under class_pred_bf16 / check_bf16."""
+    d, w8 = _random_field(Rp, Cp, Bp, cuda, seed=Rp + Cp + Bp)
+    d = d.to(torch.bfloat16)
+    R, C = max(Rp - 1, 1), max(Cp - 1, 1)
+    before = dict(kernels.LAUNCHES)
+    _pred_pair(d, w8, dict(R=R, C=C, V=R * C - (1 if R * C > 1 else 0), tol=1e-2))
+    assert kernels.LAUNCHES["class_pred_bf16"] == before["class_pred_bf16"] + 4
+    for atol, rtol in ((1e-3, 4e-3), (0.0, 0.0)):
+        k = bool(bg.check(d, w8, atol=atol, rtol=rtol).item())
+        assert k == bool(bg.check_plain(d, w8, atol=atol, rtol=rtol))
+    assert kernels.LAUNCHES["check_bf16"] == before["check_bf16"] + 2
+
+
+@pytest.mark.parametrize("tile,V,B,n_inner,offsets", [
+    (256, 1000, 8, 1, (1, -1, 256, -256)),
+    (256, 1500, 24, 2, (1, -1, 40, -40, 41, -41)),
+    (1280, 5000, 128, 2, (1, -1, 1024, -1024, 1025, -1025)),
+    (512, 3000, 5, 12, (1, -512)),
+    (256, 700, 3, 3, (-256, 3, 200, -7)),
+])
+def test_bf16_fused_sweep_matches_plain(cuda, tile, V, B, n_inner, offsets):
+    """The bf16 instantiation (lane groups of 16, 4 and 1 bf16 lanes; 2-byte
+    copies at 5 and 3 lanes) against its plain version bit for bit, twice in
+    a row between two buffers, counted under fused_sweep_bf16."""
+    from mesh_navigation_torch.ops import sweep_gpu as sg
+
+    d, planes = _sweep_inputs(tile, V, B, offsets, cuda, seed=V + B + 1)
+    d, planes = d.bfloat16(), planes.bfloat16()
+    before = kernels.LAUNCHES["fused_sweep_bf16"]
+    got = sg.fused_sweep(d, planes, offsets, tile=tile, n_inner=n_inner)
+    want = sg._fused_sweep_plain(d, planes, offsets, tile, n_inner)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert kernels.LAUNCHES["fused_sweep_bf16"] == before + 1
+    again = sg.fused_sweep(got, planes, offsets, tile=tile, n_inner=n_inner,
+                           out=torch.empty_like(d))
+    assert torch.equal(again, sg._fused_sweep_plain(want, planes, offsets, tile, n_inner))
+    with pytest.raises(ValueError, match="one type"):
+        sg.fused_sweep(d, planes.float(), offsets, tile=tile)
+
+
+def _solve_pair(plan, seeds, cuda, **kw):
+    """The same banded solve on the card and on the CPU."""
+    plan_cpu = dataclasses.replace(plan, **{f.name: getattr(plan, f.name).cpu()
+                                            for f in dataclasses.fields(plan)
+                                            if isinstance(getattr(plan, f.name), torch.Tensor)})
+    return (bg.banded_solve_padded(plan, seeds.to(cuda), **kw),
+            bg.banded_solve_padded(plan_cpu, seeds.cpu(), **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    {"dtype": torch.bfloat16}, {"scan_steps": 3}, {"scan_dirs": "up"}, {"skip_rows": False},
+    {"four_dir": True}, {"dtype": torch.bfloat16, "scan_steps": 4, "four_dir": True},
+], ids=["bf16", "partial3", "defer", "noskip", "four_dir", "bf16_partial4_four_dir"])
+def test_solve_modes_on_the_card_match_the_cpu(cuda, kw):
+    """Whole solves in each mode on a 48 x 72 terrain: converged on both,
+    of one storage type, the same finite support and the fields within
+    twice the stopping tolerance (of the bf16 floors in bf16)."""
+    _, plan = _plan(48, 72, cuda)
+    seeds = torch.from_numpy(np.random.default_rng(9).integers(0, plan.num_vertices, 24))
+    card, cpu = _solve_pair(plan, seeds, cuda, atol=ATOL, rtol=RTOL, **kw)
+    assert card.converged and cpu.converged
+    assert card.d_pad.dtype == cpu.d_pad.dtype
+    bf16 = kw.get("dtype") == torch.bfloat16
+    _within_twice(card.d_pad.cpu(), cpu.d_pad, *((bg.BF16_ATOL, bg.BF16_RTOL) if bf16
+                                                 else (ATOL, RTOL)))
+
+
+def _within_twice(k, c, atol, rtol):
+    k, c = k.float(), c.float()
+    fin = torch.isfinite(c)
+    assert torch.equal(fin, torch.isfinite(k))
+    assert bool(((k - c).abs()[fin] <= 2 * (atol + rtol * c.abs()[fin])).all())
+
+
+def test_four_dir_irregular_solve_on_the_card_matches_the_cpu(cuda):
+    """four_dir on a 40 x 40 band-reordered Delaunay terrain whose transposed
+    plan leaves (+-3, 0) out: residual edges, extended lanes in both
+    orientations; card and CPU converge within twice the stopping
+    tolerance of each other."""
+    from mesh_navigation_torch.mesh import reorder
+
+    v, f = synthetic.irregular_terrain_mesh(40, 40, spacing=0.5, hills=1.0, seed=2)
+    mesh = reorder.build_reordered_mesh(v, f, device=cuda)
+    costs = np.random.default_rng(3).uniform(0.0, 0.6, mesh.num_vertices).astype(np.float32)
+    W = sweeps.slot_weights_np(mesh, costs, cost_limit=2.0, edge_cost_factor=1.0)
+    plan = bg.build_banded_kernel_plan(mesh, W)
+    assert plan.n_residual and bg.transpose_banded_plan(plan).xlanes_dropped
+    seeds = torch.tensor([5, 900, 1000, 17, 600, 3, 111, 233])
+    card, cpu = _solve_pair(plan, seeds, cuda, atol=1e-3, rtol=2e-3, four_dir=True)
+    assert card.converged and cpu.converged
+    _within_twice(card.d_pad.cpu(), cpu.d_pad, 1e-3, 2e-3)
+
+
+def test_new_pass_modes_hold_launch_after_launch(cuda):
+    """The bf16 stage ring (a forced pass over 1,024-column rows, eight-warp
+    blocks, rows staged by TMA in 16-byte box rows) and the partial-depth
+    exchange (5 steps, dirty-driven), 100 launches each equal to the plain
+    version, rows walked included."""
+    _, plan = _plan(64, 1024, cuda)
+    seeds = torch.from_numpy(np.random.default_rng(5).integers(0, plan.num_vertices, 64))
+    for dtype, modes, dirty in ((torch.bfloat16, {}, False),
+                                (torch.float32, {"scan_steps": 5}, True),
+                                (torch.bfloat16, {"scan_steps": 5}, True)):
+        prob = bg.prepare_padded(plan, seeds.to(cuda), dtype=dtype)
+        table = (torch.zeros((8, prob.d0.shape[0]), dtype=torch.int32, device=cuda)
+                 if dirty else None)
+        kw = dict(reverse=False, atol=ATOL, rtol=RTOL, force=True, **modes)
+        d_p = prob.d0.clone()
+        dirty_p = None if table is None else table.clone()
+        wp = torch.zeros(1, dtype=torch.int64, device=cuda)
+        chg_p = bg.directional_pass_plain(d_p, prob.down, prob.a_fwd, prob.a_bwd, bb=8,
+                                          dirty=dirty_p, rows_walked=wp, **kw)
+        for _ in range(100):
+            d_k = prob.d0.clone()
+            dirty_k = None if table is None else table.clone()
+            wk = torch.zeros(1, dtype=torch.int32, device=cuda)
+            chg_k = bg.directional_pass(d_k, prob.down, prob.a_fwd, prob.a_bwd, dirty=dirty_k,
+                                        rows_walked=wk, **kw)
+            assert torch.equal(d_k, d_p)
+            assert dirty_k is None or torch.equal(dirty_k, dirty_p)
+            assert bool(chg_k.item()) == bool(chg_p.item()) and int(wk.item()) == int(wp.item())
