@@ -345,7 +345,7 @@ IRREGULAR_ATOL, IRREGULAR_RTOL = 1e-3, 2e-3   # the irregular stage's tolerance 
 IRREGULAR_KERNELS = ("banded_pass", "banded_pass_dirty", "class_pred")
 IRREGULAR_ORACLE_LANES = 8  # lanes held against the native heap Dijkstra (bench.py:588-594)
 IRREGULAR_SLAB_ROWS = 48    # rows of an irregular-path pass's own input held against the plain pass
-XLANE_OPS = 2               # an extended lane: one add and one min an element
+XLANE_OPS = 2               # an extended lane's edge: one add and one min a batch lane
 
 
 def emit(obj) -> None:
@@ -393,6 +393,52 @@ def time_ms(fn, device, reps: int = 1, setup=None) -> float:
             fn()
             total += (time.perf_counter() - t0) * 1e3
     return total / reps
+
+
+def xlist_size(xlist, Cp: int) -> tuple[int, int]:
+    """(bytes, edges) of an extended-lane list (banded_gpu.XLaneList) of
+    rows of Cp columns a pass reads: its row headers and its rows' entries
+    (meta and weight); (0, 0) for None. One host read."""
+    if xlist is None:
+        return 0, 0
+    edges = int(xlist.row_counts(Cp).sum())
+    return xlist.goff.numel() * 4 + edges * 8, edges
+
+
+class kernel_trace:
+    """Inside the block, torch.profiler traces the card's kernels:
+    `events` then holds (start_ns, end_ns, name) of each, in start order.
+    Empty on the CPU, or where the trace shows no device time."""
+
+    def __init__(self, device):
+        import torch
+
+        self.cuda = torch.device(device).type == "cuda"
+        self.device, self.events, self.prof = device, [], None
+
+    def __enter__(self):
+        if self.cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            sync(self.device)
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.prof is not None:
+            from torch.autograd import DeviceType
+
+            sync(self.device)
+            self.prof.__exit__(*exc)
+            self.events = sorted((e.start_ns(), e.end_ns(), e.name())
+                                 for e in self.prof.profiler.kineto_results.events()
+                                 if e.device_type() == DeviceType.CUDA)
+        return False
+
+    def ms(self, part: str) -> list:
+        """Device ms of each traced kernel whose name holds `part`, in order."""
+        return [(b - a) / 1e6 for a, b, name in self.events if part in name]
 
 
 def device_busy(fn, device) -> dict:
@@ -2121,7 +2167,7 @@ def xl_slab_check(pass_fn, d, cross, a_fwd, a_bwd, kw: dict, r0: int, device) ->
     sl = lambda t: t[r0:r1].contiguous()   # noqa: E731
     d_k = d[r0:r1].clone()
     d_p = d_k.clone()
-    kw_s = dict(kw, xcross=sl(kw["xcross"]))
+    kw_s = dict(kw, xcross=sl(kw["xcross"]), xlist=kw["xlist"].rows(r0, r1))
     dirty = kw["dirty"]
     dirty_k = dirty[:, r0:r1].clone()
     dirty_p = dirty_k.clone()
@@ -2151,14 +2197,20 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
     """Phase 19: the solve of one more plan_batch_banded call on the warm-up
     draw, pass by pass: each pass launch timed by its own event pair, with
     the rows its blocks walked and its bound from what that launch's data
-    needs (one read of the field, the cross and extended-lane planes and
-    level 0 of the chain weights, the dirty table read and written, one
-    write of each element it changed; against PASS_OPS + XLANE_OPS per
-    lane and element); each residual scatter-min timed the same way. The
-    first forced down pass and the first dirty-driven up pass that changes
-    labels are held against the plain version on a slab of their own input
-    (xl_slab_check). Then the class-pred kernel on the solve's field against
-    its plain version, its time and bound. Not counted for the path."""
+    needs (one read of the field, the cross planes, level 0 of the chain
+    weights and the extended lanes' lists, the dirty table read and
+    written, one write of each element it changed; against PASS_OPS an
+    element and XLANE_OPS a listed edge and lane); each residual
+    scatter-min timed the same way. torch.profiler traces the solve: each
+    launch's prescan and walker ms by kernel name, and the walker's us a
+    walked row of a block over the solve. The first forced down pass and the first
+    dirty-driven up pass that changes labels are held against the plain
+    version on a slab of their own input (xl_slab_check). Beside them, on
+    the solve's field at the same lanes, a forced down pass with the lanes
+    and one of the main walker without them (no dirty table, so no
+    prescan: every row walked). Then the class-pred kernel on the solve's field
+    against its plain version, its time and bound. Not counted for the
+    path."""
     import torch
     from mesh_navigation_torch.mesh import query
     from mesh_navigation_torch.ops import banded_gpu as bg
@@ -2166,8 +2218,8 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
     planner, kplan = ictx["planner"], ictx["kplan"]
     s, g, _ = ictx["warm"]
     times, bounds_b, walked, slabs, scatter_ms = [], [], [], {}, []
+    kinds = []     # each launch of the pass kernel in the trace: "path" or "slab"
     orig_pass, orig_res = bg.directional_pass, bg._residual_round
-    L = {False: len(kplan.xlanes_down), True: len(kplan.xlanes_up)}
 
     def timed_pass(d, cross, a_fwd, a_bwd, **kw):
         Rp, Cp, Bp = d.shape
@@ -2179,18 +2231,21 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
         before = d.clone()
         nw = torch.zeros(1, dtype=torch.int32, device=d.device)
         got = []
+        kinds.append("path")
         times.append(time_ms(lambda: got.append(orig_pass(d, cross, a_fwd, a_bwd,
                                                           rows_walked=nw, **kw)), device))
         diff = d != before
         del before
         n_written = int(diff.sum())
         walked.append(int(nw.item()) / (Rp * nb))
-        planes = (5 + L[bool(kw["reverse"])]) * Rp * Cp
-        bounds_b.append((Rp * Cp * Bp + planes + 2 * nb * Rp + n_written) * 4 / HBM_BYTES_PER_S)
+        planes = 5 * Rp * Cp * 4 + xlist_size(kw.get("xlist"), Cp)[0]
+        bounds_b.append(((Rp * Cp * Bp + 2 * nb * Rp + n_written) * 4 + planes)
+                        / HBM_BYTES_PER_S)
         if want_slab and n_written:
             rows = diff.any(dim=2).any(dim=1).nonzero()[:, 0]
             r = int(rows[len(rows) // 2])
             r0 = max(0, min(r - IRREGULAR_SLAB_ROWS // 2, Rp - IRREGULAR_SLAB_ROWS))
+            kinds.append("slab")
             slabs[key] = xl_slab_check(orig_pass, d_in, cross, a_fwd, a_bwd,
                                        dict(kw, dirty=dirty_in), r0, device)
         if want_slab:
@@ -2204,7 +2259,7 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
 
     bg.directional_pass, bg._residual_round = timed_pass, timed_res
     try:
-        with uncounted():
+        with uncounted(), kernel_trace(device) as tr:
             goal_v = query.nearest_vertex_batch(planner.mesh, planner.grid,
                                                 torch.from_numpy(g).to(device))[0]
             order, _ = bg.group_lanes(goal_v, kplan.num_vertices)
@@ -2218,9 +2273,39 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
     d = res.d_pad
     Rp, Cp, Bp = d.shape
     N = Rp * Cp * Bp
-    Lm = max(L.values())
-    ops_s = (PASS_OPS + XLANE_OPS * Lm) * N / F32_OPS_PER_S
+    xl_edges = [xlist_size(kplan.xlist_down, Cp)[1], xlist_size(kplan.xlist_up, Cp)[1]]
+    ops_s = (PASS_OPS * N + XLANE_OPS * max(xl_edges) * Bp) / F32_OPS_PER_S
     bounds = [max(b, ops_s) * 1e3 for b in bounds_b]
+    # the prescan's and the walker's ms of each path launch (every launch of
+    # this solve has the dirty table: one prescan, one walker), and the
+    # walker's us a walked row of a block over the whole solve (a launch
+    # that walks few rows spends its time on the jumps between them)
+    pre_ms, walk_ms = tr.ms("banded_prescan_kernel"), tr.ms("banded_pass_kernel")
+    split = None
+    if len(pre_ms) == len(walk_ms) == len(kinds):
+        path = [i for i, k in enumerate(kinds) if k == "path"]
+        split = {"prescan_ms": [pre_ms[i] for i in path],
+                 "walker_ms": [walk_ms[i] for i in path]}
+        split["walker_us_per_walked_row"] = (sum(split["walker_ms"]) * 1e3
+                                             / max(sum(walked) * Rp, 1e-9))
+    # a forced down pass over the solve's field with the lanes, and the main
+    # walker's without them: no dirty table (no prescan), every row walked
+    # and nearly every row scanned
+    prob = bg.prepare_padded(kplan, goal_v[order], seeded=False)
+    forced = {}
+    with uncounted():
+        for name, xkw in (("with_lanes", dict(xcross=prob.xdown, xlanes=kplan.xlanes_down,
+                                              xlist=prob.xlist_down)),
+                          ("main_walker", {})):
+            dm = d.clone()
+            nw = torch.zeros(1, dtype=torch.int32, device=d.device)
+            ms = time_ms(lambda: orig_pass(dm, prob.down, prob.a_fwd, prob.a_bwd,
+                                           reverse=False, force=True, atol=IRREGULAR_ATOL,
+                                           rtol=IRREGULAR_RTOL, rows_walked=nw, **xkw), device)
+            rows_a_block = int(nw.item()) / (Bp // bg.PASS_LANES)
+            forced[name] = {"ms": ms, "rows_a_block": rows_a_block,
+                            "us_per_row": ms * 1e3 / rows_a_block}
+            del dm
     tol = max(1e-5, 3.0 * IRREGULAR_RTOL)
     with uncounted():
         pred = check_pred_pair(kplan, d, IRREGULAR_ATOL, IRREGULAR_RTOL, tol=tol)
@@ -2235,14 +2320,29 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
     detail = {"phase": "kernels_at_irregular_shapes", "field": [Rp, Cp, Bp],
               "rounds": res.rounds, "converged": res.converged,
               "xlanes": [len(kplan.xlanes_down), len(kplan.xlanes_up)],
+              "xlist_edges": xl_edges,
+              "xlist_max_row": [kplan.xlist_down.max_row, kplan.xlist_up.max_row],
               "pass_launch_ms": times, "pass_bound_ms": bounds,
-              "pass_rows_walked_share": walked, "residual_scatter_ms": scatter_ms,
+              "pass_rows_walked_share": walked, "pass_split": split,
+              "pass_split_note": None if split else (
+                  "torch.profiler showed no device time for the pass kernels"),
+              "forced_pass_on_the_field": forced, "residual_scatter_ms": scatter_ms,
               "path_slab_checks": slabs, "pred": pred, "pred_ms": pred_ms,
               "pred_with_reconcile_ms": recon_ms, "pred_bound_ms": pred_bound}
     for i, (t, b, w) in enumerate(zip(times, bounds, walked)):
-        log(f"# irregular pass {i}: {t:.3f} ms (bound {b:.3f} ms), rows walked share {w:.4f}")
+        log(f"# irregular pass {i}: {t:.3f} ms (bound {b:.3f} ms), rows walked share {w:.4f}"
+            + ("" if split is None else
+               f", prescan {split['prescan_ms'][i]:.3f} ms, walker {split['walker_ms'][i]:.3f}"
+               " ms"))
+    log(f"# irregular forced pass on the field: {forced}")
     return detail, {"ms": float(np.mean(times)), "bound_ms": float(np.mean(bounds)),
                     "rows_walked_share": float(np.mean(walked)),
+                    "prescan_ms": None if split is None else float(np.mean(split["prescan_ms"])),
+                    "walker_ms": None if split is None else float(np.mean(split["walker_ms"])),
+                    "walker_us_per_walked_row": (None if split is None
+                                                 else split["walker_us_per_walked_row"]),
+                    "forced_us_per_row": forced["with_lanes"]["us_per_row"],
+                    "main_walker_us_per_row": forced["main_walker"]["us_per_row"],
                     "max_abs_err": max(c["max_abs_err"] for c in slabs.values()),
                     "pred_ms": pred_ms, "pred_bound_ms": pred_bound,
                     "pred_max_abs_err": float(pred["max_abs_err"])}
@@ -3913,7 +4013,9 @@ def slab_check(pass_fn, d, cross, a_fwd, a_bwd, kw: dict, r0: int, device,
     sl = lambda t: None if t is None else t[r0:r1].contiguous()   # noqa: E731
     d_k = d[r0:r1].clone()
     d_p = d_k.clone()
-    kw_s = dict(kw, xcross=sl(kw.get("xcross")))
+    xlist = kw.get("xlist")
+    kw_s = dict(kw, xcross=sl(kw.get("xcross")),
+                xlist=None if xlist is None else xlist.rows(r0, r1))
     dirty = kw.get("dirty")
     dirty_k = None if dirty is None else dirty[:, r0:r1].clone()
     dirty_p = None if dirty is None else dirty_k.clone()
@@ -3947,7 +4049,8 @@ class PassProbe:
     needs: one read of the field and the planes it reads, the dirty table
     read and written, one write of each element it changed, against the
     pass's operations: PASS_OPS an element, or 10 + 4 * scan_steps at
-    partial depth, plus XLANE_OPS a lane), and the first launch of each
+    partial depth, plus XLANE_OPS a lane's edge and lane of the batch; the
+    extended lanes' bytes and edges are their lists'), and the first launch of each
     wanted key (`want(kw, d)` -> key or None) with labels to change is held
     against the plain version on a slab of its own input (slab_check). Not
     counted for any path."""
@@ -3991,13 +4094,13 @@ class PassProbe:
         del before
         n_written = int(diff.sum())
         es = d.element_size()
-        L = len(kw.get("xlanes", ()))
         steps = 0 if kw.get("defer") else kw.get("scan_steps", 0)
-        ops = ((10 + 4 * steps) if steps else PASS_OPS) + XLANE_OPS * L
-        planes = (5 + L) * Rp * Cp * 4
+        ops = (10 + 4 * steps) if steps else PASS_OPS
+        xl_bytes, xl_edges = xlist_size(kw.get("xlist"), Cp)
+        planes = 5 * Rp * Cp * 4 + xl_bytes
         dirty_b = 2 * nb * Rp * 4 if kw.get("dirty") is not None else 0
         bytes_s = (Rp * Cp * Bp * es + planes + dirty_b + n_written * es) / HBM_BYTES_PER_S
-        ops_s = ops * Rp * Cp * Bp / F32_OPS_PER_S
+        ops_s = (ops * Rp * Cp + XLANE_OPS * xl_edges) * Bp / F32_OPS_PER_S
         self.bound.append(max(bytes_s, ops_s) * 1e3)
         self.walked.append(int(nw.item()) / (Rp * nb))
         if slab and n_written:
@@ -4526,7 +4629,11 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     emit(idetail)
     line[0].update(irregular_launches=ictx["launches"]["banded_pass"],
                    irregular_ms=ik["ms"], irregular_bound_ms=ik["bound_ms"],
-                   irregular_rows_walked_share=ik["rows_walked_share"])
+                   irregular_rows_walked_share=ik["rows_walked_share"],
+                   irregular_prescan_ms=ik["prescan_ms"], irregular_walker_ms=ik["walker_ms"],
+                   irregular_walker_us_per_walked_row=ik["walker_us_per_walked_row"],
+                   irregular_forced_us_per_row=ik["forced_us_per_row"],
+                   main_walker_us_per_row_at_irregular_lanes=ik["main_walker_us_per_row"])
     line[0]["max_abs_err"] = max(line[0]["max_abs_err"], ik["max_abs_err"])
     line[1].update(irregular_launches=ictx["launches"]["class_pred"],
                    irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])

@@ -14,7 +14,9 @@ import torch
 
 from mesh_navigation_torch.device import resolve_device
 from mesh_navigation_torch.mesh.arrays import FIELDS, MeshArrays, from_host_tables
-from mesh_navigation_torch.ops.banded_gpu import PLAN_ARRAYS, PLAN_META, BandedKernelPlan
+from mesh_navigation_torch.ops.banded_gpu import (
+    PLAN_ARRAYS, PLAN_META, BandedKernelPlan, with_xlane_lists,
+)
 from mesh_navigation_torch.ops.eikonal_gpu import (
     EIK_PLAN_ARRAYS, EIK_PLAN_META, EikonalKernelPlan,
 )
@@ -35,7 +37,7 @@ def mesh_from_numpy(arrays: dict, *, device=None) -> MeshArrays:
 def plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> BandedKernelPlan:
     """BandedKernelPlan from a dict of numpy arrays (fields of PLAN_ARRAYS;
     absent or None ones stay None) and a dict of its scalar fields
-    (PLAN_META)."""
+    (PLAN_META), with the lists of its extended lanes."""
     dev = resolve_device(device)
     fields = {}
     for k in PLAN_ARRAYS:
@@ -44,7 +46,7 @@ def plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> BandedKernelPla
     for k in PLAN_META:
         if k in meta:
             fields[k] = tuple(meta[k]) if k.startswith("xlanes") else meta[k]
-    return BandedKernelPlan(**fields)
+    return with_xlane_lists(BandedKernelPlan(**fields))
 
 
 def eikonal_plan_from_numpy(arrays: dict, meta: dict, *, device=None) -> EikonalKernelPlan:

@@ -57,7 +57,11 @@
 // the row) before row0 and imp, src the carried row (sel 1), the row before
 // it as the pass left it (sel 2: a second carried row) or the row's own
 // values as loaded (sel 0). With a sel-2 lane and DIRTY the walk goes on for
-// two rows after a needed row (see Jumping).
+// two rows after a needed row (see Jumping). The kernels read the lanes'
+// edges from per-row lists of the edges that exist (see Extended lanes),
+// never the dense [Rp, n, Cp] planes: an absent edge's weight is +inf, and
+// X + inf never wins a min, so the lists give the dense loop's cand bit for
+// bit (fminf is exact and order-free on these values).
 //
 // What bounds it on this card. The field is read once and the rows the pass
 // changes written once: at the main path's 1024 x 1024 x 1024 f32 field that
@@ -88,10 +92,38 @@
 //   rows and the row's own shifts, as the walker's does.
 // - Extended lanes: the second carried row takes a second Cp*LANES floats of
 //   shared memory (two rows of the same ring, swapped a row), so plans with
-//   a sel-2 lane take rows of at most MAX_COLS_X2 columns. The lanes'
-//   weights are read from device memory (shared by all blocks through L2);
-//   own-row sources come from the staged row or from device memory, read
-//   before the barrier after which the row is written.
+//   a sel-2 lane take rows of at most MAX_COLS_X2 columns. Own-row sources
+//   come from the staged row or from device memory, read before the barrier
+//   after which the row is written.
+//   Before the lists each thread read, for each of its columns and each
+//   of the n lanes, one weight of the dense [Rp, n, Cp] planes from device
+//   memory in a loop the compiler could not unroll: at the 1M irregular
+//   plan (Cp = 1,024, 7 lanes a pass) 7 x 1,024 scalar loads a row of a
+//   block (28 KB beside its 32 KB row), outside the stage ring and on the
+//   row's critical path, and the prescan the same for every element. About
+//   99% of those weights are +inf: the lanes hold the few edges of an
+//   irregular mesh that no dense class covers. On the card (one H100 80GB
+//   HBM3, 700 W) that pass took 8.87 ms a launch against a 0.70 ms bound,
+//   ~31 us a walked row against the main walker's ~7.
+//   Now each pass has lists of the edges that exist (ops/banded_gpu.py
+//   XLaneList): per row, entries (column, sel, dc, lane; f32 weight) sorted
+//   by column, each row's first at a multiple of 4 entries, and a header:
+//   the row's first entry, the first entry and count of the rows beside it,
+//   and a 16-bit offset for each 4-column group (a thread's columns). Staged,
+//   thread 0 brings a row's header and its first `cap` entries (as many as
+//   the shared memory left beside the three stages and carried rows holds,
+//   at most the plan's fullest row) into an extended-lane slot of the row's
+//   stage by bulk copies counted on the stage's barrier, one row ahead as
+//   the row itself, where and how many taken from the header of the row
+//   before it, which has arrived (so with lanes thread 0 waits for a row's
+//   stage before it prefetches the next; without, the prefetch goes first
+//   and the two loads overlap); entries past the cap, and every entry
+//   where rows are not staged, are read from device memory. A thread walks
+//   its own entries only (0.4 a row at the 1M plan), once over its columns
+//   in order. On the card (one H100 80GB HBM3, 700 W, 512 lanes;
+//   chip_smoke.py) the pass takes 4.35 ms a launch, and a forced pass with
+//   the lists walks a row in 7.6 us against the main walker's 5.5.
+//   The prescan reads its column's group from device memory.
 // - Columns: a thread holds CPT consecutive columns of the row, each
 //   column's 8 lanes in registers: 1 column up to 32 (one warp), 4 up to
 //   1,024 (8 warps at 1,024 columns), then 8 (at most 512 threads, so
@@ -157,6 +189,9 @@
 #define PRESCAN_THREADS 256
 #define MAX_XLANES 24      // extended lanes a pass (the plan finds at most 21)
 #define MAX_XDC 4          // |dc| of an extended lane: the prescan's halo
+#define XG 4               // columns of a group of the extended-lane lists
+#define XL_HEAD 5          // ints of a list row's header before its group offsets
+#define XL_MAX_CAP 1024    // entries of a row an extended-lane slot holds at most
 
 // row modes (ops/banded_gpu.py PASS_MODE_*)
 #define MODE_SKIP 0
@@ -167,12 +202,30 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// the extended lanes of a pass: (sel, dc) each, and their weights [Rp, n, Cp]
-struct XLanes {
+// the extended-lane edges of a pass that exist, row by row: a row's header
+// goff[r * gw ..] holds its first entry, the first entry and count of row
+// r + 1, those of row r - 1, then (from int XL_HEAD, 16 bits each) the
+// offset from its first entry of each 4-column group's first entry (k <
+// ng) and of its end (k = ng); entries sorted by column, a row's first at a
+// multiple of 4; meta = column | sel << 12 | (dc + 4) << 14 | lane << 18
+struct XList {
+  const int* goff;
+  const int* meta;
   const float* w;
-  int n;
-  signed char sel[MAX_XLANES], dc[MAX_XLANES];
+  int gw;    // ints a row's header (a multiple of 4)
+  int ng;    // groups a row, ceil(Cp / XG)
+  int cap;   // staged: entries of a row its extended-lane slot holds
 };
+// offset k of a row's header (shared memory, or device memory by __ldg)
+__device__ __forceinline__ int xl_off(const int* head, int k) {
+  return reinterpret_cast<const unsigned short*>(head + XL_HEAD)[k];
+}
+__device__ __forceinline__ int xl_off_ldg(const int* head, int k) {
+  return __ldg(reinterpret_cast<const unsigned short*>(head + XL_HEAD) + k);
+}
+__device__ __forceinline__ int xm_col(int m) { return m & 0xfff; }
+__device__ __forceinline__ int xm_sel(int m) { return (m >> 12) & 3; }
+__device__ __forceinline__ int xm_dc(int m) { return ((m >> 14) & 15) - 4; }
 
 // --- the field's storage type: 4 lanes widened to f32, or rounded from it ---
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -312,14 +365,15 @@ __device__ __forceinline__ bool cut8(float (&v)[LANES], float lb, const float* t
 // memory (float4 halves, columns shifted by the halo), so the field is read
 // about once. XL keeps four rows in a ring (the row, the two before it, and
 // the next row's slot, so one barrier a row suffices) with MAX_XDC halo
-// columns each side. A dirty row is needed too, except in DEFER, whose need
-// does not read the table.
+// columns each side; a thread relaxes the extended-lane entries of its
+// column, read from its 4-column group of the row's list. A dirty row is
+// needed too, except in DEFER, whose need does not read the table.
 template <typename T, bool CUT, bool XL>
 __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
     T* __restrict__ d, const float* __restrict__ cross, const int* __restrict__ dirty,
     unsigned* __restrict__ need_bits, const float* __restrict__ cutlb,
     const float* __restrict__ cutth, const int* __restrict__ seedrc,
-    const __grid_constant__ XLanes xl,
+    const __grid_constant__ XList xl,
     int Rp, int Cp, int Bp, int reverse, int force, int dirty_need, float k_rtol, float atol) {
   constexpr int TH = PRESCAN_THREADS;
   constexpr int H = XL ? MAX_XDC : 1;   // halo columns each side
@@ -438,6 +492,14 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
     }
     for (int n = 0; n < hi_row - lo_row; ++n, r += step) {
       const int s0 = n & 3, s1 = (n + 3) & 3, s2 = (n + 2) & 3;
+      // this column's extended-lane edges: the entries of its 4-column group
+      int e0 = 0, e1 = 0;
+      if (c < Cp) {
+        const int* head = xl.goff + (long long)r * xl.gw;
+        const int first = __ldg(head);
+        e0 = first + xl_off_ldg(head, c / XG);
+        e1 = first + xl_off_ldg(head, c / XG + 1);
+      }
       float cur[LANES];
       if (col(r, c, cur)) store8(d + r * rs + (long long)c * Bp + b0, cur);
       put(s0, k, cur);
@@ -447,10 +509,13 @@ __global__ void __launch_bounds__(PRESCAN_THREADS) banded_prescan_kernel(
       if (c < Cp) {
         float cd[LANES];
         cand_cross(s1, r, cd);
-        for (int li = 0; li < xl.n; ++li) {
-          const int dc = xl.dc[li], sel = xl.sel[li];
+        for (int e = e0; e < e1; ++e) {
+          const int m = __ldg(xl.meta + e);
+          if (xm_col(m) > c) break;                  // sorted by column
+          const int dc = xm_dc(m), sel = xm_sel(m);
+          if (xm_col(m) < c || sel > 2 || dc < -MAX_XDC || dc > MAX_XDC) continue;
           const int sb = sel == 0 ? s0 : (sel == 1 ? s1 : s2);
-          const float wx = __ldg(xl.w + ((long long)r * xl.n + li) * Cp + c);
+          const float wx = __ldg(xl.w + e);
           #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float4 X = rowbuf[sb][h][k + dc];
@@ -517,7 +582,7 @@ struct Args {
   int Rp, Cp, Bp, reverse, force, staged;
   int boxc, n_boxes;   // staged: columns of a TMA box, boxes a row
   float k_rtol, atol;
-  XLanes xl;
+  XList xl;            // XL: the lanes' lists (cap: entries a row's slot stages)
   int x2;              // a sel-2 lane: two carried rows
   int mode;            // MODE_SKIP, MODE_DEFER or MODE_NOSKIP
   int nsteps;          // 0: the exact block scan; else partial depth
@@ -554,6 +619,12 @@ __host__ __device__ __forceinline__ long long row_floats(int n_boxes, int boxc, 
 __host__ __device__ __forceinline__ long long slot_floats(int Cp, int n_boxes, int boxc,
                                                           int esize) {
   return (row_floats(n_boxes, boxc, esize) + 5LL * Cp + 255) & ~255LL;
+}
+// XL, staged: after the N_SLOTS stages, an extended-lane slot for each: the
+// row's header (gw ints), then its first `cap` entries' meta (ints)
+// and weights (floats); a multiple of 16 bytes
+__host__ __device__ __forceinline__ long long xl_slot_floats(const XList& xl) {
+  return xl.gw + 2LL * xl.cap;
 }
 
 template <typename T, bool DIRTY, int CPT, bool XL>
@@ -601,6 +672,9 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       ~uintptr_t(1023));
   const int boxc = g.boxc, n_boxes = g.n_boxes;
   const long long slot_f = slot_floats(Cp, n_boxes, boxc, (int)sizeof(T));
+  const long long xslot_f = XL ? xl_slot_floats(g.xl) : 0;
+  const int xcap = XL && staged ? g.xl.cap : 0;
+  float* const xslot = stage + N_SLOTS * slot_f;   // staged XL: the extended-lane slots
   const long long d_floats = row_floats(n_boxes, boxc, (int)sizeof(T));   // the d part of a slot
   const long long box_f = row_floats(1, boxc, (int)sizeof(T));
 
@@ -643,15 +717,42 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
     }
   };
   // row r into stage `slot`, by thread 0: the field's boxes by TMA and the
-  // three table rows by bulk copies, all counted on the slot's barrier
-  auto load_row = [&](int r, int slot) {
+  // three table rows by bulk copies (XL: and the row's lists into its
+  // extended-lane slot: its header and its first entries, at most the cap,
+  // their first entry and count read from the header of the row staged in
+  // slot `from`, a neighbour of r, or from device memory where from < 0),
+  // all counted on the slot's barrier
+  auto load_row = [&](int r, int slot, int from) {
     float* base = stage + slot * slot_f;
-    mbar_expect_tx(mbar + slot, (unsigned)((d_floats + 5LL * Cp) * 4));
+    int xs = 0, xn = 0;
+    if constexpr (XL) {
+      if (from >= 0) {
+        const int* h = reinterpret_cast<const int*>(xslot + from * xslot_f) + (rev ? 3 : 1);
+        xs = h[0];
+        xn = h[1];
+      } else {
+        const int* h = g.xl.goff + (long long)r * g.xl.gw;
+        xs = __ldg(h);
+        xn = xl_off_ldg(h, g.xl.ng);
+      }
+      xn = min((xn + 3) & ~3, xcap);
+    }
+    const unsigned xbytes = XL ? 4u * (unsigned)(g.xl.gw + 2 * xn) : 0u;
+    mbar_expect_tx(mbar + slot, (unsigned)((d_floats + 5LL * Cp) * 4) + xbytes);
     for (int k = 0; k < n_boxes; ++k)
       tma_load(base + k * box_f, &tmap, (int)b0, k * boxc, r, mbar + slot);
     bulk_load(base + d_floats, cross + (long long)r * 3 * Cp, 12u * Cp, mbar + slot);
     bulk_load(base + d_floats + 3LL * Cp, af + r * af_rs, 4u * Cp, mbar + slot);
     bulk_load(base + d_floats + 4LL * Cp, ab + r * ab_rs, 4u * Cp, mbar + slot);
+    if constexpr (XL) {
+      // the row's extended-lane lists: header, then its first xn entries
+      int* xb = reinterpret_cast<int*>(xslot + slot * xslot_f);
+      bulk_load(xb, g.xl.goff + (long long)r * g.xl.gw, 4u * g.xl.gw, mbar + slot);
+      if (xn > 0) {
+        bulk_load(xb + g.xl.gw, g.xl.meta + xs, 4u * xn, mbar + slot);
+        bulk_load(xb + g.xl.gw + xcap, g.xl.w + xs, 4u * xn, mbar + slot);
+      }
+    }
   };
   // cand of column i (8 lanes) from the carried row; the neighbours of a
   // thread's first and last column are its neighbour threads' columns
@@ -673,39 +774,57 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       cd[4 * h + 3] = fminf(fminf(L.w + x0, S.w + x1), R.w + x2);
     }
   };
-  // the extended lanes of column i into cd: the carried rows' columns from
-  // shared memory, own-row columns from the staged row `srow` or from row r
-  // in device memory
-  auto cand_xl = [&](int i, int r, const float* srow, float (&cd)[LANES]) {
-    const int c = c0 + i;
-    for (int li = 0; li < g.xl.n; ++li) {
-      const int cs = c + g.xl.dc[li];
-      if (cs < 0 || cs >= Cp) continue;
-      const int sel = g.xl.sel[li];
-      const float wx = __ldg(g.xl.w + ((long long)r * g.xl.n + li) * Cp + c);
-      const float4* p4 = sel == 1 ? prev4 : prev2_4;
-      const int t = cs / CPT, ii = cs - t * CPT;
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float4 X;
-        if (sel != 0)
-          X = p4[(2 * ii + h) * NT + t];
-        else if (staged)
-          X = ld_stage(tag, reinterpret_cast<const char*>(srow), cs, h);
-        else
-          X = ld4(d + r * rs + (long long)cs * Bp + b0 + 4 * h);
-        cd[4 * h + 0] = fminf(cd[4 * h + 0], X.x + wx);
-        cd[4 * h + 1] = fminf(cd[4 * h + 1], X.y + wx);
-        cd[4 * h + 2] = fminf(cd[4 * h + 2], X.z + wx);
-        cd[4 * h + 3] = fminf(cd[4 * h + 3], X.w + wx);
-      }
+  // XL: this thread's entries of the row's list, [xe0, xe1), the staged
+  // ones [xe0, xes) (the row's first xcap, from entry xbase, in its slot);
+  // xcur: the next entry, from xe0 for each pass over the columns in order
+  int xe0 = 0, xe1 = 0, xes = 0, xbase = 0, xcur = 0;
+  // one extended-lane entry (meta m, weight wx) of column c into cd: the
+  // carried rows' columns from shared memory, own-row columns from the
+  // staged row or from row r in device memory
+  auto relax_xl = [&](int m, float wx, int c, int r, int slot, float (&cd)[LANES]) {
+    const int sel = xm_sel(m), cs = c + xm_dc(m);
+    if (cs < 0 || cs >= Cp || sel > 2 || (sel == 2 && !two_rows)) return;
+    const float4* p4 = sel == 1 ? prev4 : prev2_4;
+    const int t = cs / CPT, ii = cs - t * CPT;
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 X;
+      if (sel != 0)
+        X = p4[(2 * ii + h) * NT + t];
+      else if (staged)
+        X = ld_stage(tag, reinterpret_cast<const char*>(stage + slot * slot_f), cs, h);
+      else
+        X = ld4(d + r * rs + (long long)cs * Bp + b0 + 4 * h);
+      cd[4 * h + 0] = fminf(cd[4 * h + 0], X.x + wx);
+      cd[4 * h + 1] = fminf(cd[4 * h + 1], X.y + wx);
+      cd[4 * h + 2] = fminf(cd[4 * h + 2], X.z + wx);
+      cd[4 * h + 3] = fminf(cd[4 * h + 3], X.w + wx);
     }
   };
-  // cand of column i with the extended lanes (XL)
-  auto cand_all = [&](int i, int r, const float* srow, float x0, float x1, float x2w,
+  // the extended-lane entries of column i into cd, from the cursor: the
+  // staged ones (shared memory), then those past the cap (device memory),
+  // up to the first entry past the column
+  auto cand_xl = [&](int i, int r, int slot, float (&cd)[LANES]) {
+    const int c = c0 + i;
+    const int* xb = reinterpret_cast<const int*>(xslot + slot * xslot_f);
+    for (; xcur < xes; ++xcur) {
+      const int m = xb[g.xl.gw + xcur - xbase];
+      if (xm_col(m) > c) return;                     // sorted by column
+      if (xm_col(m) == c)
+        relax_xl(m, reinterpret_cast<const float*>(xb)[g.xl.gw + xcap + xcur - xbase], c, r,
+                 slot, cd);
+    }
+    for (; xcur < xe1; ++xcur) {
+      const int m = __ldg(g.xl.meta + xcur);
+      if (xm_col(m) > c) return;
+      if (xm_col(m) == c) relax_xl(m, __ldg(g.xl.w + xcur), c, r, slot, cd);
+    }
+  };
+  // cand of column i with the extended lanes (XL; the columns in order)
+  auto cand_all = [&](int i, int r, int slot, float x0, float x1, float x2w,
                       float (&cd)[LANES]) {
     cand_col(i, x0, x1, x2w, cd);
-    if constexpr (XL) cand_xl(i, r, srow, cd);
+    if constexpr (XL) cand_xl(i, r, slot, cd);
   };
   // the written row into the carry: over the row before (one carried row)
   // or over the second carried row, which then becomes the row before
@@ -836,20 +955,40 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         }
         if (tid == 0) {
           bulk_wait_read<0>();
-          load_row(r, slot);
+          load_row(r, slot, -1);
           if (DIRTY) sflag[slot] = drow[r];
         }
         __syncthreads();
       }
+      // XL takes where the next row's list starts from this row's staged
+      // header, so it waits for this row's stage before the prefetch; the
+      // other modes wait after it, and the two loads overlap
+      if constexpr (XL) wait_slot(slot);
       if (pre && tid == 0) {
         bulk_wait_read<1>();   // the store of two rows ago has left nslot
-        load_row(rn, nslot);
+        load_row(rn, nslot, slot);
         if (DIRTY) next_flag = drow[rn];   // into the stage before the row ends
       }
-      wait_slot(slot);
+      if constexpr (!XL) wait_slot(slot);
     }
-    const float* srow = stage + slot * slot_f;
     ++n_walked;
+    if constexpr (XL) {
+      if (thr_ok) {   // this thread's entries of the row's list
+        const int k0 = c0 / XG, k1 = (c0 + CPT + XG - 1) / XG;
+        if (staged) {
+          const int* xb = reinterpret_cast<const int*>(xslot + slot * xslot_f);
+          xbase = xb[0];
+          xe0 = xbase + xl_off(xb, k0);
+          xe1 = xbase + xl_off(xb, k1);
+        } else {
+          const int* head = g.xl.goff + (long long)r * g.xl.gw;
+          xbase = __ldg(head);
+          xe0 = xbase + xl_off_ldg(head, k0);
+          xe1 = xbase + xl_off_ldg(head, k1);
+        }
+        xes = min(xe1, xbase + xcap);
+      }
+    }
 
     // cand, row0 and the flags
     float v[CPT][LANES];
@@ -860,6 +999,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
       ld_tabs(2, r, slot, x2);
     }
     int bitsf = 0;   // bit 0: imp, bit 1: fin
+    xcur = xe0;
     #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       #pragma unroll
@@ -868,7 +1008,7 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         const float4 ca = ld_cur(r, slot, i, 0), cb = ld_cur(r, slot, i, 1);
         const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
         float cd[LANES];
-        cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
+        cand_all(i, r, slot, x0[i], x1[i], x2[i], cd);
         #pragma unroll
         for (int l = 0; l < LANES; ++l) {
           v[i][l] = fminf(cur[l], cd[l]);
@@ -1027,12 +1167,13 @@ __global__ void __launch_bounds__(MAX_THREADS) banded_pass_kernel(
         // place); thread-padding columns are left out
         int simp = 0;
         if (thr_ok) {
+          xcur = xe0;
           #pragma unroll
           for (int i = 0; i < CPT; ++i) {
             const float4 ca = ld_cur(r, slot, i, 0), cb = ld_cur(r, slot, i, 1);
             const float cur[LANES] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
             float cd[LANES];
-            cand_all(i, r, srow, x0[i], x1[i], x2[i], cd);
+            cand_all(i, r, slot, x0[i], x1[i], x2[i], cd);
             #pragma unroll
             for (int l = 0; l < LANES; ++l)
               simp |= below(v[i][l], fminf(cur[l], cd[l]), k_rtol, atol);
@@ -1118,9 +1259,11 @@ int cols_per_thread(int Cp) { return Cp <= 32 ? 1 : (Cp <= 1024 ? 4 : 8); }
 size_t walker_smem(int NT, int CPT, const Args& g, int esize) {
   const int nrows = (g.x2 ? 2 : 1) + (g.nsteps > 0 ? 1 : 0);
   if (!g.staged) return (size_t)stage_offset(NT * CPT, nrows) * sizeof(float);
-  // slot_floats, and 1,024 bytes to align the stage
+  // slot_floats (and the extended-lane slots), and 1,024 bytes to align the stage
   const long long slot = slot_floats(g.Cp, g.n_boxes, g.boxc, esize);
-  return (size_t)(stage_offset(NT * CPT, nrows) + 256 + N_SLOTS * slot) * sizeof(float);
+  const long long xslot = g.xl.goff != nullptr ? xl_slot_floats(g.xl) : 0;
+  return (size_t)(stage_offset(NT * CPT, nrows) + 256 + N_SLOTS * (slot + xslot)) *
+         sizeof(float);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1169,12 +1312,12 @@ int launch_walker(const Args& g, const CUtensorMap& m, int NT, size_t smem, cuda
 template <typename T>
 int launch_typed(T* d, const float* cross, const float* af, long long af_rs, const float* ab,
                  long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
-                 const float* cutlb, const float* cutth, const int* seedrc, const XLanes& xs,
-                 int x2, int Rp, int Cp, int Bp, int reverse, int force, int mode, int nsteps,
-                 float k_rtol, float atol, cudaStream_t s) {
+                 const float* cutlb, const float* cutth, const int* seedrc, const XList& xl,
+                 int x_maxrow, int x2, int Rp, int Cp, int Bp, int reverse, int force, int mode,
+                 int nsteps, float k_rtol, float atol, cudaStream_t s) {
   const int CPT = cols_per_thread(Cp);
   const bool cut = cutlb != nullptr;
-  const int n_x = xs.n;
+  const bool has_x = xl.goff != nullptr;
   if (dirty != nullptr) {
     const long long nq = (Cp + PRESCAN_THREADS - 1) / PRESCAN_THREADS;
     const long long n = (long long)((Rp + 31) / 32) * (Bp / LANES) * nq;
@@ -1182,12 +1325,12 @@ int launch_typed(T* d, const float* cross, const float* af, long long af_rs, con
     const int dirty_need = mode == MODE_SKIP;
 #define PRESCAN(CT, XT)                                                                      \
   banded_prescan_kernel<T, CT, XT><<<(unsigned)n, PRESCAN_THREADS, 0, s>>>(                  \
-      d, cross, dirty, need_bits, cutlb, cutth, seedrc, xs, Rp, Cp, Bp, reverse, force,      \
+      d, cross, dirty, need_bits, cutlb, cutth, seedrc, xl, Rp, Cp, Bp, reverse, force,      \
       dirty_need, k_rtol, atol)
     if (cut) {
-      if (n_x) PRESCAN(true, true); else PRESCAN(true, false);
+      if (has_x) PRESCAN(true, true); else PRESCAN(true, false);
     } else {
-      if (n_x) PRESCAN(false, true); else PRESCAN(false, false);
+      if (has_x) PRESCAN(false, true); else PRESCAN(false, false);
     }
 #undef PRESCAN
     const cudaError_t err = cudaGetLastError();
@@ -1200,13 +1343,24 @@ int launch_typed(T* d, const float* cross, const float* af, long long af_rs, con
   const bool walk_dirty = dirty != nullptr && mode != MODE_NOSKIP;
   Args g = {d, cross, af, af_rs, ab, ab_rs, chg, walk_dirty ? dirty : nullptr,
             walk_dirty ? need_bits : nullptr, walked, Rp, Cp, Bp, reverse, force, 1, boxc,
-            (Cp + boxc - 1) / boxc, k_rtol, atol, xs, x2, mode, nsteps};
+            (Cp + boxc - 1) / boxc, k_rtol, atol, xl, x2, mode, nsteps};
   // staged: rows by TMA, at most 4 columns a thread (the tables' own layout)
-  // and rows of whole 16-byte pieces; else rows read and written in place
+  // and rows of whole 16-byte pieces; else rows read and written in place.
+  // XL, staged: each stage's extended-lane slot takes the plan's fullest
+  // row, or as many entries as the shared memory left holds
   g.staged = CPT <= 4 && Cp % 4 == 0;
+  const int want_cap = (x_maxrow + 3) & ~3;
+  g.xl.cap = !has_x ? 0 : (want_cap < XL_MAX_CAP ? want_cap : XL_MAX_CAP);
   size_t smem = walker_smem(NT, CPT, g, (int)sizeof(T));
+  if (smem > MAX_SMEM && has_x) {
+    g.xl.cap = 0;
+    const size_t base = walker_smem(NT, CPT, g, (int)sizeof(T));
+    if (base <= MAX_SMEM) g.xl.cap = (int)((MAX_SMEM - base) / (4 * 2 * N_SLOTS)) & ~3;
+    smem = walker_smem(NT, CPT, g, (int)sizeof(T));
+  }
   if (smem > MAX_SMEM) {
     g.staged = 0;
+    g.xl.cap = 0;
     smem = walker_smem(NT, CPT, g, (int)sizeof(T));
     if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   }
@@ -1222,13 +1376,13 @@ int launch_typed(T* d, const float* cross, const float* af, long long af_rs, con
     case 8: return launch_walker<T, DT, 8, XT>(g, m, NT, smem, s);      \
   }
   if (walk_dirty) {
-    if (n_x) {
+    if (has_x) {
       WALK(true, true)
     } else {
       WALK(true, false)
     }
   } else {
-    if (n_x) {
+    if (has_x) {
       WALK(false, true)
     } else {
       WALK(false, false)
@@ -1252,16 +1406,19 @@ extern "C" int banded_pass_max_cols_x3() { return MAX_COLS_X3; }
 // `seedrc` all null: no cut. A cut needs a dirty table: in NOSKIP a zeroed
 // one, which only runs the prescan for the cut. `walked` (nullable) gains the
 // rows the blocks walked. `n_x` extended lanes: `xl` holds (sel, dc) for each
-// (host memory), `xcross` their [Rp, n_x, Cp] weights. `mode`: MODE_SKIP,
-// MODE_DEFER (needs the dirty table, nsteps 0) or MODE_NOSKIP; `nsteps` > 0:
-// partial depth, that many levels of af / ab (rows of af_rs, levels of Cp).
+// (host memory), `xgoff` / `xmeta` / `xw` their lists (XList; `xgoff` [Rp,
+// x_gw] with x_gw = XL_HEAD + ceil((ceil(Cp / 4) + 1) / 2) rounded up to 4,
+// `x_maxrow` the most entries of a row, at most 65,535). `mode`:
+// MODE_SKIP, MODE_DEFER (needs the dirty table, nsteps 0) or MODE_NOSKIP;
+// `nsteps` > 0: partial depth, that many levels of af / ab (rows of af_rs,
+// levels of Cp).
 extern "C" int banded_pass_launch(
     void* d, int bf16_field, const float* cross, const float* af, long long af_rs,
     const float* ab, long long ab_rs, int* chg, int* dirty, unsigned* need_bits, int* walked,
     const float* cutlb, const float* cutth, const int* seedrc,
-    const float* xcross, int n_x, const int* xl,
-    int Rp, int Cp, int Bp, int reverse, int force, int mode, int nsteps, float k_rtol,
-    float atol, void* stream) {
+    const int* xgoff, const int* xmeta, const float* xw, int x_gw, int x_maxrow, int n_x,
+    const int* xl, int Rp, int Cp, int Bp, int reverse, int force, int mode, int nsteps,
+    float k_rtol, float atol, void* stream) {
   if (Cp < 1 || Cp > MAX_COLS || Bp < LANES || Bp % LANES != 0 || Rp < 1)
     return (int)cudaErrorInvalidValue;
   if (Cp % cols_per_thread(Cp) != 0) return (int)cudaErrorInvalidValue;
@@ -1277,17 +1434,27 @@ extern "C" int banded_pass_launch(
   if (al % 16 != 0 || af_rs % 4 != 0 || ab_rs % 4 != 0 || af_rs < (long long)nsteps * Cp ||
       ab_rs < (long long)nsteps * Cp)
     return (int)cudaErrorInvalidValue;
-  XLanes xs = {};
-  xs.w = xcross;
-  xs.n = n_x;
+  XList xs = {};
   int x2 = 0;
-  if (n_x < 0 || n_x > MAX_XLANES || (n_x > 0 && (xcross == nullptr || xl == nullptr)))
+  if (n_x < 0 || n_x > MAX_XLANES ||
+      (n_x > 0 && (xgoff == nullptr || xmeta == nullptr || xw == nullptr || xl == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (n_x > 0) {
+    const int ng = (Cp + XG - 1) / XG;
+    const unsigned long long xal = (unsigned long long)xgoff | (unsigned long long)xmeta |
+                                   (unsigned long long)xw;
+    if (x_gw != ((XL_HEAD + (ng + 2) / 2 + 3) & ~3) || x_maxrow < 0 || x_maxrow > 0xffff ||
+        xal % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    xs.goff = xgoff;
+    xs.meta = xmeta;
+    xs.w = xw;
+    xs.gw = x_gw;
+    xs.ng = ng;
+  }
   for (int i = 0; i < n_x; ++i) {
     const int sel = xl[2 * i], dc = xl[2 * i + 1];
     if (sel < 0 || sel > 2 || dc < -MAX_XDC || dc > MAX_XDC) return (int)cudaErrorInvalidValue;
-    xs.sel[i] = (signed char)sel;
-    xs.dc[i] = (signed char)dc;
     x2 |= sel == 2;
   }
   const int nrows = (x2 ? 2 : 1) + (nsteps > 0 ? 1 : 0);
@@ -1296,9 +1463,9 @@ extern "C" int banded_pass_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16_field)
     return launch_typed(reinterpret_cast<bf16*>(d), cross, af, af_rs, ab, ab_rs, chg, dirty,
-                        need_bits, walked, cutlb, cutth, seedrc, xs, x2, Rp, Cp, Bp, reverse,
-                        force, mode, nsteps, k_rtol, atol, s);
+                        need_bits, walked, cutlb, cutth, seedrc, xs, x_maxrow, x2, Rp, Cp, Bp,
+                        reverse, force, mode, nsteps, k_rtol, atol, s);
   return launch_typed(reinterpret_cast<float*>(d), cross, af, af_rs, ab, ab_rs, chg, dirty,
-                      need_bits, walked, cutlb, cutth, seedrc, xs, x2, Rp, Cp, Bp, reverse, force,
-                      mode, nsteps, k_rtol, atol, s);
+                      need_bits, walked, cutlb, cutth, seedrc, xs, x_maxrow, x2, Rp, Cp, Bp,
+                      reverse, force, mode, nsteps, k_rtol, atol, s);
 }

@@ -14,8 +14,10 @@ with its residual post-pass (predecessors_banded_pallas, :2463), the
 class-decoding path walk with the class-9 decode (:2644), the walk over a
 lane-minor id table (:2785), the on-the-fly predecessor lookup with the
 residual probe (:2834), the greedy descent (:2923), and the live-replan
-plane refresh, residual weights and changed-region planes (:580-807,
-:2069-2143).
+plane refreshes (from a slot-weight table or from costs), residual weights
+and changed-region planes (:512-807, :2069-2143). The extended lanes'
+edges that exist are also kept as per-row lists (XLaneList), which the
+pass kernel reads in place of the dense lane planes.
 
 Three kernels carry the solve; each has a plain PyTorch version beside it
 with the same semantics (row order, carry, gated writes, class order):
@@ -67,6 +69,10 @@ PASS_MAX_COLS_X2 = 3584
 PASS_MAX_COLS_X3 = 2304
 # the widest column shift of an extended lane (the prescan's halo)
 PASS_MAX_XDC = 4
+# the extended-lane lists (csrc/banded_pass.cu XG, XL_HEAD): columns of a
+# group (a thread's four columns), ints of a row's header before its offsets
+XLIST_GROUP = 4
+XLIST_HEAD = 5
 
 
 def pass_cols_per_thread(Cp: int) -> int:
@@ -96,6 +102,157 @@ PLAN_META = (
     "n_rows", "n_cols", "n_cols_pad", "n_scan", "coverage", "num_vertices",
     "n_residual", "xlanes_down", "xlanes_up", "n_scan2", "n_res_dst",
 )
+
+
+def xlist_width(Cp: int) -> int:
+    """Ints a row's header of an extended-lane list takes (XLaneList.goff):
+    XLIST_HEAD ints, then a 16-bit offset for each XLIST_GROUP-column group
+    and the row's end, two to an int; rounded up to 4 (16 bytes)."""
+    return _round_up(XLIST_HEAD + -(-(-(-Cp // XLIST_GROUP) + 1) // 2), 4)
+
+
+def _list_heads(start: torch.Tensor, count: torch.Tensor, sub: torch.Tensor, N: int,
+                Cp: int) -> torch.Tensor:
+    """Row headers [R, xlist_width(Cp)] int32 of a list whose row r starts
+    at entry start[r] with count[r] entries, sub [R, G + 1] the entries
+    before each XLIST_GROUP-column group and the row's end (N: the entries
+    in all, the first entry of the rows past the last)."""
+    R = start.shape[0]
+    if R and int(count.max()) > 0xffff:
+        raise ValueError("an extended-lane list row holds more than 65,535 entries")
+    heads = torch.zeros((R, xlist_width(Cp)), dtype=torch.int64, device=start.device)
+    heads[:, 0] = start
+    heads[:, 1] = torch.cat([start[1:], start.new_full((1,), N)])
+    heads[:, 2] = torch.cat([count[1:], count.new_zeros(1)])
+    heads[1:, 3], heads[1:, 4] = start[:-1], count[:-1]
+    half = torch.zeros((R, 2 * (heads.shape[1] - XLIST_HEAD)), dtype=torch.int64,
+                       device=start.device)
+    half[:, :sub.shape[1]] = sub
+    words = half[:, 0::2] | half[:, 1::2] << 16
+    heads[:, XLIST_HEAD:] = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return heads.to(torch.int32).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class XLaneList:
+    """The extended-lane edges of one pass direction that exist, row by row:
+    what the pass kernel reads in place of the dense [R, L, Cp] planes.
+
+    Entries are sorted by (row, column, lane), and each row's first entry
+    sits at a multiple of 4 (the rows are padded apart with entries of +inf
+    weight that no row holds). goff [R, xlist_width(Cp)] int32 holds a
+    header per row: its first entry; the first entry and the count of the
+    row after it and of the row before it (the kernel stages a row's
+    neighbour from these); then 16-bit offsets from the row's first entry
+    of each XLIST_GROUP-column group's first entry and of the row's end.
+    meta [N] int32 packs column | sel << 12 | (dc + 4) << 14 | lane << 18.
+    w [N] f32 is a gather of the dense planes through src [N] int64 (flat
+    index into [R, L, Cp]; -1 for padding). max_row: the most entries of
+    one row (at most 65,535). Which edges exist comes from the plan's
+    static tables, not from the weights: an edge whose weight turns +inf
+    stays and relaxes nothing. An edge whose source column lies off the
+    row is left out (the pass relaxes nothing from there)."""
+    goff: torch.Tensor
+    meta: torch.Tensor
+    w: torch.Tensor
+    src: torch.Tensor
+    max_row: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.goff.shape[0]
+
+    def offsets(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(first entry [R], offsets [R, G + 1] of each group's first entry
+        and of the row's end from it), decoded from the headers."""
+        words = self.goff[:, XLIST_HEAD:].long() & 0xffffffff
+        half = torch.stack([words & 0xffff, words >> 16], dim=2).flatten(1)
+        return self.goff[:, 0].long(), half
+
+    def row_counts(self, Cp: int) -> torch.Tensor:
+        """The entries of each row, [R]."""
+        return self.offsets()[1][:, -(-Cp // XLIST_GROUP)]
+
+    def with_weights(self, planes: torch.Tensor) -> "XLaneList":
+        """The same edges with their weights gathered from `planes` (the
+        dense [R, L, Cp] planes the list was built for), on the planes'
+        device, with no host read."""
+        flat = planes.reshape(-1)
+        w = torch.where(self.src >= 0, flat[self.src.clamp(min=0)], INF).to(torch.float32)
+        return dataclasses.replace(self, w=w)
+
+    def rows(self, r0: int, r1: int) -> "XLaneList":
+        """Rows r0 .. r1 - 1 (a slab of the field): a view of the headers
+        over the same entries."""
+        return dataclasses.replace(self, goff=self.goff[r0:r1])
+
+    def pad_rows(self, Rp: int, Cp: int) -> "XLaneList":
+        """Rows past the list's up to Rp, with no entries."""
+        R = self.n_rows
+        if Rp == R:
+            return self
+        start, sub = self.offsets()
+        G = -(-Cp // XLIST_GROUP)
+        N = self.meta.shape[0]
+        start = torch.cat([start, start.new_full((Rp - R,), N)])
+        sub = torch.cat([sub[:, :G + 1], sub.new_zeros((Rp - R, G + 1))])
+        return dataclasses.replace(self, goff=_list_heads(start, sub[:, G], sub, N, Cp))
+
+    def to(self, device) -> "XLaneList":
+        dev = torch.device(device)
+        return dataclasses.replace(self, goff=self.goff.to(dev), meta=self.meta.to(dev),
+                                   w=self.w.to(dev), src=self.src.to(dev))
+
+    def dense(self, n_lanes: int, Cp: int) -> torch.Tensor:
+        """The [R, n_lanes, Cp] planes the entries stand for (+inf where none)."""
+        out = torch.full((self.n_rows * n_lanes * Cp,), INF, dtype=torch.float32,
+                         device=self.w.device)
+        keep = self.src >= 0
+        out[self.src[keep]] = self.w[keep]
+        return out.view(self.n_rows, n_lanes, Cp)
+
+
+def build_xlane_list(present: torch.Tensor, planes: torch.Tensor, xlanes) -> XLaneList:
+    """The lists of the lanes `xlanes` ((sel, dc) each) over the edges that
+    `present` ([R, L, Cp] bool) marks, weights gathered from `planes`
+    ([R, L, Cp] f32), on their device. Built once per plan (one host read);
+    a refresh regathers the weights (XLaneList.with_weights)."""
+    R, L, Cp = present.shape
+    dev = present.device
+    if L != len(xlanes) or tuple(planes.shape) != (R, L, Cp):
+        raise ValueError(f"build_xlane_list: {L} planes of {tuple(planes.shape)} for "
+                         f"{len(xlanes)} lanes")
+    sel = torch.tensor([s for s, _ in xlanes], dtype=torch.int64, device=dev)
+    dc = torch.tensor([c for _, c in xlanes], dtype=torch.int64, device=dev)
+    src_col = torch.arange(Cp, device=dev)[None, :] + dc[:, None]                 # [L, Cp]
+    on_row = (src_col >= 0) & (src_col < Cp)
+    r, c, li = torch.nonzero((present & on_row[None]).permute(0, 2, 1), as_tuple=True)
+    n_row = torch.bincount(r, minlength=R)
+    padded = (n_row + 3) // 4 * 4
+    start = torch.cumsum(padded, 0) - padded
+    first = torch.cumsum(n_row, 0) - n_row
+    n_pad, max_row = (torch.stack([padded.sum(), n_row.max()]).tolist() if R else (0, 0))
+    N = max(4, n_pad)
+    pos = start[r] + torch.arange(r.shape[0], device=dev) - first[r]
+    meta = torch.zeros(N, dtype=torch.int64, device=dev)
+    meta[pos] = c | sel[li] << 12 | (dc[li] + 4) << 14 | li << 18
+    src = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    src[pos] = (r * L + li) * Cp + c
+    G = -(-Cp // XLIST_GROUP)
+    per_group = torch.zeros(R * G, dtype=torch.int64, device=dev)
+    per_group.index_add_(0, r * G + c // XLIST_GROUP, torch.ones_like(r))
+    sub = torch.cat([per_group.new_zeros((R, 1)), torch.cumsum(per_group.view(R, G), dim=1)],
+                    dim=1)
+    out = XLaneList(goff=_list_heads(start, n_row, sub, N, Cp), meta=meta.to(torch.int32),
+                    w=meta.new_zeros(0, dtype=torch.float32), src=src, max_row=int(max_row))
+    return out.with_weights(planes)
+
+
+def xlane_list_from_dense(xcross: torch.Tensor, xlanes) -> XLaneList:
+    """Lists of the finite weights of dense [Rp, L, Cp] lane planes: for
+    inputs that hold only dense planes (tests, stress scripts). A plan's
+    solve takes the lists its plan holds, from its static tables."""
+    return build_xlane_list(torch.isfinite(xcross), xcross, tuple(xlanes))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +306,10 @@ class BandedKernelPlan:
     # transpose_banded_plan only: the transposed lanes (dr_t, dc_t) left out
     # (|dr_t| > 2); their edges stay on the residual list
     xlanes_dropped: tuple = ()
+    # the extended lanes' edges that exist, row by row (XLaneList; None
+    # without lanes): what the pass kernel reads in place of xdown / xup
+    xlist_down: XLaneList | None = None
+    xlist_up: XLaneList | None = None
     # the [Rp, 8, Cp] class-order weight stacks of _w8_planes, by Rp; a
     # refreshed plan (dataclasses.replace) starts with none
     w8_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
@@ -408,7 +569,7 @@ def build_banded_kernel_plan(
         return torch.from_numpy(a).to(dev)
 
     f32 = np.float32
-    return BandedKernelPlan(
+    plan = BandedKernelPlan(
         n_rows=R, n_cols=n, n_cols_pad=Cp, n_scan=n_scan,
         coverage=float(coverage), num_vertices=V, n_residual=int(len(rows)),
         down=t(down, f32), up=t(up, f32), a_fwd=t(a_fwd, f32), a_bwd=t(a_bwd, f32),
@@ -432,6 +593,45 @@ def build_banded_kernel_plan(
         res_row_map=t(row_map), res_jump=t(jump), res_order=t(res_order),
         res_entry_row=t(entry_row), res_entry_slot=t(entry_slot),
     )
+    return with_xlane_lists(plan)
+
+
+def xlane_present(plan: BandedKernelPlan, name: str) -> torch.Tensor:
+    """[R, L, Cp] bool: the edges of the `name` ("down" / "up") extended
+    lanes that exist, from the plan's slot maps (xslot_*)."""
+    slots = getattr(plan, f"xslot_{name}")
+    return torch.stack([_grid_plane(plan, slots[i] >= 0, False)
+                        for i in range(len(getattr(plan, f"xlanes_{name}")))], dim=1)
+
+
+def with_xlane_lists(plan: BandedKernelPlan, present_down=None,
+                     present_up=None) -> BandedKernelPlan:
+    """`plan` with the lists of its extended lanes (XLaneList): the edges
+    that exist from `present_*` ([R, L, Cp] bool; default: the plan's slot
+    maps), the weights from xdown / xup. None where a direction has no lane."""
+    lists = {}
+    for name, present in (("down", present_down), ("up", present_up)):
+        lanes = getattr(plan, f"xlanes_{name}")
+        if not lanes:
+            lists[f"xlist_{name}"] = None
+            continue
+        if present is None:
+            present = xlane_present(plan, name)
+        lists[f"xlist_{name}"] = build_xlane_list(present, getattr(plan, f"x{name}"), lanes)
+    return dataclasses.replace(plan, **lists)
+
+
+def with_planes(plan: BandedKernelPlan, **planes) -> BandedKernelPlan:
+    """`plan` with its weight planes replaced by `planes` and its lanes'
+    lists' weights gathered again from the new xdown / xup: on the plan's
+    device, no host read. Every refresh changes a plan's planes through it,
+    so the lists the kernel reads keep the dense planes' weights."""
+    plan = dataclasses.replace(plan, **planes)
+    return dataclasses.replace(
+        plan, **{f"xlist_{name}": (None if getattr(plan, f"xlist_{name}") is None else
+                                   getattr(plan, f"xlist_{name}").with_weights(
+                                       getattr(plan, f"x{name}")))
+                 for name in ("down", "up")})
 
 
 def transpose_banded_plan(plan: BandedKernelPlan) -> BandedKernelPlan:
@@ -451,12 +651,13 @@ def transpose_banded_plan(plan: BandedKernelPlan) -> BandedKernelPlan:
     at the transposed column offset, pallas_banded.py:890-896: a lane
     (|dr_t| > 2, 0) relaxes nothing, another relaxes from the wrong
     source). Residual ids are remapped to the transposed padded grid.
-    Solve-only: slot tables are the original plan's."""
+    Solve-only: slot tables are the original plan's; the lanes' lists come
+    from the original's edges, transposed by the same rule."""
     R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
     Rt = _round_up(R, 8)
 
-    def T(p):  # [R, Cp] -> [C, Rt]
-        out = torch.full((C, Rt), INF, dtype=torch.float32, device=p.device)
+    def T(p, fill=INF):  # [R, Cp] -> [C, Rt]
+        out = torch.full((C, Rt), fill, dtype=p.dtype, device=p.device)
         out[:, :R] = p[:, :C].T
         return out
 
@@ -468,21 +669,27 @@ def transpose_banded_plan(plan: BandedKernelPlan) -> BandedKernelPlan:
     lf_eff, lb_eff = _effective_laterals(lat_fwd_t, lat_bwd_t, down_t, up_t)
     a_fwd_t, a_bwd_t = _chain_weights(lf_eff, lb_eff, n_scan_t)
 
-    lanes = [(-sel, dc, plan.xdown[:, i]) for i, (sel, dc) in enumerate(plan.xlanes_down)]
-    lanes += [(sel, dc, plan.xup[:, i]) for i, (sel, dc) in enumerate(plan.xlanes_up) if sel]
-    xl_down, xp_down, xl_up, xp_up, dropped = [], [], [], [], []
-    for dr, dc, p in lanes:
+    pres_down = xlane_present(plan, "down") if plan.xlanes_down else None
+    pres_up = xlane_present(plan, "up") if plan.xlanes_up else None
+    lanes = [(-sel, dc, plan.xdown[:, i], pres_down[:, i])
+             for i, (sel, dc) in enumerate(plan.xlanes_down)]
+    lanes += [(sel, dc, plan.xup[:, i], pres_up[:, i])
+              for i, (sel, dc) in enumerate(plan.xlanes_up) if sel]
+    xl_down, xp_down, xe_down, xl_up, xp_up, xe_up, dropped = [], [], [], [], [], [], []
+    for dr, dc, p, e in lanes:
         dr_t, dc_t = dc, dr
         if abs(dr_t) > 2:
             dropped.append((dr_t, dc_t))
             continue
-        pt = T(p)
+        pt, et = T(p), T(e, False)
         if dr_t <= 0:
             xl_down.append((abs(dr_t), dc_t))
             xp_down.append(pt)
+            xe_down.append(et)
         if dr_t >= 0:
             xl_up.append((abs(dr_t), dc_t))
             xp_up.append(pt)
+            xe_up.append(et)
 
     def xstack(ps):
         if ps:
@@ -492,7 +699,7 @@ def transpose_banded_plan(plan: BandedKernelPlan) -> BandedKernelPlan:
     def remap(ids):
         return ((ids % Cp) * Rt + ids // Cp).to(ids.dtype)
 
-    return BandedKernelPlan(
+    plan_t = BandedKernelPlan(
         n_rows=C, n_cols=R, n_cols_pad=Rt, n_scan=n_scan_t, coverage=plan.coverage,
         num_vertices=plan.num_vertices, n_residual=plan.n_residual,
         down=down_t, up=up_t, a_fwd=a_fwd_t.contiguous(), a_bwd=a_bwd_t.contiguous(),
@@ -504,6 +711,8 @@ def transpose_banded_plan(plan: BandedKernelPlan) -> BandedKernelPlan:
         xslot_down=plan.xslot_down, xslot_up=plan.xslot_up,
         xlanes_dropped=tuple(dropped),
     )
+    return with_xlane_lists(plan_t, torch.stack(xe_down, dim=1) if xe_down else None,
+                            torch.stack(xe_up, dim=1) if xe_up else None)
 
 
 # --------------------------------------------------------------------------
@@ -523,6 +732,8 @@ class PaddedProblem:
     bb: int
     xdown: torch.Tensor | None = None   # [Rp, L, Cp] extended lanes of the down pass
     xup: torch.Tensor | None = None     # [Rp, L, Cp] of the up pass (None: no lanes)
+    xlist_down: XLaneList | None = None   # their lists, Rp rows (what the kernel reads)
+    xlist_up: XLaneList | None = None
 
 
 def _pad_rows(p: torch.Tensor, Rp: int, fill=INF) -> torch.Tensor:
@@ -544,7 +755,8 @@ def prepare_padded(
     stays f32 (pallas_banded.py:1355-1358).
     seeded=False leaves d0 None (a warm resolve starts from its own field).
     The extended-lane planes are padded where the plan has lanes
-    (pallas_banded.py:1385-1386), else left None."""
+    (pallas_banded.py:1385-1386), and their lists with them, else left
+    None."""
     B = seeds.shape[0]
     R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
     Rp = _round_up(R, rb)
@@ -566,6 +778,8 @@ def prepare_padded(
         bb=bb,
         xdown=_pad_rows(plan.xdown, Rp).contiguous() if plan.xlanes_down else None,
         xup=_pad_rows(plan.xup, Rp).contiguous() if plan.xlanes_up else None,
+        xlist_down=plan.xlist_down.pad_rows(Rp, Cp) if plan.xlanes_down else None,
+        xlist_up=plan.xlist_up.pad_rows(Rp, Cp) if plan.xlanes_up else None,
     )
 
 
@@ -702,15 +916,9 @@ def _check_modes(dirty, skip: bool, defer: bool) -> None:
         raise ValueError("directional_pass: defer needs the dirty table")
 
 
-def _check_xlanes(xcross, xlanes, shape) -> None:
+def _check_xlanes(xlanes) -> None:
     """Extended lanes: (sel, dc) pairs, sel 0 the row's own loaded values,
-    1 the carried row, 2 the second carried row, |dc| <= PASS_MAX_XDC, one
-    [Rp, L, Cp] plane each in xcross."""
-    if not xlanes:
-        return
-    Rp, Cp = shape
-    if xcross is None or tuple(xcross.shape) != (Rp, len(xlanes), Cp):
-        raise ValueError(f"directional_pass: xcross must be [{Rp}, {len(xlanes)}, {Cp}]")
+    1 the carried row, 2 the second carried row, |dc| <= PASS_MAX_XDC."""
     for sel, dc in xlanes:
         if sel not in (0, 1, 2) or abs(dc) > PASS_MAX_XDC or (sel == 0 and dc == 0):
             raise ValueError(f"directional_pass: bad extended lane {(sel, dc)}")
@@ -735,6 +943,7 @@ def directional_pass_plain(
     dirty: torch.Tensor | None = None, warm_cut: tuple | None = None,
     rows_walked: torch.Tensor | None = None, xcross: torch.Tensor | None = None,
     xlanes: tuple = (), skip: bool = True, scan_steps: int = 0, defer: bool = False,
+    xlist: XLaneList | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the pass, in place on d [Rp, Cp, Bp] (f32
     or bfloat16 storage): the configurations of _pass_kernel.
@@ -746,7 +955,8 @@ def directional_pass_plain(
     cross candidate, before row0 and imp: lane i relaxes
     src[c + dc] + xcross[r, i, c] (+inf off the row), src the carried row
     (sel 1), the row before it as written (sel 2) or the row's own values
-    as loaded (sel 0).
+    as loaded (sel 0). It reads the dense planes: `xlist`, the lists the
+    kernel reads in their place, is not read here.
     With `dirty` ([Bp // bb, Rp] int32, updated in place; use_dirty,
     pallas_banded.py:1003-1036) need |= dirty[j, row], a needed row scans
     base = row0 and writes the scan, simp flags a scan that still improved
@@ -784,7 +994,9 @@ def directional_pass_plain(
     _require_dirty_for_cut(dirty, warm_cut, skip)
     _check_modes(dirty, skip, defer)
     Rp, Cp, Bp = d.shape
-    _check_xlanes(xcross, xlanes, (Rp, Cp))
+    _check_xlanes(xlanes)
+    if xlanes and (xcross is None or tuple(xcross.shape) != (Rp, len(xlanes), Cp)):
+        raise ValueError(f"directional_pass: xcross must be [{Rp}, {len(xlanes)}, {Cp}]")
     two = pass_needs_two_rows(xlanes)
     nb = Bp // bb
     k = 1.0 + rtol
@@ -876,7 +1088,7 @@ def directional_pass(
     force: bool = False, dirty: torch.Tensor | None = None,
     warm_cut: tuple | None = None, rows_walked: torch.Tensor | None = None,
     xcross: torch.Tensor | None = None, xlanes: tuple = (), skip: bool = True,
-    scan_steps: int = 0, defer: bool = False,
+    scan_steps: int = 0, defer: bool = False, xlist: XLaneList | None = None,
 ) -> torch.Tensor:
     """One directional Gauss-Seidel pass over every row of d, in place, with
     the optional dirty table, warm cut, extended lanes, partial scan depth,
@@ -885,6 +1097,10 @@ def directional_pass(
     directional_pass_plain; CUDA tensors launch the csrc/banded_pass.cu
     kernel (8-lane blocks, with the dirty table after its prescan) or
     raise. Rows take at most pass_max_cols(...) columns.
+    With extended lanes the kernel reads only `xlist` (XLaneList of Rp
+    rows: the plan's, PaddedProblem.xlist_*, or xlane_list_from_dense(
+    xcross)); the dense `xcross` is read only by the plain version, and the
+    card path neither needs nor checks it.
     `rows_walked` (int32 [1] on d's device, optional) gains the rows the
     kernel's blocks walked. Returns the changed flag as an int32 [1] tensor
     on d's device."""
@@ -900,7 +1116,7 @@ def directional_pass(
     _require_dirty_for_cut(dirty, warm_cut, skip)
     _check_modes(dirty, skip, defer)
     Rp, Cp, Bp = d.shape
-    _check_xlanes(xcross, xlanes, (Rp, Cp))
+    _check_xlanes(xlanes)
     if bb != PASS_LANES or Bp % PASS_LANES:
         raise ValueError(f"the CUDA pass runs {PASS_LANES}-lane blocks (bb={bb}, Bp={Bp})")
     if d.dtype not in (torch.float32, torch.bfloat16):
@@ -925,7 +1141,13 @@ def directional_pass(
                    ("cutth", cutth, (Bp,), torch.float32),
                    ("seedrc", seedrc, (2, Bp), torch.int32)]
     if xlanes:
-        checks.append(("xcross", xcross, (Rp, len(xlanes), Cp), torch.float32))
+        if xlist is None:
+            raise ValueError("directional_pass: extended lanes on the card need their lists "
+                             "(xlist)")
+        N = xlist.meta.shape[0]
+        checks += [("xlist.goff", xlist.goff, (Rp, xlist_width(Cp)), torch.int32),
+                   ("xlist.meta", xlist.meta, (N,), torch.int32),
+                   ("xlist.w", xlist.w, (N,), torch.float32)]
     for name, t, shape, dtype in checks:
         if t.device != d.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"directional_pass: bad {name} {tuple(t.shape)} {t.dtype} {t.device}")
@@ -933,9 +1155,10 @@ def directional_pass(
             and a_fwd.stride(2) == 1 and a_bwd.stride(2) == 1
             and a_fwd.stride(1) == Cp and a_bwd.stride(1) == Cp):
         raise ValueError("directional_pass: d, cross and the mode tables must be contiguous")
-    if (any(t.data_ptr() % 16 for t in (d, cross, a_fwd, a_bwd))
-            or a_fwd.stride(0) % 4 or a_bwd.stride(0) % 4):
-        raise ValueError("directional_pass: d, cross, a_fwd and a_bwd rows must be 16-byte aligned")
+    aligned = [d, cross, a_fwd, a_bwd] + ([xlist.goff, xlist.meta, xlist.w] if xlanes else [])
+    if any(t.data_ptr() % 16 for t in aligned) or a_fwd.stride(0) % 4 or a_bwd.stride(0) % 4:
+        raise ValueError("directional_pass: d, cross, a_fwd, a_bwd and the lists' rows must be "
+                         "16-byte aligned")
     if rows_walked is not None and (rows_walked.device != d.device or rows_walked.numel() != 1
                                     or rows_walked.dtype != torch.int32):
         raise ValueError("directional_pass: rows_walked must be one int32 on d's device")
@@ -956,7 +1179,9 @@ def directional_pass(
         d.data_ptr(), int(d.dtype == torch.bfloat16), cross.data_ptr(), a_fwd.data_ptr(),
         a_fwd.stride(0), a_bwd.data_ptr(), a_bwd.stride(0), chg.data_ptr(), ptr(table),
         ptr(need_bits), ptr(rows_walked), ptr(cutlb), ptr(cutth), ptr(seedrc),
-        ptr(xcross) if xlanes else None, len(xlanes), xl, Rp, Cp, Bp,
+        ptr(xlist.goff) if xlanes else None, ptr(xlist.meta) if xlanes else None,
+        ptr(xlist.w) if xlanes else None, xlist_width(Cp), xlist.max_row if xlanes else 0,
+        len(xlanes), xl, Rp, Cp, Bp,
         int(reverse), int(force), mode, 0 if defer else scan_steps, 1.0 + rtol, atol, stream,
     )
     kernels.check("banded_pass", err)
@@ -1446,11 +1671,12 @@ def banded_solve_padded(
             c_dn = directional_pass(
                 d, prob.down, prob.a_fwd, prob.a_bwd, reverse=False, force=force, dirty=dirty,
                 warm_cut=cut, xcross=prob.xdown, xlanes=plan.xlanes_down,
-                scan_steps=0 if defer else depth, defer=defer, **pass_kw,
+                xlist=prob.xlist_down, scan_steps=0 if defer else depth, defer=defer, **pass_kw,
             )
             c_up = directional_pass(
                 d, prob.up, prob.a_fwd, prob.a_bwd, reverse=True, force=force_up, dirty=dirty,
-                xcross=prob.xup, xlanes=plan.xlanes_up, scan_steps=depth, **pass_kw,
+                xcross=prob.xup, xlanes=plan.xlanes_up, xlist=prob.xlist_up, scan_steps=depth,
+                **pass_kw,
             )
             changed = c_dn | c_up
         if cols is not None:
@@ -1551,6 +1777,8 @@ def _columns_problem(plan, plan_t, Rp: int, nb: int, use_dirty: bool, scan_steps
         plan=pt, down=pad(pt.down), up=pad(pt.up), a_fwd=pad(pt.a_fwd), a_bwd=pad(pt.a_bwd),
         xdown=pad(pt.xdown) if pt.xlanes_down else None,
         xup=pad(pt.xup) if pt.xlanes_up else None,
+        xlist_down=pt.xlist_down.pad_rows(Cp, pt.n_cols_pad) if pt.xlanes_down else None,
+        xlist_up=pt.xlist_up.pad_rows(Cp, pt.n_cols_pad) if pt.xlanes_up else None,
         depth=pass_scan_depth(pt.n_cols, pt.n_scan, scan_steps),
         dirty=torch.zeros((nb, Cp), dtype=torch.int32, device=pt.device) if use_dirty else None,
     )
@@ -1580,10 +1808,11 @@ def _column_passes(d, start, dirty, cols: dict, force: bool, timer, **pass_kw) -
     with _stage(timer, "solve"):
         c_l = directional_pass(dt, cols["down"], cols["a_fwd"], cols["a_bwd"], reverse=False,
                                force=force, dirty=dirty_t, xcross=cols["xdown"],
-                               xlanes=pt.xlanes_down, scan_steps=cols["depth"], **pass_kw)
+                               xlanes=pt.xlanes_down, xlist=cols["xlist_down"],
+                               scan_steps=cols["depth"], **pass_kw)
         c_r = directional_pass(dt, cols["up"], cols["a_fwd"], cols["a_bwd"], reverse=True,
                                dirty=dirty_t, xcross=cols["xup"], xlanes=pt.xlanes_up,
-                               scan_steps=cols["depth"], **pass_kw)
+                               xlist=cols["xlist_up"], scan_steps=cols["depth"], **pass_kw)
     with _stage(timer, "transpose"):
         if dirty is not None:
             rowj = (dt[:, :Rp] != before[:, :Rp]).any(dim=0).view(Rp, nb, -1).any(dim=2)
@@ -1756,20 +1985,22 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
     # crosses the seam, so a seed at 0 in it is not rescanned
     dirty_s = (None if dirty is None else
                torch.zeros((dirty.shape[0], W), dtype=torch.int32, device=dev))
-    planes = [(prob.down[sl], prob.xdown[sl] if prob.xdown is not None else None,
-               plan.xlanes_down, False),
-              (prob.up[sl], prob.xup[sl] if prob.xup is not None else None, plan.xlanes_up, True)]
+    planes = [(prob.down[sl], None if prob.xdown is None else prob.xdown[sl], plan.xlanes_down,
+               None if prob.xlist_down is None else prob.xlist_down.rows(lo, lo + W), False),
+              (prob.up[sl], None if prob.xup is None else prob.xup[sl], plan.xlanes_up,
+               None if prob.xlist_up is None else prob.xlist_up.rows(lo, lo + W), True)]
     a_fwd, a_bwd = prob.a_fwd[sl], prob.a_bwd[sl]
     interior = slice(GH if top is not None else 0, W - GH if bot is not None else W)
 
     def slab_round(warm_cut=None):
         with _stage(timer, "solve"):
-            for cross, xcross, xlanes, reverse in planes:
+            for cross, xcross, xlanes, xlist, reverse in planes:
                 if warm_cut is not None and dirty_s is not None:
                     dirty_s[:, interior] = 1
                 directional_pass(d_s, cross, a_fwd, a_bwd, reverse=reverse, atol=atol, rtol=rtol,
                                  dirty=dirty_s, warm_cut=None if reverse else warm_cut,
-                                 xcross=xcross, xlanes=xlanes, skip=skip, scan_steps=depth)
+                                 xcross=xcross, xlanes=xlanes, xlist=xlist, skip=skip,
+                                 scan_steps=depth)
 
     def state():
         """(violates, seam broken), one host read."""
@@ -2071,6 +2302,45 @@ def _planes_from_cost_plane(
                 wback_fwd=wbf, wback_bwd=wbb)
 
 
+def refresh_banded_planes(plan: BandedKernelPlan, weights_vd) -> BandedKernelPlan:
+    """Every weight plane again from a new [V, D] slot-weight table, on the
+    plan's device with no host read (pallas_banded.py:512-577): the
+    live-replan refresh where edge weights come from another source than
+    the cost field. The static classification is reused (slot_map, the
+    residual slots, the lanes' slot maps xslot_*), so a lethal edge comes
+    out +inf as in a fresh build; the lanes' lists keep their edges and
+    take the new weights."""
+    dev = plan.device
+    W = torch.as_tensor(weights_vd).to(dev, torch.float32)
+    V, C, Cp, S = plan.num_vertices, plan.n_cols, plan.n_cols_pad, plan.n_scan
+    vid = torch.arange(V, device=dev)
+
+    def plane(sm):
+        sm = sm.long()
+        return _grid_plane(plan, torch.where(sm >= 0, W[vid, sm.clamp(min=0)], INF), INF)
+
+    lat_fwd, lat_bwd = plane(plan.slot_map[0]), plane(plan.slot_map[1])
+    down = torch.stack([plane(plan.slot_map[2 + i]) for i in range(3)], dim=1)
+    up = torch.stack([plane(plan.slot_map[5 + i]) for i in range(3)], dim=1)
+    lf_eff, lb_eff = _effective_laterals(lat_fwd, lat_bwd, down, up)
+    a_fwd, a_bwd = _chain_weights(lf_eff, lb_eff, S)
+    _, l2f, l2b, wbf, wbb = (_two_level_tables(a_fwd, a_bwd, S, Cp) if plan.n_scan2
+                             else (0, None, None, None, None))
+    res_dst, res_slot = plan.res_dst.long(), plan.res_slot.long()
+    res_w = torch.where(res_slot >= 0, W[(res_dst // Cp) * C + res_dst % Cp, res_slot.clamp(min=0)],
+                        INF)
+    xplanes = {}
+    for name in ("down", "up"):
+        lanes = getattr(plan, f"xlanes_{name}")
+        slots = getattr(plan, f"xslot_{name}")
+        xplanes[f"x{name}"] = (torch.stack([plane(slots[k]) for k in range(len(lanes))], dim=1)
+                               if lanes else getattr(plan, f"x{name}"))
+    return with_planes(
+        plan, down=down, up=up, a_fwd=a_fwd.contiguous(), a_bwd=a_bwd.contiguous(),
+        res_w=res_w.to(torch.float32), lat_fwd=lat_fwd, lat_bwd=lat_bwd, l2_fwd=l2f,
+        l2_bwd=l2b, wback_fwd=wbf, wback_bwd=wbb, **xplanes)
+
+
 def _residual_weights_from_costs(plan: BandedKernelPlan, cost_pad: torch.Tensor,
                                  f: float, cost_limit: float) -> torch.Tensor:
     """The residual edges' weights from a full cost plane [R, Cp]
@@ -2091,14 +2361,14 @@ def refresh_banded_planes_from_costs(
     """Gather-free live-replan refresh (pallas_banded.py:580-620): every
     weight plane straight from the [V] cost field and the plan's static
     distance planes, and the residual edges' weights (a gather of the
-    residual list)."""
+    residual list); the lanes' lists take the new weights (a gather)."""
     cost_pad = _grid_plane(plan, vertex_costs.to(torch.float32), INF)
     planes = _planes_from_cost_plane(
         plan, cost_pad, plan.dist_lat_fwd, plan.dist_lat_bwd, plan.dist_down,
         plan.dist_up, plan.xdist_down, plan.xdist_up, edge_cost_factor, cost_limit,
     )
     res_w = _residual_weights_from_costs(plan, cost_pad, edge_cost_factor, cost_limit)
-    return dataclasses.replace(plan, res_w=res_w, **planes)
+    return with_planes(plan, res_w=res_w, **planes)
 
 
 def _row_slab(x: torch.Tensor, start: int, size: int, fill=INF) -> torch.Tensor:
@@ -2125,7 +2395,8 @@ def refresh_banded_planes_rows(
     halo are recomputed on a `row_window`-row slab and written over copies
     of the base planes; when they do not fit the slab, all planes are
     recomputed. Exact either way. The branch is chosen by one host read.
-    The residual weights are refreshed from the whole cost plane."""
+    The residual weights are refreshed from the whole cost plane, the
+    lanes' lists' weights gathered from the refreshed planes."""
     R = base_plan.n_rows
     PR, H = row_window, _REFRESH_HALO
     if R < PR + 2 * H:
@@ -2148,7 +2419,7 @@ def refresh_banded_planes_rows(
             bp, cost_pad, bp.dist_lat_fwd, bp.dist_lat_bwd, bp.dist_down, bp.dist_up,
             bp.xdist_down, bp.xdist_up, edge_cost_factor, cost_limit,
         )
-        return dataclasses.replace(bp, res_w=res_w, **planes)
+        return with_planes(bp, res_w=res_w, **planes)
 
     def slab(x):
         return _row_slab(x, p0 - H, PR + 2 * H)
@@ -2168,7 +2439,7 @@ def refresh_banded_planes_rows(
         out[p0:p0 + PR] = part[H:H + PR]
         return out
 
-    return dataclasses.replace(
+    return with_planes(
         bp, res_w=res_w, **{k: write(getattr(bp, k), planes[k]) for k in _PLANE_KEYS}
     )
 

@@ -59,8 +59,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "banded_pass": ("banded_pass_launch",
-                    [_P, _I, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
+                    [_P, _I, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                     _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
     "class_pred": ("class_pred_launch",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
     "check": ("check_launch", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P]),

@@ -66,6 +66,8 @@ class ShardedBandedPlan(NamedTuple):
     a_bwd: torch.Tensor
     xdown: torch.Tensor     # [n, RpL, L, Cp] extended-lane planes (one +inf
     xup: torch.Tensor       #   lane where the plan has none)
+    xlist_down: tuple       # each shard's lists of those lanes (banded_gpu.XLaneList,
+    xlist_up: tuple         #   host; () where the plan has no lane): what the kernel reads
     res_src: torch.Tensor   # [n, Rz] i32 LOCAL padded-flat ids (pad 0)
     res_dst: torch.Tensor   # [n, Rz] i32 LOCAL padded-flat ids (pad 0)
     res_w: torch.Tensor     # [n, Rz] f32 (pad +inf)
@@ -114,12 +116,22 @@ def build_sharded_banded_plan(plan: bg.BandedKernelPlan, n_shards: int) -> Shard
     G = ghost
     rp_local = Rs + 2 * G
 
-    def shard_rows(p: torch.Tensor) -> torch.Tensor:
-        """[R, ...] -> [n, rp_local, ...]: rows k*Rs-G .. k*Rs+Rs+G, +inf
+    def shard_rows(p: torch.Tensor, fill=INF) -> torch.Tensor:
+        """[R, ...] -> [n, rp_local, ...]: rows k*Rs-G .. k*Rs+Rs+G, `fill`
         outside [0, R)."""
-        pp = torch.full((n_shards * Rs + 2 * G, *p.shape[1:]), INF, dtype=torch.float32)
+        pp = torch.full((n_shards * Rs + 2 * G, *p.shape[1:]), fill, dtype=p.dtype)
         pp[G:G + R] = p.cpu()
         return torch.stack([pp[k * Rs:k * Rs + rp_local] for k in range(n_shards)])
+
+    def shard_lists(name: str) -> tuple:
+        """Each shard's lists of the `name` lanes: the plan's edges on the
+        shard's rows, ghost rows included."""
+        lanes = getattr(plan, f"xlanes_{name}")
+        if not lanes:
+            return ()
+        present = shard_rows(bg.xlane_present(plan, name), False)
+        planes = shard_rows(getattr(plan, f"x{name}").float())
+        return tuple(bg.build_xlane_list(present[k], planes[k], lanes) for k in range(n_shards))
 
     def empty_res():
         return (np.zeros((n_shards, 8), np.int32), np.zeros((n_shards, 8), np.int32),
@@ -187,7 +199,8 @@ def build_sharded_banded_plan(plan: bg.BandedKernelPlan, n_shards: int) -> Shard
     return ShardedBandedPlan(
         down=shard_rows(plan.down), up=shard_rows(plan.up),
         a_fwd=shard_rows(plan.a_fwd), a_bwd=shard_rows(plan.a_bwd),
-        xdown=shard_rows(plan.xdown), xup=shard_rows(plan.xup),
+        xdown=shard_rows(plan.xdown.float()), xup=shard_rows(plan.xup.float()),
+        xlist_down=shard_lists("down"), xlist_up=shard_lists("up"),
         res_src=t(res_src_s), res_dst=t(res_dst_s), res_w=t(res_w_s),
         far_src=t(far_src_s), far_own=t(far_own_s), far_idx=t(far_idx_s),
         far_dst=t(far_dst_s), far_w=t(far_w_s),
@@ -253,6 +266,9 @@ def sharded_banded_solve(
     down, up, a_f, a_b = mine(splan.down), mine(splan.up), mine(splan.a_fwd), mine(splan.a_bwd)
     xdn = mine(splan.xdown) if splan.xlanes_down else None
     xup = mine(splan.xup) if splan.xlanes_up else None
+    # this shard's lists, their weights gathered from its planes on its device
+    xl_dn = splan.xlist_down[k].to(dev).with_weights(xdn) if splan.xlanes_down else None
+    xl_up = splan.xlist_up[k].to(dev).with_weights(xup) if splan.xlanes_up else None
 
     # this shard's seeded field: local row = global row - k*Rs + G
     local_row = seeds // C - k * Rs + G
@@ -297,11 +313,11 @@ def sharded_banded_solve(
         exchange()
         changed = bg.directional_pass(
             d, down, a_f, a_b, reverse=False, bb=bb, atol=atol, rtol=rtol, force=force,
-            dirty=dirty, xcross=xdn, xlanes=splan.xlanes_down,
+            dirty=dirty, xcross=xdn, xlanes=splan.xlanes_down, xlist=xl_dn,
         )
         changed = changed | bg.directional_pass(
             d, up, a_f, a_b, reverse=True, bb=bb, atol=atol, rtol=rtol, dirty=dirty,
-            xcross=xup, xlanes=splan.xlanes_up,
+            xcross=xup, xlanes=splan.xlanes_up, xlist=xl_up,
         )
         if has_residual:
             cand = flat.index_select(0, rsrc) + rw[:, None]

@@ -18,15 +18,23 @@ scripts/banded_jump_stress.py stresses:
 - the partial-depth exchange row: each doubling step every thread
   publishes its columns, and after a barrier reads its neighbour's 2^s
   columns away, and a second barrier frees the row for the next step;
-- the deferring and unskipped row modes.
+- the deferring and unskipped row modes;
+- the extended lanes' lists: with each row's stage, thread 0 copies the
+  row's header and first entries into the stage's extended-lane slot
+  (their bytes counted on the stage's barrier; where and how many it reads
+  from the header of the row before, whose stage it has waited for), and
+  after the wait each thread reads its own entries, those past the slot's
+  cap from device memory.
 
 Launches the shipped kernel many times, then a lagging copy
 (scripts/lagging_copy.py) in which, row by row in turn, one warp sleeps
 ~80 us before the stage wait, another before it reads the carried rows,
 another before the dirty mode's second read of them, another before it
 writes its row into the carry, another before it publishes to and another
-before it reads from the partial-depth exchange row, and thread 0 before
-it re-arms the next stage, with the stage barrier's assertion cut to ~2 s
+before it reads from the partial-depth exchange row, another before it
+reads its entries of the row's lists, and thread 0 before it re-arms the
+next stage and, for some rows, between the row's own copies and its
+lists' copies, with the stage barrier's assertion cut to ~2 s
 of the SM's cycles; and holds the first, the last and every `--every`-th
 result (field, dirty table, flag, rows walked) against the plain version,
 bit for bit. Inputs: a 256 x 1,024 terrain with 128 lanes (eight-warp
@@ -38,7 +46,9 @@ unskipped up pass, on the same terrain; extended lanes of all three kinds
 on random 64-row fields of 1,024 columns (staged, two carried rows) and
 2,048 columns (eight columns a thread, rows from device memory), forced
 and dirty-driven, and at 1,024 columns with partial depth (three rows in
-shared memory: rows from device memory).
+shared memory: rows from device memory), with lanes that have an edge at
+~70% of their slots (rows far past the lists' staged cap) and at ~1% (an
+irregular plan's density: rows within it).
 
 Run from the tree's root on a machine with the card:
 
@@ -63,8 +73,8 @@ from mesh_navigation_torch.ops import sweeps  # noqa: E402
 ATOL, RTOL = 1e-4, 2e-3
 XLANES = ((2, 0), (2, -1), (1, 2), (1, -2), (0, -3), (0, 2), (0, 4), (0, -4))
 PATCHES = [
-    ("      wait_slot(slot);\n    }\n    const float* srow = stage + slot * slot_f;",
-     "      " + lc.lag("((warp + r) & 7) == 3")),
+    ("      if constexpr (XL) wait_slot(slot);", "      " + lc.lag("((warp + r) & 7) == 3")),
+    ("      if constexpr (!XL) wait_slot(slot);", "      " + lc.lag("((warp + r) & 7) == 3")),
     ("      if (pre && tid == 0) {\n        bulk_wait_read<1>();",
      "      " + lc.lag("tid == 0 && (r & 3) == 1")),
     ("    // cand, row0 and the flags", "    " + lc.lag("((warp + r) & 7) == 5")),
@@ -79,6 +89,10 @@ PATCHES = [
      "            xb4[", "        " + lc.lag("((warp + r + s) & 7) == 4")),
     ("        const int k = dir == 0 ? -(1 << s) : (1 << s);",
      "        " + lc.lag("((warp + r + s) & 7) == 1")),
+    ("      // the row's extended-lane lists: header, then its first xn entries",
+     "      " + lc.lag("tid == 0 && (r & 3) == 2")),
+    ("      if (thr_ok) {   // this thread's entries of the row's list",
+     "      " + lc.lag("((warp + r) & 7) == 1")),
 ]
 REPLACE = [("clock64() - t0 <= 40000000000LL", "clock64() - t0 <= 4000000000LL")]
 
@@ -87,7 +101,8 @@ def pass_case(d_in, cross, prob, *, dirty=None, xcross=None, xlanes=(), **kw):
     """(launch, same, the plain result) of one pass on copies of d_in (and
     of the dirty table)."""
     dev = d_in.device
-    kw = dict(atol=ATOL, rtol=RTOL, xcross=xcross, xlanes=xlanes, **kw)
+    xlist = bg.xlane_list_from_dense(xcross, xlanes) if xlanes else None
+    kw = dict(atol=ATOL, rtol=RTOL, xcross=xcross, xlanes=xlanes, xlist=xlist, **kw)
     d_p = d_in.clone()
     dirty_p = None if dirty is None else dirty.clone()
     wp = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -147,11 +162,11 @@ class _Chains:
         self.a_fwd, self.a_bwd = a_fwd, a_bwd
 
 
-def xl_problem(Rp, Cp, Bp, device, seed):
+def xl_problem(Rp, Cp, Bp, device, seed, p_lane_inf=0.3):
     """Random pass inputs with the extended lanes XLANES: weights in [0.5,
-    1.5] (the lanes' in [1, 3]) with some +inf, chain weights from random
-    laterals, and a field of +inf with two zero seeds a lane and some loose
-    upper bounds."""
+    1.5] (the lanes' in [1, 3], +inf at a share `p_lane_inf` of their
+    slots) with some +inf, chain weights from random laterals, and a field
+    of +inf with two zero seeds a lane and some loose upper bounds."""
     gen = torch.Generator().manual_seed(seed)
 
     def w(shape, lo, hi, p_inf):
@@ -168,28 +183,30 @@ def xl_problem(Rp, Cp, Bp, device, seed):
     d = torch.where(torch.rand(d.shape, generator=gen) < 0.1, far, d)
     L = len(XLANES)
     out = (d, w((Rp, 3, Cp), 0.5, 1.5, 0.1), w((Rp, 3, Cp), 0.5, 1.5, 0.1), a_fwd, a_bwd,
-           w((Rp, L, Cp), 1.0, 3.0, 0.3), w((Rp, L, Cp), 1.0, 3.0, 0.3))
+           w((Rp, L, Cp), 1.0, 3.0, p_lane_inf), w((Rp, L, Cp), 1.0, 3.0, p_lane_inf))
     return tuple(t.contiguous().to(device) for t in out)
 
 
 def xl_cases(device):
-    for Cp in (1024, 2048):
+    for Cp, p_lane_inf, tag in ((1024, 0.3, ""), (2048, 0.3, ""), (1024, 0.99, "_sparse")):
         Rp, Bp = 64, 64
-        d, down, up, a_fwd, a_bwd, xdown, xup = xl_problem(Rp, Cp, Bp, device, seed=Cp)
+        d, down, up, a_fwd, a_bwd, xdown, xup = xl_problem(Rp, Cp, Bp, device, seed=Cp,
+                                                           p_lane_inf=p_lane_inf)
         prob = _Chains(a_fwd, a_bwd)
+        name = f"xlanes{Rp}x{Cp}x{Bp}{tag}"
         launch, same, d_down, _ = pass_case(d, down, prob, reverse=False, force=True,
                                             xcross=xdown, xlanes=XLANES)
-        yield f"xlanes{Rp}x{Cp}x{Bp}_down_forced", launch, same
+        yield f"{name}_down_forced", launch, same
         dirty = torch.zeros((Bp // bg.PASS_LANES, Rp), dtype=torch.int32, device=device)
         _, _, d1, dirty1 = pass_case(d, down, prob, reverse=False, force=True, dirty=dirty,
                                      xcross=xdown, xlanes=XLANES)
         launch, same, _, _ = pass_case(d1, up, prob, reverse=True, dirty=dirty1, xcross=xup,
                                        xlanes=XLANES)
-        yield f"xlanes{Rp}x{Cp}x{Bp}_up_dirty", launch, same
-        if Cp == 1024:
+        yield f"{name}_up_dirty", launch, same
+        if Cp == 1024 and not tag:
             launch, same, _, _ = pass_case(d1, up, prob, reverse=True, dirty=dirty1,
                                            xcross=xup, xlanes=XLANES, scan_steps=5)
-            yield f"xlanes{Rp}x{Cp}x{Bp}_up_dirty_partial5", launch, same
+            yield f"{name}_up_dirty_partial5", launch, same
 
 
 def main() -> int:

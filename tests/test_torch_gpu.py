@@ -259,16 +259,20 @@ def test_warm_pass_kernel_matches_plain(cuda, nx, ny, B, clear):
 
 
 def _pass_pair(d_k, d_p, cross, prob, *, reverse, force=False, dirty=None, cut=None,
-               xcross=None, xlanes=(), **modes):
+               xcross=None, xlanes=(), xlist=None, **modes):
     """One pass through the kernel on (d_k, dirty) and through the plain
     version on (d_p, a copy of dirty), with the row and scan `modes`
     (skip, scan_steps, defer): fields, dirty tables, flags and rows walked
-    equal. Returns (the plain side's dirty table, rows walked)."""
+    equal. The kernel reads the extended lanes from `xlist` (default: the
+    lists of xcross's finite weights), the plain version from xcross.
+    Returns (the plain side's dirty table, rows walked)."""
     dirty_p = None if dirty is None else dirty.clone()
     wk = torch.zeros(1, dtype=torch.int32, device=d_k.device)
     wp = torch.zeros(1, dtype=torch.int64, device=d_k.device)
+    if xlanes and xlist is None:
+        xlist = bg.xlane_list_from_dense(xcross, xlanes)
     kw = dict(reverse=reverse, atol=ATOL, rtol=RTOL, force=force, warm_cut=cut,
-              xcross=xcross, xlanes=xlanes, **modes)
+              xcross=xcross, xlanes=xlanes, xlist=xlist, **modes)
     ck = bg.directional_pass(d_k, cross, prob.a_fwd, prob.a_bwd, dirty=dirty, rows_walked=wk, **kw)
     cp = bg.directional_pass_plain(d_p, cross, prob.a_fwd, prob.a_bwd, bb=8, dirty=dirty_p,
                                    rows_walked=wp, **kw)
@@ -496,6 +500,141 @@ def test_pass_refuses_a_second_carried_row_past_its_column_limit(cuda):
     d_p = d.clone()
     _pass_pair(d, d_p, down, _XLProb(a_fwd, a_bwd), reverse=False, force=True,
                xcross=xdown[:, keep].contiguous(), xlanes=one_row)
+
+
+def _irregular_plan(nx, ny, device, seed=1):
+    """The banded plan of a band-reordered jittered-Delaunay terrain."""
+    from mesh_navigation_torch.mesh import reorder
+
+    v, f = synthetic.irregular_terrain_mesh(nx, ny, spacing=0.5, jitter=0.45, hills=1.0,
+                                            seed=seed)
+    mesh = reorder.build_reordered_mesh(v, f, device=device)
+    nz = np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0)
+    W = sweeps.slot_weights_np(mesh, np.arccos(nz).astype(np.float32), cost_limit=2.0,
+                               edge_cost_factor=1.0)
+    return bg.build_banded_kernel_plan(mesh, W)
+
+
+def _plan_pass_pair(plan, prob, d_k, d_p, name, **kw):
+    """_pass_pair on the `name` ("down" / "up") pass of a plan's padded
+    problem: the kernel reads the plan's own lists, the plain pass its
+    dense planes."""
+    return _pass_pair(d_k, d_p, getattr(prob, name), prob, reverse=name == "up",
+                      xcross=getattr(prob, f"x{name}"), xlanes=getattr(plan, f"xlanes_{name}"),
+                      xlist=getattr(prob, f"xlist_{name}"), **kw)
+
+
+# 128 x 128: 11 lanes a pass, about 1% of their slots an edge, rows of 128
+# columns; 24 x 1,000: 21 lanes, about 4%, rows of 1,008 columns (staged,
+# two carried rows) whose fullest rows hold more entries than a stage's
+# extended-lane slot takes
+@pytest.mark.parametrize("nx,ny", [(128, 128), (24, 1000)])
+def test_extended_lane_pass_on_a_real_irregular_plans_lists(cuda, nx, ny):
+    """A real irregular plan's own lists through the kernel against the
+    plain pass on its dense planes, in f32 and bf16: a forced down pass and
+    an up pass without the dirty table, then a forced down pass and a
+    dirty-driven up pass with it, then a forced deferring down pass and the
+    up pass it leaves rows to; bit for bit, rows walked included."""
+    plan = _irregular_plan(nx, ny, cuda)
+    assert plan.xlist_down is not None and plan.xlist_up is not None
+    assert plan.xlist_down.max_row > 0
+    rng = np.random.default_rng(nx)
+    seeds = torch.from_numpy(rng.integers(0, plan.num_vertices, 16)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        prob = bg.prepare_padded(plan, seeds, dtype=dtype)
+        d_k, d_p = prob.d0.clone(), prob.d0.clone()
+        _plan_pass_pair(plan, prob, d_k, d_p, "down", force=True)
+        _plan_pass_pair(plan, prob, d_k, d_p, "up")
+        for defer in (False, True):
+            d_k, d_p = prob.d0.clone(), prob.d0.clone()
+            dirty = torch.zeros((2, prob.d0.shape[0]), dtype=torch.int32, device=cuda)
+            dirty, _ = _plan_pass_pair(plan, prob, d_k, d_p, "down", force=True, dirty=dirty,
+                                       defer=defer)
+            _plan_pass_pair(plan, prob, d_k, d_p, "up", dirty=dirty)
+
+
+@pytest.mark.parametrize("Cp", [1024, 2048])
+def test_extended_lane_rows_past_the_staged_cap_match_plain(cuda, Cp):
+    """Lanes with an edge at about 1% of their slots, but for two rows
+    with one at every slot (8 x Cp entries, more than an extended-lane slot
+    takes): at 1,024 columns (staged, two carried rows) the entries past
+    the cap come from device memory, at 2,048 every entry does; a forced
+    down pass, then dirty-driven up and down passes, bit for bit."""
+    Rp, Bp = 40, 16
+    d, down, up, a_fwd, a_bwd, xdown, xup = _xl_problem(Rp, Cp, Bp, XLANES, cuda, seed=Cp + 7)
+    gen = torch.Generator(device="cpu").manual_seed(Cp)
+    full = torch.rand((2, Rp, len(XLANES), Cp), generator=gen).to(cuda) * 2 + 1
+    sparse = torch.rand((2, Rp, len(XLANES), Cp), generator=gen).to(cuda) < 0.01
+    xs = []
+    for i in range(2):
+        x = torch.where(sparse[i], full[i], torch.inf)
+        x[[5, 30]] = full[i][[5, 30]]
+        xs.append(x.contiguous())
+    xdown, xup = xs
+    assert bg.xlane_list_from_dense(xdown, XLANES).max_row > 1024
+    prob = _XLProb(a_fwd, a_bwd)
+    d_k, d_p = d.clone(), d.clone()
+    dirty = torch.zeros((Bp // 8, Rp), dtype=torch.int32, device=cuda)
+    dirty, _ = _pass_pair(d_k, d_p, down, prob, reverse=False, force=True, dirty=dirty,
+                          xcross=xdown, xlanes=XLANES)
+    dirty, _ = _pass_pair(d_k, d_p, up, prob, reverse=True, dirty=dirty, xcross=xup,
+                          xlanes=XLANES)
+    _pass_pair(d_k, d_p, down, prob, reverse=False, dirty=dirty, xcross=xdown, xlanes=XLANES)
+
+
+def test_extended_lane_lists_hold_launch_after_launch(cuda):
+    """The lists' handoff (a row's group offsets and first entries copied
+    into its stage's extended-lane slot, counted on the stage's barrier,
+    read by the row's candidates): 100 launches each of a forced down pass
+    and of a dirty-driven up pass over a real irregular plan's lists at
+    1,008 columns (staged, two carried rows, its fullest rows past the
+    cap) equal the plain version, rows walked included."""
+    plan = _irregular_plan(24, 1000, cuda)
+    seeds = torch.from_numpy(np.random.default_rng(9).integers(0, plan.num_vertices, 64))
+    prob = bg.prepare_padded(plan, seeds.to(cuda))
+    Rp = prob.d0.shape[0]
+    d1 = prob.d0.clone()
+    dirty1 = torch.zeros((8, Rp), dtype=torch.int32, device=cuda)
+    bg.directional_pass_plain(d1, prob.down, prob.a_fwd, prob.a_bwd, reverse=False, bb=8,
+                              atol=ATOL, rtol=RTOL, force=True, dirty=dirty1,
+                              xcross=prob.xdown, xlanes=plan.xlanes_down)
+    for name, d0, table, force in (("down", prob.d0, None, True), ("up", d1, dirty1, False)):
+        kw = dict(reverse=name == "up", atol=ATOL, rtol=RTOL, force=force,
+                  xcross=getattr(prob, f"x{name}"), xlanes=getattr(plan, f"xlanes_{name}"),
+                  xlist=getattr(prob, f"xlist_{name}"))
+        d_p = d0.clone()
+        dirty_p = None if table is None else table.clone()
+        wp = torch.zeros(1, dtype=torch.int64, device=cuda)
+        chg_p = bg.directional_pass_plain(d_p, getattr(prob, name), prob.a_fwd, prob.a_bwd,
+                                          bb=8, dirty=dirty_p, rows_walked=wp, **kw)
+        for _ in range(100):
+            d_k = d0.clone()
+            dirty_k = None if table is None else table.clone()
+            wk = torch.zeros(1, dtype=torch.int32, device=cuda)
+            chg_k = bg.directional_pass(d_k, getattr(prob, name), prob.a_fwd, prob.a_bwd,
+                                        dirty=dirty_k, rows_walked=wk, **kw)
+            assert torch.equal(d_k, d_p)
+            assert dirty_k is None or torch.equal(dirty_k, dirty_p)
+            assert bool(chg_k.item()) == bool(chg_p.item()) and int(wk.item()) == int(wp.item())
+
+
+def test_pass_refuses_extended_lanes_without_their_lists(cuda):
+    """On the card the extended lanes are read from their lists only: a
+    pass given the dense planes and no lists raises, and so do lists of
+    another row count; a pass given the lists and no dense planes gives
+    the plain version's result on the dense planes."""
+    d, down, up, a_fwd, a_bwd, xdown, _ = _xl_problem(8, 64, 8, XLANES, cuda)
+    kw = dict(reverse=False, atol=ATOL, rtol=RTOL, xcross=xdown, xlanes=XLANES)
+    xlist = bg.xlane_list_from_dense(xdown, XLANES)
+    with pytest.raises(ValueError, match="lists"):
+        bg.directional_pass(d, down, a_fwd, a_bwd, **kw)
+    with pytest.raises(ValueError, match="goff"):
+        bg.directional_pass(d, down, a_fwd, a_bwd, xlist=xlist.rows(0, 7), **kw)
+    d_k, d_p = d.clone(), d.clone()
+    bg.directional_pass(d_k, down, a_fwd, a_bwd, xlist=xlist,
+                        **dict(kw, xcross=None, force=True))
+    bg.directional_pass_plain(d_p, down, a_fwd, a_bwd, bb=8, **dict(kw, force=True))
+    assert torch.equal(d_k, d_p)
 
 
 def _irregular_setup(device, n=32, seed=4):
@@ -1213,7 +1352,8 @@ def test_pass_stages_and_carried_rows_hold_launch_after_launch(cuda):
         d, down, _, a_fwd, a_bwd, xdown, _ = _xl_problem(64, Cp, 64, XLANES, cuda, seed=Cp)
         problems.append((d, down, _XLProb(a_fwd, a_bwd), XLANES, xdown))
     for d0, cross, chains, xlanes, xcross in problems:
-        kw = dict(reverse=False, atol=ATOL, rtol=RTOL, force=True, xcross=xcross, xlanes=xlanes)
+        kw = dict(reverse=False, atol=ATOL, rtol=RTOL, force=True, xcross=xcross, xlanes=xlanes,
+                  xlist=bg.xlane_list_from_dense(xcross, xlanes) if xlanes else None)
         d_p = d0.clone()
         wp = torch.zeros(1, dtype=torch.int64, device=cuda)
         chg_p = bg.directional_pass_plain(d_p, cross, chains.a_fwd, chains.a_bwd, bb=8,
@@ -1458,8 +1598,8 @@ def test_pass_modes_match_plain_bit_for_bit(cuda, nx, ny, B, dtype):
 def test_extended_lane_pass_modes_match_plain_bit_for_bit(cuda, Cp, dtype):
     """The extended lanes with a bf16 field and with partial depth (three
     rows in shared memory: from device memory past the staged budget),
-    forced then dirty-driven, and unskipped: kernel against plain bit for
-    bit."""
+    forced then dirty-driven, the deferring down pass and the up pass after
+    it, and unskipped: kernel against plain bit for bit."""
     Rp, Bp = 40, 16
     d, down, up, a_fwd, a_bwd, xdown, xup = _xl_problem(Rp, Cp, Bp, XLANES, cuda, seed=Cp + 1)
     prob = _XLProb(a_fwd, a_bwd)
@@ -1471,6 +1611,11 @@ def test_extended_lane_pass_modes_match_plain_bit_for_bit(cuda, Cp, dtype):
                               xcross=xdown, xlanes=XLANES, scan_steps=steps)
         _pass_pair(d_k, d_p, up, prob, reverse=True, dirty=dirty, xcross=xup, xlanes=XLANES,
                    scan_steps=steps)
+    d_k, d_p = d.clone(), d.clone()
+    dirty = torch.zeros((Bp // 8, Rp), dtype=torch.int32, device=cuda)
+    dirty, _ = _pass_pair(d_k, d_p, down, prob, reverse=False, force=True, dirty=dirty,
+                          xcross=xdown, xlanes=XLANES, defer=True)
+    _pass_pair(d_k, d_p, up, prob, reverse=True, dirty=dirty, xcross=xup, xlanes=XLANES)
     d_k, d_p = d.clone(), d.clone()
     _pass_pair(d_k, d_p, down, prob, reverse=False, xcross=xdown, xlanes=XLANES, skip=False)
 
@@ -1491,7 +1636,8 @@ def test_pass_wrapper_and_kernel_agree_on_the_partial_depth_column_limits(cuda):
             bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL,
                                 scan_steps=2, xcross=x, xlanes=xlanes)
         bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL, xcross=x,
-                            xlanes=xlanes)       # full depth takes the row
+                            xlanes=xlanes,       # full depth takes the row
+                            xlist=bg.xlane_list_from_dense(x, xlanes) if xlanes else None)
     with pytest.raises(ValueError, match="levels"):
         bg.directional_pass(d, cross, a, a, reverse=False, atol=ATOL, rtol=RTOL, scan_steps=4)
 
