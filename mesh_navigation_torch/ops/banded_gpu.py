@@ -11,8 +11,10 @@ the deferring pass and four_dir's column passes on the transposed plan,
 transpose_banded_plan, :3014), lane grouping (:2041), the int8 class predecessor table
 (:2531) with its residual reconcile (:2588) and the int32 real-id table
 with its residual post-pass (predecessors_banded_pallas, :2463), the
-class-decoding path walk with the class-9 decode (:2644), the walk over a
-lane-minor id table (:2785), the on-the-fly predecessor lookup with the
+roll-based predecessors (predecessors_banded, :1235) and the full-result
+solve (batched_field_banded_pallas, :2969), the class-decoding path walk
+with the class-9 decode (:2644), the walk over a lane-minor id table
+(:2785), the on-the-fly predecessor lookup with the
 residual probe (:2834), the greedy descent (:2923), and the live-replan
 plane refreshes (from a slot-weight table or from costs), residual weights
 and changed-region planes (:512-807, :2069-2143). The extended lanes'
@@ -39,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1420,6 +1423,72 @@ def predecessors_banded_ids(
     return ids
 
 
+def predecessors_banded(
+    plan: BandedKernelPlan, dist_vb: torch.Tensor, *, tol: float = 1e-5, max_lanes: int = 0,
+) -> torch.Tensor:
+    """[V, B] int32 real-id predecessors of a [V, B] f32 field by dense rolls
+    (pallas_banded.py:1235-1312), plain torch on the field's device, as the
+    reference's is XLA code: per class, in the reference's order (lat -1,
+    lat +1, then for s = -1, 0, +1 down before up), the field rolled by the
+    class offset plus its weight plane, kept under a strict <; wrapped reads
+    meet +inf planes. On a grid plan this is the reference's f32 arithmetic
+    in its order, so the table is its table, ties included.
+
+    The residual step (:1292-1304) scatter-mins each residual candidate
+    d[src] + w into the best cost; an entry takes where its candidate is
+    finite and at most that best. Unlike the reference, which scatter-sets
+    every entry (one that does not take writes the class pick back, so it
+    can overwrite one that did), only taking entries are written: where
+    several take for one vertex, the highest real source id wins, and a
+    taking entry wins over a class pick of equal cost, as the reference's
+    does. A vertex whose best cost does not explain its label within tol
+    (best <= d (1 + tol) + tol), or whose label is 0 or +inf, is its own
+    predecessor. The extended lanes' edges are on the residual list, so
+    irregular plans need no lane planes here.
+
+    Lanes go in chunks of `max_lanes` (default: the reference's, a live set
+    of about 2 GB); the table does not depend on it."""
+    V, B = dist_vb.shape
+    if max_lanes <= 0:
+        max_lanes = max(32, min(B, (2 << 30) // max(24 * V, 1) // 32 * 32))
+    if B > max_lanes:
+        return torch.cat([predecessors_banded(plan, dist_vb[:, i:i + max_lanes], tol=tol,
+                                              max_lanes=max_lanes)
+                          for i in range(0, B, max_lanes)], dim=1)
+    R, C, Cp = plan.n_rows, plan.n_cols, plan.n_cols_pad
+    dev = dist_vb.device
+    d3 = torch.full((R, Cp, B), INF, dtype=torch.float32, device=dev)
+    d3[:, :C] = torch.nn.functional.pad(dist_vb.to(torch.float32), (0, 0, 0, R * C - V),
+                                        value=INF).view(R, C, B)
+    r_idx = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    c_idx = torch.arange(Cp, dtype=torch.int32, device=dev)[None, :]
+    classes = [(0, -1, plan.lat_fwd), (0, 1, plan.lat_bwd)]
+    for i in range(3):
+        classes += [(-1, i - 1, plan.down[:, i]), (1, i - 1, plan.up[:, i])]
+    best = torch.full_like(d3, INF)
+    pred = torch.zeros((R, Cp, B), dtype=torch.int32, device=dev)
+    for dr, dc, plane in classes:
+        cand = torch.roll(d3, (-dr, -dc), dims=(0, 1)).add_(plane[:, :, None])
+        better = cand < best
+        best = torch.where(better, cand, best)
+        pred = torch.where(better, ((r_idx + dr) * C + (c_idx + dc))[:, :, None], pred)
+        del cand, better
+    if plan.n_residual:
+        dst, src, w = _residual_edges(plan)
+        src_real = ((src // Cp) * C + src % Cp).to(torch.int32)
+        cand = d3.view(R * Cp, B).index_select(0, src) + w[:, None]
+        bflat = best.view(R * Cp, B)
+        bflat.index_reduce_(0, dst, cand, "amin")
+        take = (cand <= bflat.index_select(0, dst)) & torch.isfinite(cand)
+        pick = torch.full((R * Cp, B), -1, dtype=torch.int32, device=dev)
+        pick.index_reduce_(0, dst, torch.where(take, src_real[:, None], -1), "amax")
+        pred = torch.where(pick.view(R, Cp, B) >= 0, pick.view(R, Cp, B), pred)
+        del cand, take, pick
+    has = (best <= d3 * (1.0 + tol) + tol) & (d3 > 0) & torch.isfinite(d3)
+    pred = torch.where(has, pred, (r_idx * C + c_idx)[:, :, None])
+    return pred[:, :C].reshape(R * C, B)[:V]
+
+
 # --------------------------------------------------------------------------
 # kernel 3: the read-only fixed-point certificate
 # --------------------------------------------------------------------------
@@ -2039,6 +2108,53 @@ def conform_padded(x: torch.Tensor, rows: int, cols: int, lanes: int,
     r, b = min(rows, x.shape[0]), min(lanes, x.shape[2])
     out[:r, :, :b] = x[:r, :, :b]
     return out
+
+
+# --------------------------------------------------------------------------
+# the reference's full result
+# --------------------------------------------------------------------------
+
+class BandedPallasResult(NamedTuple):
+    """The full-result solve's output (pallas_banded.py:1393)."""
+    dist: torch.Tensor    # [B, V] f32
+    pred: torch.Tensor    # [B, V] i32
+    rounds: int
+    converged: bool
+
+
+def batched_field_banded_pallas(
+    mesh: MeshArrays,
+    weights_vd: torch.Tensor,
+    plan: BandedKernelPlan,
+    seeds: torch.Tensor,        # [B]
+    *,
+    max_rounds: int = 256,
+    atol: float = 1e-5,
+    rtol: float = 1e-5,
+    dtype=torch.float32,
+    scan_steps: int = 0,
+    timer=None,
+) -> BandedPallasResult:
+    """Batched SSSP with the full result (pallas_banded.py:2969-3011):
+    banded_solve_padded (converge "round", no warm start; on a CUDA plan the
+    pass kernel, and on an irregular plan the residual scatter-min), the
+    field unpadded to [V, B] f32, then predecessors_banded at tol 1e-2 for a
+    bfloat16 solve, else max(atol, 1e-6). Fields come back [B, V]. `mesh`
+    and `weights_vd` are unused, as in the reference; the solve runs on the
+    plan's device. `timer` times the solve's passes ("solve") and the
+    recovery ("unpad", "pred")."""
+    V, B = plan.num_vertices, seeds.shape[0]
+    R, C = plan.n_rows, plan.n_cols
+    res = banded_solve_padded(plan, seeds.to(plan.device), max_rounds=max_rounds, atol=atol,
+                              rtol=rtol, dtype=dtype, scan_steps=scan_steps, timer=timer)
+    with _stage(timer, "unpad"):
+        dist = res.d_pad[:R, :C, :B].reshape(R * C, B)[:V].to(torch.float32)
+    pred_tol = 1e-2 if dtype == torch.bfloat16 else max(atol, 1e-6)
+    with _stage(timer, "pred"):
+        pred = predecessors_banded(plan, dist, tol=pred_tol)
+    with _stage(timer, "unpad"):
+        dist, pred = dist.T.contiguous(), pred.T.contiguous()
+    return BandedPallasResult(dist=dist, pred=pred, rounds=res.rounds, converged=res.converged)
 
 
 # --------------------------------------------------------------------------

@@ -738,6 +738,48 @@ def test_full_banded_plan_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(k.cost.cpu()[ok], c.cost[ok], rtol=1e-4, atol=0.0)
 
 
+def _cpu_plan(plan):
+    """A CPU copy of a banded plan."""
+    from mesh_navigation_torch import convert
+
+    arrays = {k: None if getattr(plan, k) is None else getattr(plan, k).cpu().numpy()
+              for k in bg.PLAN_ARRAYS}
+    return convert.plan_from_numpy(arrays, {k: getattr(plan, k) for k in bg.PLAN_META},
+                                   device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["grid", "delaunay"])
+def test_full_result_on_the_card_matches_the_cpu(cuda, kind):
+    """batched_field_banded_pallas on a 128 x 128 grid plan and a 128 x 128
+    band-reordered Delaunay plan (extended lanes, residual edges): the pass
+    kernel launched and no class_pred mode, the field bit for bit
+    banded_solve_padded's from the same seeds, unpadded, and the
+    predecessors bit for bit predecessors_banded's on CPU copies, each
+    non-self one explaining its label."""
+    import roll_pred_checks as checks
+
+    plan = _plan(128, 128, cuda)[1] if kind == "grid" else _irregular_plan(128, 128, cuda)
+    assert bool(plan.n_residual) == (kind == "delaunay")
+    seeds = torch.from_numpy(np.random.default_rng(7).integers(0, plan.num_vertices, 24)).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    res = bg.batched_field_banded_pallas(None, None, plan, seeds, atol=ATOL, rtol=RTOL)
+    torch.cuda.synchronize()
+    assert res.converged
+    assert kernels.LAUNCHES["banded_pass"] > before["banded_pass"]
+    for name in ("class_pred", "class_pred_ids", "check"):
+        assert kernels.LAUNCHES[name] == before[name], name
+    R, C, V, B = plan.n_rows, plan.n_cols, plan.num_vertices, len(seeds)
+    d = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL).d_pad
+    assert torch.equal(res.dist, d[:R, :C, :B].reshape(R * C, B)[:V].T)
+    tol = max(ATOL, 1e-6)
+    plan_c = _cpu_plan(plan)
+    dist_c = res.dist.T.cpu().contiguous()
+    pred_c = bg.predecessors_banded(plan_c, dist_c, tol=tol)
+    assert torch.equal(res.pred.cpu(), pred_c.T)
+    assert (pred_c != torch.arange(V)[:, None]).float().mean() > 0.9
+    assert not checks.unexplained(plan_c, dist_c.numpy(), pred_c.numpy(), tol).any()
+
+
 def test_server_solves_wide_banded_plans_and_routes_wider_ones_to_the_structured_tier(cuda):
     """Through the server on the card: a 1,600-column terrain keeps its
     banded plan (past the old 1,024-column limit), a terrain wider than

@@ -15,8 +15,11 @@ differently); solves are held against the heap Dijkstra oracle within
 rtol = atol = 1e-3, as tests/test_irregular.py holds the reference. Fed
 one and the same padded field, the predecessor tables, res_choice and the
 decoded paths are compared exactly where the argmin is unique; path costs
-within 1e-3 relative."""
+within 1e-3 relative. The roll-based predecessors_banded, fed the
+reference's field, is compared exactly but where the reference's
+residual scatter-set depends on its list order (ROADMAP "Departures")."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -45,6 +48,7 @@ from mesh_navigation_torch.ops import banded_gpu as tbg
 from mesh_navigation_torch.planners import DijkstraPlanner
 from mesh_navigation_torch.utils import oracle
 
+import roll_pred_checks as checks
 from test_torch_reference import reference_build_mesh
 
 torch.set_num_threads(2)
@@ -290,6 +294,112 @@ def test_residual_predecessors_match_reference_on_one_field():
     res_only = (ids_t[:, :B] != np.arange(V)[:, None]) & (cls_t[:, :B] == 9)
     assert res_only.any()
     assert np.all(got.T[res_only] != np.nonzero(res_only)[0])
+
+
+PRED_TOL = max(ATOL, 1e-6)      # the full result's predecessor tolerance
+
+
+@functools.lru_cache(maxsize=None)
+def _roll_pair(kind):
+    """The reference's converged field unpadded to [V, B] and the roll-based
+    tables of the port and of the reference on it."""
+    *_, jplan, tplan = _case(kind)
+    R, C, V = tplan.n_rows, tplan.n_cols, tplan.num_vertices
+    dist = np.ascontiguousarray(_ref_field(kind)[:R, :C, :len(SEEDS)].reshape(R * C, -1)[:V])
+    ref = np.asarray(jpb.predecessors_banded(jplan, jnp.asarray(dist), tol=PRED_TOL))
+    got = tbg.predecessors_banded(tplan, torch.from_numpy(dist), tol=PRED_TOL).numpy()
+    return dist, got, ref
+
+
+def _residual_takes(tplan, dist):
+    """Per real residual entry (list order): its real dst and src, and [n,
+    B] whether it takes (finite candidate at most the vertex's best
+    in-edge)."""
+    dst, src, w = checks.residual_entries(tplan)
+    cand = dist[src] + w[:, None]
+    best = checks.best_in_edge(tplan, dist)
+    return dst, src, np.isfinite(cand) & (cand <= best[dst])
+
+
+@pytest.mark.parametrize("kind", ["irr32", "irr40"])
+def test_roll_predecessors_match_the_reference_but_for_its_residual_scatter_set(kind):
+    """predecessors_banded against the reference's on one field of an
+    irregular plan: equal but at vertices that two or more residual entries
+    of the reference's list reach (its padding entries reach vertex 0), one
+    of them taking, where the reference's scatter-set keeps whichever entry
+    it writes last; every non-self predecessor of the port explains its
+    label."""
+    *_, tplan = _case(kind)
+    dist, got, ref = _roll_pair(kind)
+    dst, _, take = _residual_takes(tplan, dist)
+    Cp, C, V = tplan.n_cols_pad, tplan.n_cols, tplan.num_vertices
+    pad_dst = tplan.res_dst.numpy().astype(np.int64)
+    reach = np.bincount((pad_dst // Cp) * C + pad_dst % Cp, minlength=V)
+    n_take = np.zeros(dist.shape, np.int64)
+    np.add.at(n_take, dst, take.astype(np.int64))
+    scatter_set = (reach[:, None] >= 2) & (n_take >= 1)
+    differ = got != ref
+    assert differ.any() and not np.any(differ & ~scatter_set)
+    assert (got == ref).mean() > 0.95
+    assert not checks.unexplained(tplan, dist, got, PRED_TOL).any()
+
+
+def test_roll_predecessors_pick_the_taking_residual_entry():
+    """The reference's scatter-set fault, pinned on irr32's field: where a
+    vertex has two residual in-edges, the first in the list takes and the
+    second does not, and no class in-edge explains the label, the port
+    picks the first's source and the reference the class in-edge that the
+    second entry wrote back, which does not explain the label."""
+    *_, tplan = _case("irr32")
+    dist, got, ref = _roll_pair("irr32")
+    dst, src, take = _residual_takes(tplan, dist)
+    no_res = dataclasses.replace(tplan, n_residual=0)
+    cls_best = checks.best_in_edge(no_res, dist)
+    gate = dist * np.float32(1 + PRED_TOL) + np.float32(PRED_TOL)
+    cases = []
+    for v in np.unique(dst):
+        e = np.nonzero(dst == v)[0]
+        if v == 0 or len(e) != 2:
+            continue
+        for b in np.nonzero(take[e[0]] & ~take[e[1]] & (cls_best[v] > gate[v]))[0]:
+            cases.append((v, b, src[e[0]]))
+    assert cases
+    bad = checks.unexplained(tplan, dist, ref, PRED_TOL)
+    for v, b, s in cases:
+        assert got[v, b] == s
+        assert ref[v, b] != s and bad[v, b]
+
+
+def test_roll_predecessors_do_not_depend_on_the_lane_chunk():
+    """40 lanes in chunks of 32 (a partial last chunk) give the table of one
+    call over all 40."""
+    *_, tplan = _case("irr32")
+    dist, got, _ = _roll_pair("irr32")
+    lanes = np.arange(40) % dist.shape[1]
+    d40 = torch.from_numpy(np.ascontiguousarray(dist[:, lanes]))
+    whole = tbg.predecessors_banded(tplan, d40, tol=PRED_TOL)
+    assert torch.equal(tbg.predecessors_banded(tplan, d40, tol=PRED_TOL, max_lanes=32), whole)
+    np.testing.assert_array_equal(whole.numpy(), got[:, lanes])
+
+
+@pytest.mark.parametrize("kind", ["irr32", "irr40"])
+def test_roll_predecessors_on_the_transposed_plan(kind):
+    """On transpose_banded_plan's plan and the transposed field the table,
+    mapped back, explains every label and keeps the same vertices their own
+    predecessor: the extended lanes' edges, the dropped ones (irr40's
+    column shifts of 3) included, are on the residual list."""
+    *_, tplan = _case(kind)
+    dist, got, _ = _roll_pair(kind)
+    plan_t = tbg.transpose_banded_plan(tplan)
+    assert bool(plan_t.xlanes_dropped) == (kind == "irr40")
+    R, C, B = tplan.n_rows, tplan.n_cols, dist.shape[1]
+    assert tplan.num_vertices == R * C
+    d_t = dist.reshape(R, C, B).transpose(1, 0, 2).reshape(C * R, B)
+    p_t = tbg.predecessors_banded(plan_t, torch.from_numpy(d_t), tol=PRED_TOL).numpy()
+    back = ((p_t % R) * C + p_t // R).reshape(C, R, B).transpose(1, 0, 2).reshape(R * C, B)
+    assert not checks.unexplained(tplan, dist, back, PRED_TOL).any()
+    vid = np.arange(R * C)[:, None]
+    np.testing.assert_array_equal(back == vid, got == vid)
 
 
 def _planners(kind):

@@ -1,5 +1,6 @@
-"""Port vs reference: the class-pred pass's int32-id mode and the full
-(non-light) banded plan result.
+"""Port vs reference: the class-pred pass's int32-id mode, the roll-based
+predecessors_banded, the full-result batched_field_banded_pallas and the
+full (non-light) banded plan result.
 
 The reference runs `predecessors_banded_pallas` with its Pallas kernel in
 interpret mode on the CPU (as tests/test_pallas_banded.py runs it); the port
@@ -12,7 +13,9 @@ The reference's full plan result recovers predecessors with the roll-based
 `_pred_kernel`: where two in-edges tie under the strict <, the two pick
 different ids of equal cost. Ids are compared exactly where the argmin is
 unique, and every differing id is checked to be an in-edge of the best
-cost.
+cost. Fed one and the same [V, B] field, the port's predecessors_banded
+is the reference's bit for bit, ties included (the same f32 sums in the
+same class order); its irregular cases are in test_torch_irregular.py.
 
 Tolerances. The port's banded solve and the reference's agree within the
 stopping tolerance atol + rtol*|d| (tests/test_torch_banded.py); path costs
@@ -39,6 +42,7 @@ from mesh_navigation_torch.ops import banded_gpu as tbg
 from mesh_navigation_torch.ops import sweeps as tsweeps
 from mesh_navigation_torch.planners import DijkstraPlanner
 
+import roll_pred_checks as checks
 from test_torch_banded import ATOL, RTOL, _problem
 
 torch.set_num_threads(2)
@@ -114,6 +118,94 @@ def test_ids_equal_roll_based_recovery_where_the_argmin_is_unique(kind):
         k = np.argmax(vid[..., None] + off == got[..., None], axis=-1)   # class of each id
         ok = np.take_along_axis(cand, k[None], axis=0)[0] == best
         assert np.all(ok[differ]), "a differing id is not an in-edge of the best cost"
+
+
+def _unpad(tplan, d_pad, B):
+    R, C, V = tplan.n_rows, tplan.n_cols, tplan.num_vertices
+    return np.ascontiguousarray(d_pad[:R, :C, :B].reshape(R * C, B)[:V])
+
+
+def _pad(tplan, dist):
+    """[R, Cp, B] +inf-padded copy of a [V, B] field."""
+    R, C, Cp = tplan.n_rows, tplan.n_cols, tplan.n_cols_pad
+    V, B = dist.shape
+    out = np.full((R * C, B), np.inf, np.float32)
+    out[:V] = dist
+    d = np.full((R, Cp, B), np.inf, np.float32)
+    d[:, :C] = out.reshape(R, C, B)
+    return d
+
+
+@pytest.mark.parametrize("kind", ["walls24", "terrain16"])
+def test_roll_predecessors_equal_the_reference_bit_for_bit(kind):
+    """predecessors_banded against the reference's, fed one and the same
+    [V, B] field: the same f32 sums in the same class order, so the tables
+    are equal everywhere, ties included; every non-self predecessor
+    explains its label."""
+    *_, jplan, tplan, seeds = _case(kind)
+    d_pad = _field(kind, True)
+    dist = _unpad(tplan, d_pad, len(seeds))
+    ref = np.asarray(jpb.predecessors_banded(jplan, jnp.asarray(dist), tol=PRED_TOL))
+    got = tbg.predecessors_banded(tplan, torch.from_numpy(dist), tol=PRED_TOL)
+    assert got.dtype == torch.int32 and tuple(got.shape) == dist.shape
+    np.testing.assert_array_equal(got.numpy(), ref)
+    cand, _ = _candidates(tplan, d_pad)
+    cand = cand[..., :len(seeds)]
+    best = cand.min(axis=0)
+    tie = ((cand == best).sum(axis=0) > 1) & np.isfinite(best)
+    assert tie.any() == (kind == "walls24")      # zero costs: in-edges of equal length
+    assert not checks.unexplained(tplan, dist, got.numpy(), PRED_TOL).any()
+
+
+def _near_tie(tplan, dist, gap):
+    """[V, B] bool: the best class in-edge of the field is within `gap`
+    (relative) of another."""
+    cand, _ = _candidates(tplan, _pad(tplan, dist))
+    top2 = np.sort(cand, axis=0)[:2]
+    scale = np.maximum(np.abs(dist), 1.0) * gap
+    return ((top2[1] - top2[0]) <= scale) & np.isfinite(top2[0])
+
+
+def test_full_result_matches_the_reference():
+    """batched_field_banded_pallas against the reference's on terrain16:
+    [B, V] f32 fields within the stopping tolerance, [B, V] int32
+    predecessors equal where the argmin is unique by more than the two
+    fields differ, each explaining its own label everywhere; converged."""
+    v, f, costs, jm, jplan, tplan, seeds = _case("terrain16")
+    W = jsweeps.slot_weights_np(jm, costs, cost_limit=COST_LIMIT, edge_cost_factor=1.0)
+    want = jpb.batched_field_banded_pallas(jm, jnp.asarray(W), jplan, jnp.asarray(seeds),
+                                           atol=ATOL, rtol=RTOL)
+    got = tbg.batched_field_banded_pallas(build_mesh(v, f, device="cpu"), torch.from_numpy(W),
+                                          tplan, torch.from_numpy(seeds), atol=ATOL, rtol=RTOL)
+    B, V = len(seeds), tplan.num_vertices
+    assert isinstance(got, tbg.BandedPallasResult) and got.converged is True
+    assert bool(want.converged) and got.rounds >= 1
+    assert tuple(got.dist.shape) == tuple(got.pred.shape) == (B, V)
+    assert got.dist.dtype == torch.float32 and got.pred.dtype == torch.int32
+    _assert_within_stop_tol(got.dist.numpy(), np.asarray(want.dist))
+    dist, pred = got.dist.numpy().T, got.pred.numpy().T
+    assert not checks.unexplained(tplan, dist, pred, PRED_TOL).any()
+    tie = _near_tie(tplan, dist, 4 * (ATOL + RTOL))
+    assert (~tie).mean() > 0.9
+    np.testing.assert_array_equal(pred[~tie], np.asarray(want.pred).T[~tie])
+
+
+def test_bf16_full_result_explains_its_labels_at_its_tolerance():
+    """A bfloat16 full result: its field is the port's own bf16 solve,
+    unpadded and widened, and every non-self predecessor explains its label
+    at the bf16 predecessor tolerance 1e-2."""
+    *_, tplan, seeds = _case("terrain16")
+    s = torch.from_numpy(seeds)
+    got = tbg.batched_field_banded_pallas(None, None, tplan, s, atol=ATOL, rtol=RTOL,
+                                          dtype=torch.bfloat16)
+    res = tbg.banded_solve_padded(tplan, s, atol=ATOL, rtol=RTOL, dtype=torch.bfloat16)
+    assert got.converged and res.d_pad.dtype == torch.bfloat16
+    own = torch.from_numpy(_unpad(tplan, res.d_pad.float().numpy(), len(seeds)))
+    assert torch.equal(got.dist, own.T)
+    pred = got.pred.numpy().T
+    assert (pred != np.arange(tplan.num_vertices)[:, None]).mean() > 0.9
+    assert not checks.unexplained(tplan, own.numpy(), pred, 1e-2).any()
+    np.testing.assert_array_equal(pred, tbg.predecessors_banded(tplan, own, tol=1e-2).numpy())
 
 
 @pytest.mark.parametrize("converged", [False, True])
