@@ -1,0 +1,8 @@
+"""The controller's ms a step on the gridded map's cell:
+MeshController.compute_velocity_banded's control stage."""
+
+from navbench import readings
+
+
+def read(trace):
+    return readings.stage_ms(trace, ("control",))
