@@ -50,6 +50,7 @@ from mesh_navigation_torch.mesh.arrays import MeshArrays, host_array
 from mesh_navigation_torch.ops import banded as _banded
 from mesh_navigation_torch.ops import kernels
 from mesh_navigation_torch.ops import sweeps as _sweeps
+from mesh_navigation_torch.utils.timing import span as _span
 from mesh_navigation_torch.utils.timing import stage as _stage
 
 INF = float("inf")
@@ -1691,7 +1692,15 @@ def banded_solve_padded(
     passes relax the plan's extended lanes, and each round ends with the
     residual scatter-min (_residual_round): converge="round" and "check"
     work there, "pred" does not (class tables cannot hold residual
-    predecessors)."""
+    predecessors).
+
+    `timer` (utils.timing.StageTimer) records the solve, pred, check,
+    transpose, warm_setup and window stages and the residual scatter-min's
+    span "solve/residual". With a timer every pass of the solve adds the
+    rows its blocks walk to one int32 counter on the device, read once
+    after the loop (whose last flag read has already waited for the card)
+    into kernels.LAUNCHES["banded_pass_rows"]; with none, no counter
+    exists."""
     if converge not in ("pred", "round", "check"):
         raise NotImplementedError(f"converge={converge!r}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -1732,7 +1741,13 @@ def banded_solve_padded(
     cols = _columns_problem(plan, plan_t, Rp, nb, use_dirty, scan_steps) if four_dir else None
     if four_dir and converge == "pred":
         raise ValueError("converge='pred' excludes four_dir (pallas_banded.py:1963)")
-    pass_kw = dict(atol=atol, rtol=rtol, skip=skip)
+    rows = None if timer is None else torch.zeros(1, dtype=torch.int32, device=d.device)
+    pass_kw = dict(atol=atol, rtol=rtol, skip=skip, rows_walked=rows)
+
+    def finish(res: BandedPaddedResult) -> BandedPaddedResult:
+        if rows is not None:
+            kernels.LAUNCHES["banded_pass_rows"] += int(rows)
+        return res
 
     def one_round(force: bool = False, cut=None, force_up: bool = False) -> torch.Tensor:
         with _stage(timer, "solve"):
@@ -1751,7 +1766,7 @@ def banded_solve_padded(
         if cols is not None:
             changed = changed | _column_passes(d, start, dirty, cols, force, timer, **pass_kw)
         if plan.n_residual:
-            with _stage(timer, "solve"):
+            with _stage(timer, "solve"), _span(timer, "solve/residual"):
                 changed = changed | _residual_round(
                     plan, d, dirty, prob.bb, atol, rtol,
                     dirty_t=None if cols is None else cols["dirty"])
@@ -1782,7 +1797,8 @@ def banded_solve_padded(
             one_round(False)
             cls, violated = certificate()
             rounds += 1
-        return BandedPaddedResult(d_pad=d, rounds=rounds, converged=not violated, cls=cls)
+        return finish(BandedPaddedResult(d_pad=d, rounds=rounds, converged=not violated,
+                                         cls=cls))
 
     if converge == "check":
         # same positive-tolerance requirement as "pred" (pallas_banded.py:
@@ -1799,10 +1815,11 @@ def banded_solve_padded(
                 and not defer and warm_window < Rp):
             window = _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, warm_window,
                                   max_rounds=min(WINDOW_MAX_ROUNDS, max_rounds), atol=atol,
-                                  rtol=rtol, timer=timer, skip=skip, depth=depth)
+                                  rtol=rtol, timer=timer, skip=skip, depth=depth,
+                                  rows_walked=rows)
         if window is not None and window.done:
-            return BandedPaddedResult(d_pad=d, rounds=window.slab_rounds, converged=True,
-                                      window=window)
+            return finish(BandedPaddedResult(d_pad=d, rounds=window.slab_rounds,
+                                             converged=True, window=window))
         # a warm resolve's first full round is forced in both passes: every
         # row holding a label is rescanned, so the sub-tolerance gains that
         # gated rounds drop cannot compound along the chains it re-solves
@@ -1821,14 +1838,14 @@ def banded_solve_padded(
             one_round(force=full_force, force_up=full_force)
             ok = certified()
             rounds, full_force = rounds + 1, False
-        return BandedPaddedResult(d_pad=d, rounds=rounds, converged=ok, window=window)
+        return finish(BandedPaddedResult(d_pad=d, rounds=rounds, converged=ok, window=window))
 
     changed = bool(one_round(True).any())
     rounds = 1
     while changed and rounds < max_rounds:
         changed = bool(one_round(False).any())
         rounds += 1
-    return BandedPaddedResult(d_pad=d, rounds=rounds, converged=not changed)
+    return finish(BandedPaddedResult(d_pad=d, rounds=rounds, converged=not changed))
 
 
 def _columns_problem(plan, plan_t, Rp: int, nb: int, use_dirty: bool, scan_steps: int) -> dict:
@@ -1978,7 +1995,7 @@ _WINDOW_SCAN_ROWS = 128   # rows a step of the window's footprint scan reads
 
 def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
                  max_rounds: int, atol: float, rtol: float, timer=None, skip: bool = True,
-                 depth: int = 0) -> WindowRecord:
+                 depth: int = 0, rows_walked: torch.Tensor | None = None) -> WindowRecord:
     """The windowed warm resolve (pallas_banded.py:1790-1944), in place on
     the warm copy d and its dirty table, after _warm_start.
 
@@ -2015,7 +2032,8 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
     passes, through the dirty table: the force flag would rescan the ghost
     rows too and rewrite them by sub-tolerance gains, which the seam test
     reads as a crossing. With skip=False (no dirty table) every slab pass
-    scans every slab row; `depth` is the passes' partial scan depth."""
+    scans every slab row; `depth` is the passes' partial scan depth;
+    `rows_walked` (optional) gains the rows the slab passes walk."""
     Rp, Cp, Bp = d.shape
     GH = WINDOW_GHOST
     lb, thresh, seedrc = cut
@@ -2069,7 +2087,7 @@ def _warm_window(plan, prob, d, dirty, cut, warm_changed, seeds, W: int, *,
                 directional_pass(d_s, cross, a_fwd, a_bwd, reverse=reverse, atol=atol, rtol=rtol,
                                  dirty=dirty_s, warm_cut=None if reverse else warm_cut,
                                  xcross=xcross, xlanes=xlanes, xlist=xlist, skip=skip,
-                                 scan_steps=depth)
+                                 scan_steps=depth, rows_walked=rows_walked)
 
     def state():
         """(violates, seam broken), one host read."""
@@ -2186,6 +2204,7 @@ def extract_paths_cls(
     res_row_map: torch.Tensor | None = None,   # [V] int32 (residual decode)
     res_jump: torch.Tensor | None = None,      # [NDp, 8] int32
     res_choice: torch.Tensor | None = None,    # [NDp, >= B] int8
+    timer=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Walk each lane's predecessor chain from start to goal, decoding
     next = v + delta[class] (class 8 = self ends the walk). With the
@@ -2193,6 +2212,10 @@ def extract_paths_cls(
     through the jump table: next = res_jump[res_row_map[v],
     res_choice[row, lane]] (pallas_banded.py:2674-2698). Chunks of `chunk`
     steps, with one host check of any(alive) before each chunk.
+    kernels.LAUNCHES["walk_steps"] gains the steps run (chunks times
+    `chunk`); given a `timer` (utils.timing.StageTimer), "walk_lane_steps"
+    gains the steps in which a lane still walked, summed over the lanes
+    (one reduction and one host read).
     Returns (path [B, max_len] i64, valid [B, max_len] bool); dead steps
     repeat the terminal vertex with valid False."""
     dev = start_v.device
@@ -2213,6 +2236,7 @@ def extract_paths_cls(
     for j in range(n_chunks):
         if not bool(alive.any()):
             break
+        kernels.LAUNCHES["walk_steps"] += chunk
         for i in range(j * chunk, (j + 1) * chunk):
             path[i] = v
             valid[i] = alive
@@ -2224,6 +2248,8 @@ def extract_paths_cls(
                 nxt = torch.where(k == 9, res_jump[row, slot].long(), nxt)
             alive = alive & (v != goal) & (k != 8)
             v = torch.where(alive, nxt, v)
+    if timer is not None:
+        kernels.LAUNCHES["walk_lane_steps"] += int(valid.sum())
     fill = torch.where(valid, path, v[None, :])
     return fill[:max_len].T, valid[:max_len].T
 

@@ -17,6 +17,17 @@ apart too, beside the kernel's own count: a bfloat16 field under
 "class_pred_bf16", check, fused_sweep), and the pass's partial scan depth,
 deferring and unskipped modes under "banded_pass_partial",
 "banded_pass_defer" and "banded_pass_noskip".
+
+`LAUNCHES` also counts three events of the solve and the walk
+(EVENT_COUNTS), each declared here, so a caller that takes the difference
+of two copies finds every key in both:
+- "walk_steps": the steps banded_gpu.extract_paths_cls ran (its chunks
+  run times the chunk), always;
+- "walk_lane_steps": the steps in which a lane was still walking, summed
+  over its lanes, only when the walk is given a timer;
+- "banded_pass_rows": the (8-lane block, row) pairs that the pass's blocks
+  walked, from the kernel's own count (the plain pass's on the CPU), only
+  when banded_gpu.banded_solve_padded is given a timer.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ MODE_COUNTS = (
     "banded_pass_defer", "banded_pass_noskip", "class_pred_bf16", "check_bf16",
     "fused_sweep_bf16",
 )
-LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *MODE_COUNTS)}
+EVENT_COUNTS = ("walk_steps", "walk_lane_steps", "banded_pass_rows")
+LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *MODE_COUNTS, *EVENT_COUNTS)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -191,7 +191,8 @@ class DijkstraPlanner:
         tol max(1e-5, 3 rtol), whose class 9 the walk decodes through the
         residual jump table (reference dijkstra.py:239-277).
         `timer` (utils.timing.StageTimer) records the snap, solve, pred,
-        extract and pose stages.
+        extract and pose stages, and the solve's and the walk's counts
+        (banded_solve_padded, extract_paths_cls).
 
         light=False: the full result (reference dijkstra.py:213-221,
         pallas_banded.py:2969-3012): the goal-seeded fields solved to a round
@@ -241,7 +242,7 @@ class DijkstraPlanner:
                 cls = _bg.predecessors_banded_classes(plan, res.d_pad, tol=tol)
         with _stage(timer, "extract"):
             path, valid = _bg.extract_paths_cls(
-                cls, start_s, goal_s, self.max_path_len, C, **decode
+                cls, start_s, goal_s, self.max_path_len, C, timer=timer, **decode
             )                                                   # [B, L] grouped
             del cls, decode
         with _stage(timer, "pose"):

@@ -1,15 +1,13 @@
 """Port vs reference: the entry layer. Mesh files (mesh/io.py), the HDF5
-working file and the server's save_map, the viz exports, the CLI, the
-timing CSV contract and the CPU oracles.
+working file and the server's save_map, the viz exports, the CLI and the
+CPU oracles.
 
 Every loader reads the same file on both sides (written to tmp_path) and
 must give the same arrays; the working file written by one package is read
 back by the other; viz files and the CLI's exports are held byte for byte;
 the oracles' outputs bit for bit."""
 
-import csv
 import json
-import os
 import struct
 
 import numpy as np
@@ -26,7 +24,6 @@ from mesh_navigation_tpu.mesh import io as jio
 from mesh_navigation_tpu.mesh import synthetic
 from mesh_navigation_tpu.ops import sweeps as jsweeps
 from mesh_navigation_tpu.utils import oracle as joracle
-from mesh_navigation_tpu.utils import timing as jtiming
 from mesh_navigation_tpu.utils import viz as jviz
 
 from mesh_navigation_torch import cli as tcli
@@ -35,7 +32,6 @@ from mesh_navigation_torch.config import LayerConfig, NavConfig
 from mesh_navigation_torch.mesh import io as tio
 from mesh_navigation_torch.mesh.arrays import build_mesh, host_array
 from mesh_navigation_torch.utils import oracle as toracle
-from mesh_navigation_torch.utils import timing as ttiming
 from mesh_navigation_torch.utils import viz as tviz
 
 from test_torch_reference import reference_build_mesh
@@ -338,41 +334,6 @@ def test_cli_reads_a_mesh_file_and_fails_where_the_goal_is_unreachable(tmp_path,
     rc_j = jcli.main(base + ["--goal", "26", "6", "0"])
     out_j = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc_t == rc_j == 1 and out_t["outcome"] == out_j["outcome"] == "NO_PATH_FOUND"
-
-
-def test_timing_csv_contract(tmp_path):
-    """Both packages append the same `timestamp;name;prep;update;post` rows
-    once enabled, and nothing while disabled."""
-    rows = {}
-    for name, mod in (("t", ttiming), ("j", jtiming)):
-        path = tmp_path / f"{name}.csv"
-        assert not mod.enabled()
-        mod.record_update_duration("off", 1, 2, 3)
-        with mod.timed_update("off"):
-            pass
-        mod.enable(str(path))
-        try:
-            assert mod.enabled()
-            mod.record_update_duration("layer", 1, 2, 3)
-            with mod.timed_update("block"):
-                sum(range(1000))
-        finally:
-            mod.disable()
-        mod.record_update_duration("after", 1, 2, 3)
-        with open(path) as fh:
-            rows[name] = list(csv.reader(fh, delimiter=";"))
-    for got in rows.values():
-        assert [r[1] for r in got] == ["layer", "block"]
-        assert got[0][2:] == ["1", "2", "3"]
-        assert got[1][2] == "0" and got[1][4] == "0" and int(got[1][3]) > 0
-        assert all(len(r) == 5 and int(r[0]) > 0 for r in got)
-    pt = ttiming.PhaseTimer()
-    pt.mark("init")
-    pt.mark("propagation", sync=torch.zeros(1))
-    assert list(pt.phases) == ["init", "propagation"] and "propagation:" in pt.summary()
-    with ttiming.torch_profile(str(tmp_path / "prof")) as d:
-        torch.ones(4).sum()
-    assert os.path.exists(os.path.join(d, "trace.json"))
 
 
 def test_oracles_are_the_references_bit_for_bit():
