@@ -39,7 +39,10 @@ Phases, each printed as one JSON line on standard output:
 5. kernels at the main path's shapes: each kernel against its plain version
    on the main path's own field, with its time, the plain version's time and
    the bound; the class-pred kernel in both modes (int8 classes with the
-   certificate, int32 ids).
+   certificate, int32 ids); the walk kernel on the class table, starts and
+   goals of one more plan_batch_banded call on the warm-up draw, launched
+   twice and against its plain loop (path and valid equal), with its time,
+   the loop's and the bound (walk_check).
 6. banded_full: the full banded plan result at full width on the same mesh
    and plan — 128 lanes (scenarios from the seed), one warm-up, then ITERS
    timed DijkstraPlanner.plan_batch_banded(light=False) calls (a quiet-round
@@ -134,10 +137,13 @@ Phases, each printed as one JSON line on standard output:
    first label-changing dirty-driven up pass held against the plain
    version on a 48-row slab of their own input (bit for bit, dirty tables,
    flags and rows walked equal); the class-pred kernel on the solve's field
-   against its plain version (both modes), its time and bound. Then the
-   `{"kernels": [...]}` line with all five kernels (`class_pred` with its
-   id mode's time, bound and launches beside the main mode's; `banded_pass`
-   and `class_pred` with their irregular-path launches, time and bound;
+   against its plain version (both modes), its time and bound; the walk
+   kernel's class-9 decode on the tables of one more call on the warm-up
+   draw (walk_check). Then the `{"kernels": [...]}` line with the five
+   ported kernels and the port's own `walk` (`class_pred` with its id
+   mode's time, bound and launches beside the main mode's; `banded_pass`,
+   `class_pred` and `walk` with their irregular-path launches, time and
+   bound;
    `banded_pass` and `eik_pass` with their `server_launches`; `banded_pass`,
    `eik_pass`, `class_pred` and `check` with their
    `server_layers_launches`, from phase 22; `banded_pass` and `class_pred`
@@ -329,9 +335,14 @@ SEED = 0
 PASS_OPS = 14   # 3 add + 3 min (cross), 1 min, flag mul+add+cmp, 2 x (add+min) scans
 PRED_OPS = 26   # 8 x (add+cmp+select), has: mul+add+3 cmp, flag: mul+add+cmp
 CHECK_OPS = 19  # 8 add + 7 min (best), flag: mul+add+cmp, or
+# the walk's dependent loads, assumed floors (not readings): one that
+# misses to device memory, and one that hits the SM's L1 (~30 cycles)
+WALK_MISS_S = 0.4e-6
+WALK_HIT_S = 15e-9
+WALK_LINE_LANES = 128       # the lanes of one 128-byte line of the int8 class table
 REPLAN_BATCH = 128          # lanes per update (bench.py:395)
 # the kernels each path runs; each must launch at least once on its path
-MAIN_PATH_KERNELS = ("banded_pass", "class_pred")
+MAIN_PATH_KERNELS = ("banded_pass", "class_pred", "walk")
 REPLAN_KERNELS = ("banded_pass", "banded_pass_dirty", "check")
 CVP_KERNELS = ("banded_pass", "eik_pass")
 CVP_BATCH = 128             # lanes per solve (bench.py:457-460)
@@ -355,7 +366,7 @@ STRUCTURED_BATCH = 128      # lanes per structured solve
 STRUCTURED_WAVE_SWEEPS = 64  # sweeps of the path's own solve before the full-shape check
 IRREGULAR_BATCH = 512       # lanes per irregular solve (bench.py:580-582)
 IRREGULAR_ATOL, IRREGULAR_RTOL = 1e-3, 2e-3   # the irregular stage's tolerance (bench.py:583-584)
-IRREGULAR_KERNELS = ("banded_pass", "banded_pass_dirty", "class_pred")
+IRREGULAR_KERNELS = ("banded_pass", "banded_pass_dirty", "class_pred", "walk")
 IRREGULAR_ORACLE_LANES = 8  # lanes held against the native heap Dijkstra (bench.py:588-594)
 IRREGULAR_SLAB_ROWS = 48    # rows of an irregular-path pass's own input held against the plain pass
 XLANE_OPS = 2               # an extended lane's edge: one add and one min a batch lane
@@ -906,6 +917,86 @@ def oracle_gate(ctx, n_lanes: int = 2, phase: str = "oracle") -> dict:
     return {"phase": phase, "lanes": n_lanes, "max_rel_err": err, "budget": 0.01}
 
 
+def walk_check(planner, kplan, s, g, atol: float, rtol: float, device) -> dict:
+    """The walk kernel against its plain loop on the inputs of the walk of
+    one more planner.plan_batch_banded(light=True) call on (s, g): the class
+    table the call built (with its residual tables on an irregular plan),
+    its grouped starts and goals, its max_len. Two launches back to back and
+    the plain loop (ops/banded_gpu.extract_paths_cls_plain): path and valid
+    equal (torch.equal), else it raises. The kernel's ms (CUDA events, five
+    launches after one), the loop's (one run) and the bound: the longer of
+    the slowest lane's chain of dependent loads and the bytes. A lane loads
+    a class at each step that leaves a vertex other than its goal, and two
+    more at a class-9 step (the choice, then the jump). A class load is a
+    first touch where no lane of its 128-lane line of the table read that
+    vertex at an earlier step: it costs WALK_MISS_S, every other load
+    WALK_HIT_S. The bytes: path and valid written, and a 32-byte sector
+    read a first touch, at HBM_BYTES_PER_S. Not counted for the path."""
+    import torch
+    from mesh_navigation_torch.ops import banded_gpu as bg
+
+    cap = {}
+    orig = bg.extract_paths_cls
+
+    def grab(*a, **kw):
+        cap["a"], cap["kw"] = a, {k: v for k, v in kw.items() if k != "timer"}
+        return orig(*a, **kw)
+
+    bg.extract_paths_cls = grab
+    try:
+        with uncounted():
+            planner.plan_batch_banded(kplan, torch.from_numpy(s), torch.from_numpy(g),
+                                      atol=atol, rtol=rtol)
+    finally:
+        bg.extract_paths_cls = orig
+    a, kw = cap["a"], cap["kw"]
+    cls, start_v, goal_v, max_len, _ = a
+    residual = kw.get("res_row_map") is not None
+    with uncounted():
+        path, valid = bg.extract_paths_cls(*a, **kw)
+        again = bg.extract_paths_cls(*a, **kw)
+        time_ms(lambda: bg.extract_paths_cls(*a, **kw), device)          # warm
+        ms = time_ms(lambda: bg.extract_paths_cls(*a, **kw), device, reps=5)
+        got = []
+        plain_ms = time_ms(lambda: got.append(bg.extract_paths_cls_plain(*a, **kw)), device)
+    checks = {"path_equal": torch.equal(path, got[0][0]),
+              "valid_equal": torch.equal(valid, got[0][1]),
+              "launches_agree": torch.equal(path, again[0]) and torch.equal(valid, again[1])}
+    if not all(checks.values()):
+        raise AssertionError(f"the walk kernel differs from its plain loop: {checks}")
+    del again, got
+    B, dev = start_v.shape[0], path.device
+    lanes = torch.arange(B, device=dev)[:, None]
+    loads = valid & (path != goal_v.to(torch.int64)[:, None])       # steps that read a class
+    class9 = loads & (cls[path, lanes] == 9) if residual else torch.zeros_like(loads)
+    # first touches: the earliest step at which a (line, vertex) is read
+    step = torch.arange(max_len, device=dev).expand(B, max_len)[loads]
+    key = ((lanes // WALK_LINE_LANES) * cls.shape[0] + path)[loads]
+    _, inv = torch.unique(key, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1 if inv.numel() else 0,), max_len,
+                       dtype=step.dtype, device=dev).scatter_reduce_(0, inv, step, "amin")
+    miss = torch.zeros_like(loads)
+    miss[loads] = step == first[inv]
+    del step, key, inv, first
+    n_miss = miss.sum(1)
+    n_hit = loads.sum(1) - n_miss + 2 * class9.sum(1)
+    chain_s = n_miss * WALK_MISS_S + n_hit * WALK_HIT_S
+    slow = int(chain_s.argmax())
+    written = max_len * B * (8 + 1)
+    latency_s = float(chain_s[slow])
+    bytes_s = (written + 32 * int(n_miss.sum())) / HBM_BYTES_PER_S
+    return {"lanes": B, "max_len": max_len, "class_table": list(cls.shape),
+            "residual": residual, "checks": checks, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(latency_s, bytes_s) * 1e3,
+            "bound_by": "dependent loads" if latency_s >= bytes_s else "bytes",
+            "longest_chain_loads": int((loads.sum(1) + 2 * class9.sum(1)).max()),
+            "bound_lane_misses": int(n_miss[slow]), "bound_lane_hits": int(n_hit[slow]),
+            "longest_lane_steps": int(valid.sum(1).max()),
+            "first_touch_share": float(n_miss.sum()) / max(int(loads.sum()), 1),
+            "class9_steps": int(class9.sum()), "lanes_cut": int(valid[:, -1].sum()),
+            "bytes_written": written}
+
+
 def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
     """Phase 5: each kernel against its plain version on the main path's own
     inputs, with times and bounds. These launches are not counted for the
@@ -971,12 +1062,14 @@ def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
     ids_bytes = N * 4 + V * Bp * 4 + 8 * Rp * Cp * 4
     pred_bound = max(pred_bytes / HBM_BYTES_PER_S, PRED_OPS * N / F32_OPS_PER_S) * 1e3
     ids_bound = max(ids_bytes / HBM_BYTES_PER_S, PRED_OPS * N / F32_OPS_PER_S) * 1e3
+    s, g, _ = ctx["warm"]
+    walk = walk_check(planner, kplan, s, g, ATOL, RTOL, device)
 
     detail = {"phase": "kernels_at_main_shapes", "field": [Rp, Cp, Bp],
               "pass": pass_cmp, "pass_launch_ms": times,
               "pass_bound_ms": [b * 1e3 for b in bounds_by_bytes], "pred": pred_cmp,
               "pred_ms": pred_ms, "pred_ids_ms": ids_ms,
-              "pred_bound_ms": pred_bound, "pred_ids_bound_ms": ids_bound}
+              "pred_bound_ms": pred_bound, "pred_ids_bound_ms": ids_bound, "walk": walk}
     launches = ctx["launches"]
     line = [
         {"name": "banded_pass", "route": "cuda",
@@ -996,6 +1089,16 @@ def kernels_at_main_shapes(ctx, device) -> tuple[dict, list]:
          "bound_by": "bytes" if pred_bytes / HBM_BYTES_PER_S >= PRED_OPS * N / F32_OPS_PER_S
          else "operations",
          "library_ms": None, "ids_ms": ids_ms, "ids_bound_ms": ids_bound},
+        {"name": "walk", "route": "cuda",
+         "source": "mesh_navigation_torch/csrc/walk.cu",
+         "replaces": None, "replaces_note": "no TPU kernel: the JAX package walks with a "
+         "lax.scan (mesh_navigation_tpu/ops/pallas_banded.py:2644, XLA code)",
+         "launches": launches["walk"], "max_abs_err": 0,
+         "ms": walk["ms"], "plain_ms": walk["plain_ms"], "bound_ms": walk["bound_ms"],
+         "bound_by": walk["bound_by"], "longest_chain_loads": walk["longest_chain_loads"],
+         "first_touch_share": walk["first_touch_share"],
+         "library_ms": None,
+         "library_note": "no single PyTorch call walks a predecessor chain"},
     ]
     return detail, line
 
@@ -2349,7 +2452,8 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
     the solve's field at the same lanes, a forced down pass with the lanes
     and one of the main walker without them (no dirty table, so no
     prescan: every row walked). Then the class-pred kernel on the solve's field
-    against its plain version, its time and bound. Not counted for the
+    against its plain version, its time and bound, and the walk kernel's
+    class-9 decode against its plain loop (walk_check). Not counted for the
     path."""
     import torch
     from mesh_navigation_torch.mesh import query
@@ -2373,7 +2477,8 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
         got = []
         kinds.append("path")
         times.append(time_ms(lambda: got.append(orig_pass(d, cross, a_fwd, a_bwd,
-                                                          rows_walked=nw, **kw)), device))
+                                                          **dict(kw, rows_walked=nw))),
+                             device))
         diff = d != before
         del before
         n_written = int(diff.sum())
@@ -2455,6 +2560,7 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
         pred_ms = time_ms(lambda: bg.class_pred(d, w8, **kw), device, reps=5)
         recon_ms = time_ms(lambda: bg.predecessors_banded_classes_residual(kplan, d, tol=tol),
                            device)
+    walk = walk_check(planner, kplan, s, g, IRREGULAR_ATOL, IRREGULAR_RTOL, device)
     pred_bytes = N * 4 + kplan.num_vertices * Bp + 8 * Rp * Cp * 4
     pred_bound = max(pred_bytes / HBM_BYTES_PER_S, PRED_OPS * N / F32_OPS_PER_S) * 1e3
     detail = {"phase": "kernels_at_irregular_shapes", "field": [Rp, Cp, Bp],
@@ -2468,7 +2574,7 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
                   "torch.profiler showed no device time for the pass kernels"),
               "forced_pass_on_the_field": forced, "residual_scatter_ms": scatter_ms,
               "path_slab_checks": slabs, "pred": pred, "pred_ms": pred_ms,
-              "pred_with_reconcile_ms": recon_ms, "pred_bound_ms": pred_bound}
+              "pred_with_reconcile_ms": recon_ms, "pred_bound_ms": pred_bound, "walk": walk}
     for i, (t, b, w) in enumerate(zip(times, bounds, walked)):
         log(f"# irregular pass {i}: {t:.3f} ms (bound {b:.3f} ms), rows walked share {w:.4f}"
             + ("" if split is None else
@@ -2485,7 +2591,8 @@ def kernels_at_irregular_shapes(ictx, device) -> tuple[dict, dict]:
                     "main_walker_us_per_row": forced["main_walker"]["us_per_row"],
                     "max_abs_err": max(c["max_abs_err"] for c in slabs.values()),
                     "pred_ms": pred_ms, "pred_bound_ms": pred_bound,
-                    "pred_max_abs_err": float(pred["max_abs_err"])}
+                    "pred_max_abs_err": float(pred["max_abs_err"]),
+                    "walk": walk}
 
 
 def server_cvp(device, ctx, iters: int, batch: int = CVP_BATCH) -> tuple[dict, dict]:
@@ -4227,7 +4334,7 @@ class PassProbe:
         nw = torch.zeros(1, dtype=torch.int32, device=d.device)
         got = []
         self.ms.append(time_ms(lambda: got.append(self.orig(d, cross, a_fwd, a_bwd,
-                                                            rows_walked=nw, **kw)),
+                                                            **dict(kw, rows_walked=nw))),
                                self.device))
         diff = d != before
         del before
@@ -4777,6 +4884,13 @@ def run(device, mesh_n=MESH_N, batch=BATCH, iters=ITERS, small=(128, 64),
     line[1].update(irregular_launches=ictx["launches"]["class_pred"],
                    irregular_ms=ik["pred_ms"], irregular_bound_ms=ik["pred_bound_ms"])
     line[1]["max_abs_err"] = max(line[1]["max_abs_err"], ik["pred_max_abs_err"])
+    line[2].update(irregular_launches=ictx["launches"]["walk"], irregular_ms=ik["walk"]["ms"],
+                   irregular_plain_ms=ik["walk"]["plain_ms"],
+                   irregular_bound_ms=ik["walk"]["bound_ms"],
+                   irregular_bound_by=ik["walk"]["bound_by"],
+                   irregular_longest_chain_loads=ik["walk"]["longest_chain_loads"],
+                   irregular_first_touch_share=ik["walk"]["first_touch_share"],
+                   irregular_class9_steps=ik["walk"]["class9_steps"])
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     mo, mctx = solve_modes(device, ctx, grid_kplan, ictx, sp, main_batch=batch)

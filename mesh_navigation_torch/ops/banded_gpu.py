@@ -2210,14 +2210,98 @@ def extract_paths_cls(
     next = v + delta[class] (class 8 = self ends the walk). With the
     residual tables (predecessors_banded_classes_residual), class 9 decodes
     through the jump table: next = res_jump[res_row_map[v],
-    res_choice[row, lane]] (pallas_banded.py:2674-2698). Chunks of `chunk`
-    steps, with one host check of any(alive) before each chunk.
-    kernels.LAUNCHES["walk_steps"] gains the steps run (chunks times
-    `chunk`); given a `timer` (utils.timing.StageTimer), "walk_lane_steps"
-    gains the steps in which a lane still walked, summed over the lanes
-    (one reduction and one host read).
+    res_choice[row, lane]] (pallas_banded.py:2674-2698).
+    CPU tensors run extract_paths_cls_plain (chunks of `chunk` steps).
+    CUDA tensors launch csrc/walk.cu once (one thread a lane walks its whole
+    chain; the residual decode is a template flag of the kernel, taken when
+    the tables are given) and read nothing back, or raise; its paths equal
+    the plain loop's bit for bit. kernels.LAUNCHES["walk"] gains one a
+    launch. Given a `timer` (utils.timing.StageTimer), "walk_steps" gains
+    the longest lane's walked steps and "walk_lane_steps" the walked steps
+    of all lanes, from the kernel's per-lane counts (one reduction and one
+    host read); without one the card's walk counts neither.
     Returns (path [B, max_len] i64, valid [B, max_len] bool); dead steps
     repeat the terminal vertex with valid False."""
+    decode = dict(res_row_map=res_row_map, res_jump=res_jump, res_choice=res_choice)
+    if cls_vb.device.type == "cpu":
+        return extract_paths_cls_plain(cls_vb, start_v, goal_v, max_len, C, chunk=chunk,
+                                       timer=timer, **decode)
+    if cls_vb.device.type != "cuda":
+        raise ValueError(f"extract_paths_cls: unsupported device {cls_vb.device}")
+    dev = cls_vb.device
+    B = start_v.shape[0]
+    residual = res_row_map is not None
+    if sum(t is not None for t in decode.values()) != 3 * residual:
+        raise ValueError("extract_paths_cls: give all three residual tables or none")
+    if (cls_vb.dim() != 2 or cls_vb.dtype != torch.int8 or cls_vb.stride(1) != 1
+            or cls_vb.shape[1] < B or cls_vb.shape[0] < 1):
+        raise ValueError(f"extract_paths_cls: cls_vb must be [V, >= {B}] int8 with unit "
+                         f"lane stride, got {tuple(cls_vb.shape)} {cls_vb.dtype} "
+                         f"strides {cls_vb.stride()}")
+    for name, t in (("start_v", start_v), ("goal_v", goal_v)):
+        if t.shape != (B,) or t.dtype.is_floating_point or t.dtype == torch.bool:
+            raise ValueError(f"extract_paths_cls: {name} must be [{B}] integer ids")
+    tables = [cls_vb, start_v, goal_v]
+    n_rows = 0
+    if residual:
+        V = cls_vb.shape[0]
+        if (res_row_map.shape != (V,) or res_row_map.dtype != torch.int32
+                or not res_row_map.is_contiguous()):
+            raise ValueError(f"extract_paths_cls: res_row_map must be contiguous [{V}] int32")
+        if (res_jump.dim() != 2 or res_jump.shape[1] != 8 or res_jump.dtype != torch.int32
+                or not res_jump.is_contiguous() or res_jump.shape[0] < 1):
+            raise ValueError("extract_paths_cls: res_jump must be contiguous [NDp, 8] int32")
+        if (res_choice.dim() != 2 or res_choice.shape[0] != res_jump.shape[0]
+                or res_choice.shape[1] < B or res_choice.dtype != torch.int8
+                or res_choice.stride(1) != 1):
+            raise ValueError("extract_paths_cls: res_choice must be [NDp, >= B] int8 with "
+                             "unit lane stride")
+        n_rows = res_jump.shape[0] - 1
+        tables += [res_row_map, res_jump, res_choice]
+    if any(t.device != dev for t in tables):
+        raise ValueError("extract_paths_cls: every table must lie on the class table's device")
+    path = torch.empty((max_len, B), dtype=torch.int64, device=dev)
+    valid = torch.empty((max_len, B), dtype=torch.bool, device=dev)
+    if B == 0:
+        return path.T, valid.T
+    steps = torch.empty(B, dtype=torch.int32, device=dev) if timer is not None else None
+    starts = start_v.to(torch.int64).contiguous()
+    goals = goal_v.to(torch.int64).contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    err = kernels.launcher("walk")(
+        cls_vb.data_ptr(), cls_vb.stride(0), cls_vb.shape[0], starts.data_ptr(),
+        goals.data_ptr(), ptr(res_row_map), ptr(res_jump), ptr(res_choice),
+        res_choice.stride(0) if residual else 0, n_rows, path.data_ptr(), valid.data_ptr(),
+        ptr(steps), B, max_len, C, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check("walk", err)
+    kernels.LAUNCHES["walk"] += 1
+    if steps is not None:
+        longest, total = torch.stack((steps.max().long(), steps.sum())).tolist()
+        kernels.LAUNCHES["walk_steps"] += longest
+        kernels.LAUNCHES["walk_lane_steps"] += total
+    return path.T, valid.T
+
+
+def extract_paths_cls_plain(
+    cls_vb: torch.Tensor,
+    start_v: torch.Tensor,
+    goal_v: torch.Tensor,
+    max_len: int,
+    C: int,
+    *,
+    chunk: int = 256,
+    res_row_map: torch.Tensor | None = None,
+    res_jump: torch.Tensor | None = None,
+    res_choice: torch.Tensor | None = None,
+    timer=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of extract_paths_cls, on any device: chunks of
+    `chunk` steps, with one host check of any(alive) before each.
+    kernels.LAUNCHES["walk_steps"] gains the steps run (chunks times
+    `chunk`); given a `timer`, "walk_lane_steps" gains the steps in which a
+    lane still walked, summed over the lanes (one reduction and one host
+    read)."""
     dev = start_v.device
     B = start_v.shape[0]
     lane = torch.arange(B, device=dev)

@@ -21,10 +21,14 @@ deferring and unskipped modes under "banded_pass_partial",
 `LAUNCHES` also counts three events of the solve and the walk
 (EVENT_COUNTS), each declared here, so a caller that takes the difference
 of two copies finds every key in both:
-- "walk_steps": the steps banded_gpu.extract_paths_cls ran (its chunks
-  run times the chunk), always;
-- "walk_lane_steps": the steps in which a lane was still walking, summed
-  over its lanes, only when the walk is given a timer;
+- "walk_steps": the steps banded_gpu.extract_paths_cls ran. On the CPU, the
+  plain loop's chunks run times the chunk, always; on the card, the
+  longest lane's walked steps (its valid steps, exact), only when the walk
+  is given a timer (the one launch of csrc/walk.cu counts each lane's
+  steps, and one reduction and one host read give this count and the
+  next; without a timer the card's walk reads nothing back);
+- "walk_lane_steps": the steps in which a lane was still walking (valid's
+  sum), summed over its lanes, only when the walk is given a timer;
 - "banded_pass_rows": the (8-lane block, row) pairs that the pass's blocks
   walked, from the kernel's own count (the plain pass's on the CPU), only
   when banded_gpu.banded_solve_padded is given a timer.
@@ -46,6 +50,7 @@ SOURCES = {
     "check": "check.cu",
     "eik_pass": "eik_pass.cu",
     "fused_sweep": "fused_sweep.cu",
+    "walk": "walk.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,6 +85,7 @@ _SIGNATURES = {
                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _F, _F, _P]),
     "fused_sweep": ("fused_sweep_launch", [_P, _I, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
+    "walk": ("walk_launch", [_P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _L, _P]),
 }
 # launch-shape queries a kernel's library also exports (the first is the
 # kernel's default query)

@@ -1811,3 +1811,146 @@ def test_new_pass_modes_hold_launch_after_launch(cuda):
             assert torch.equal(d_k, d_p)
             assert dirty_k is None or torch.equal(dirty_k, dirty_p)
             assert bool(chg_k.item()) == bool(chg_p.item()) and int(wk.item()) == int(wp.item())
+
+
+def _walk_case(kind, device, B=45):
+    """A class table on the card for the walk kernel: a gridded plan or a
+    band-reordered irregular plan (class 9 decoded through its residual
+    tables), both with scattered walls, solved from B seeds; and B starts:
+    lane 0 at its goal, lane 1 at a vertex whose class is 8 and that is not
+    its goal (unreachable), the irregular plan's other lanes at a class-9
+    vertex of their own column where there is one, the rest random.
+    Returns (cls [V, Bp] int8, decode, starts, seeds, C)."""
+    from mesh_navigation_torch.mesh import reorder
+
+    if kind == "grid":
+        v, f = synthetic.terrain_mesh(48, 40, spacing=0.5, hills=2.0, roughness=0.01, seed=0)
+        mesh = build_mesh(v, f, device=device)
+    else:
+        v, f = synthetic.irregular_terrain_mesh(32, 32, spacing=0.5, hills=1.0, seed=4)
+        mesh = reorder.build_reordered_mesh(v, f, device=device)
+    V = mesh.num_vertices
+    nz = np.clip(host_array(mesh, "vertex_normals")[:, 2], -1.0, 1.0)
+    costs = np.arccos(nz).astype(np.float32)
+    wall = (np.arange(V) % 97) == 5
+    costs[wall] = np.inf
+    W = sweeps.slot_weights_np(mesh, costs, cost_limit=2.0, edge_cost_factor=1.0)
+    plan = bg.build_banded_kernel_plan(mesh, W)
+    assert bool(plan.n_residual) == (kind == "irregular")
+    rng = np.random.default_rng(3)
+    seeds = rng.choice(np.flatnonzero(~wall), B)
+    seeds_d = torch.from_numpy(seeds).to(device)
+    if kind == "grid":
+        res = bg.banded_solve_padded(plan, seeds_d, atol=ATOL, rtol=RTOL, converge="pred")
+        cls, decode = res.cls, {}
+    else:
+        res = bg.banded_solve_padded(plan, seeds_d, atol=ATOL, rtol=RTOL, converge="round")
+        cls, choice = bg.predecessors_banded_classes_residual(plan, res.d_pad, tol=3 * RTOL)
+        decode = dict(res_row_map=plan.res_row_map, res_jump=plan.res_jump, res_choice=choice)
+    assert res.converged and cls.shape[1] > B
+    cls_h = cls.cpu()
+    starts = rng.integers(0, V, B)
+    starts[0] = seeds[0]
+    stuck = torch.nonzero((cls_h[:, 1] == 8) & (torch.arange(V) != int(seeds[1]))).flatten()
+    starts[1] = int(stuck[0])
+    if kind == "irregular":
+        nines = 0
+        for b in range(2, B):
+            at = torch.nonzero(cls_h[:, b] == 9).flatten()
+            if len(at):
+                starts[b], nines = int(at[0]), nines + 1
+        assert nines >= B // 4
+    return cls, decode, torch.from_numpy(starts).to(device), seeds_d, plan.n_cols
+
+
+@pytest.mark.parametrize("B", [45, 33])
+@pytest.mark.parametrize("kind", ["grid", "irregular"])
+def test_walk_kernel_matches_the_plain_loop_bit_for_bit(cuda, kind, B):
+    """The walk kernel against its plain loop on the card, path for path
+    and bit for bit (path and valid), on a gridded plan and on an irregular
+    plan whose walks decode class 9, at lane counts that are not a multiple
+    of 32 and below the table's padded lanes: once with room for every
+    path (600 steps) and once with a max_len that cuts the longest lanes
+    off and that others end before. Lane 0 starts at its goal and lane 1
+    cannot reach its own: each walks one step. Each walk is one launch."""
+    cls, decode, starts, seeds, C = _walk_case(kind, cuda)
+    starts, seeds = starts[:B], seeds[:B]
+    steps = None
+    for max_len in (600, None):
+        if max_len is None:
+            max_len = int(steps.max()) - 4
+            assert bool((steps > max_len).any()) and bool((steps < max_len).any())
+        assert max_len % 256
+        before = kernels.LAUNCHES["walk"]
+        pk, vk = bg.extract_paths_cls(cls, starts, seeds, max_len, C, **decode)
+        assert kernels.LAUNCHES["walk"] == before + 1
+        pp, vp = bg.extract_paths_cls_plain(cls, starts, seeds, max_len, C, **decode)
+        assert pk.shape == (B, max_len) and pk.dtype == torch.int64 and vk.dtype == torch.bool
+        assert torch.equal(vk, vp), int((vk != vp).sum())
+        assert torch.equal(pk, pp), int((pk != pp).sum())
+        if steps is None:
+            steps = vk.sum(dim=1)
+            assert int(steps[0]) == 1 and int(steps[1]) == 1
+            assert bool((steps < max_len).all())
+
+
+def test_walk_kernel_reads_back_only_with_a_timer(cuda):
+    """Two launches back to back give the same paths and make no host read
+    (synchronising calls raise); each adds one to LAUNCHES["walk"] and
+    neither counts steps. Given a timer, the walk makes exactly one host
+    read and counts the longest lane's walked steps under "walk_steps" and
+    all lanes' under "walk_lane_steps"."""
+    import warnings
+
+    from mesh_navigation_torch.utils.timing import StageTimer
+
+    cls, decode, starts, seeds, C = _walk_case("irregular", cuda)
+    bg.extract_paths_cls(cls, starts, seeds, 300, C, **decode)      # built and bound
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = bg.extract_paths_cls(cls, starts, seeds, 300, C, **decode)
+        second = bg.extract_paths_cls(cls, starts, seeds, 300, C, **decode)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.LAUNCHES["walk"] == before["walk"] + 2
+    for key in ("walk_steps", "walk_lane_steps"):
+        assert kernels.LAUNCHES[key] == before[key], key
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            path, valid = bg.extract_paths_cls(cls, starts, seeds, 300, C,
+                                               timer=StageTimer(cuda), **decode)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    reads = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(reads) == 1, [str(w.message) for w in reads]
+    assert torch.equal(path, first[0]) and torch.equal(valid, first[1])
+    assert kernels.LAUNCHES["walk"] == before["walk"] + 3
+    assert kernels.LAUNCHES["walk_steps"] - before["walk_steps"] == int(valid.sum(1).max())
+    assert kernels.LAUNCHES["walk_lane_steps"] - before["walk_lane_steps"] == int(valid.sum())
+
+
+def test_walk_kernel_refuses_tables_it_does_not_take(cuda):
+    """The walk's wrapper raises on a table the kernel does not take: a
+    class table of another type or with lanes not contiguous, a residual
+    decode with a table missing or of another type or device, float
+    starts."""
+    cls, decode, starts, seeds, C = _walk_case("irregular", cuda)
+    bad = [
+        dict(cls_vb=cls.to(torch.int32)),
+        dict(cls_vb=cls.t().contiguous().t()),
+        dict(res_jump=None),
+        dict(res_choice=decode["res_choice"].to(torch.int32)),
+        dict(res_row_map=decode["res_row_map"].long()),
+        dict(res_jump=decode["res_jump"].cpu()),
+        dict(start_v=starts.float()),
+    ]
+    for change in bad:
+        kw = dict(cls_vb=cls, start_v=starts, goal_v=seeds, **decode)
+        kw.update(change)
+        with pytest.raises(ValueError):
+            bg.extract_paths_cls(max_len=64, C=C, **kw)

@@ -115,6 +115,31 @@ def test_walk_counts_its_steps_and_live_lane_steps(timed):
     assert lane_steps == (int(valid.sum()) if timed else 0)
 
 
+@pytest.mark.parametrize("kind", ["grid", "irregular"])
+def test_walk_on_the_cpu_is_the_plain_loop_and_launches_nothing(kind):
+    """On CPU tensors extract_paths_cls runs its plain loop: paths and
+    valid equal extract_paths_cls_plain's bit for bit (the irregular plan
+    decodes class 9 through the residual tables), the walk's steps are
+    counted, and the card's walk kernel is not counted."""
+    mesh, plan, seeds = _case(kind)
+    res = bg.banded_solve_padded(plan, seeds, atol=ATOL, rtol=RTOL, converge="round")
+    if kind == "grid":
+        cls, decode = bg.predecessors_banded_classes(plan, res.d_pad, tol=3 * RTOL), {}
+    else:
+        cls, choice = bg.predecessors_banded_classes_residual(plan, res.d_pad, tol=3 * RTOL)
+        assert int((cls == 9).sum()) > 0
+        decode = dict(res_row_map=plan.res_row_map, res_jump=plan.res_jump, res_choice=choice)
+    starts = torch.from_numpy(np.random.default_rng(5).integers(0, mesh.num_vertices, LANES))
+    before = dict(kernels.LAUNCHES)
+    got = bg.extract_paths_cls(cls, starts, seeds, 3 * N, plan.n_cols, chunk=16, **decode)
+    assert kernels.LAUNCHES["walk"] == before["walk"]
+    assert kernels.LAUNCHES["walk_steps"] > before["walk_steps"]
+    want = bg.extract_paths_cls_plain(cls, starts, seeds, 3 * N, plan.n_cols, chunk=16,
+                                      **decode)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].shape == (LANES, 3 * N) and bool(got[1][:, 0].all())
+
+
 def test_residual_span_is_a_part_of_the_solve_stage():
     """The residual scatter-min's span shows in totals() under its compound
     name, within the solve stage that holds it; with no timer a span is a
